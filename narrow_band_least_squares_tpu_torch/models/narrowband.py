@@ -1,0 +1,507 @@
+"""The narrow-band least-squares pipeline on the device.
+
+Port of ``narrow_band_least_squares_tpu/models/narrowband.py`` for OLS
+(``alpha = 1``).  The whole run is dense batched tensor work over the
+``(band, window, element-pair)`` grid:
+
+    raw (C, T) --rfft--> filter bank (B, C, T) --unfold--> (Bg, Wg, C, Lg)
+      --DFT matmul + icorr_peak--> delays+MdCCM (B, W, P) --2x2 solve-->
+      vel/baz/sigma_tau (B, W)
+
+Ragged per-band window counts live in masks (the reference's dense-prefix +
+``num_compute_list`` contract).  The host builds every constant once, in
+float64, and keeps it on the device in float32: the filter bank, the solve
+matrices, and per window-length bucket the DFT tables and lag bounds.  They
+are the pipeline's state (`state_dict` / `load_state`).
+"""
+
+from __future__ import annotations
+
+import logging
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+import torch
+import torch.nn.functional as Fnn
+
+from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
+from narrow_band_least_squares_tpu_torch.ops import filters as F
+from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
+from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
+from narrow_band_least_squares_tpu_torch.ops.windows import (
+    build_bucket_grids,
+    build_window_grid,
+    extract_windows,
+    extract_windows_strided,
+    extract_windows_strided_bucket,
+)
+from narrow_band_least_squares_tpu_torch.state import state_from_numpy
+from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
+from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
+from narrow_band_least_squares_tpu_torch.utils.plan import NarrowBandPlan
+from narrow_band_least_squares_tpu_torch.utils.timeutils import (
+    epoch_to_datenum,
+    stdict_timestamp_key,
+)
+
+logger = logging.getLogger("nbls_torch")
+
+_OUTPUTS = ("vel", "baz", "sig_tau", "vel_uncert", "baz_uncert")
+
+
+@dataclass
+class NarrowBandResult:
+    """Dense results with the reference's pad-and-mask output contract."""
+
+    vel_array: np.ndarray        # (B, width)
+    baz_array: np.ndarray
+    mdccm_array: np.ndarray
+    t_array: np.ndarray          # matplotlib datenums
+    sig_tau_array: np.ndarray
+    vel_uncert_array: np.ndarray
+    baz_uncert_array: np.ndarray
+    num_compute_list: List[int]
+    flags: Optional[np.ndarray]  # (B, Wmax, P) bool, LTS only
+    pairs: np.ndarray            # (P, 2)
+    nchans: int
+    plan: NarrowBandPlan
+    w_array: Optional[np.ndarray] = None  # (B, F) complex, filter response
+    h_array: Optional[np.ndarray] = None
+
+    def stdict(self, band_prefix: bool = True):
+        """Materialize the reference's LTS flag dictionary (None for OLS)."""
+        if self.flags is None:
+            return None
+        return flags_to_stdict(
+            self.flags, self.t_array, self.num_compute_list, self.pairs,
+            self.nchans, band_prefix=band_prefix,
+        )
+
+
+def band_limit_auto_db(bt_min: float) -> float:
+    """BT-aware band-limit threshold (band_limit_db='auto').
+
+    Neighbouring correlation lobes differ by ~1/(2BT), so the tolerable cc
+    error, and with it the bin-truncation level, scales with the band's
+    time-bandwidth product: ``db = 40 + 95*log10(4.6/BT)``, clipped to
+    [40, 90] (the JAX package's calibration, kept so both give one result).
+    """
+    if bt_min >= 4.6:
+        return 40.0
+    return float(min(90.0, 40.0 + 95.0 * math.log10(4.6 / max(bt_min, 0.05))))
+
+
+def flags_to_stdict(
+    flags: np.ndarray,           # (B, Wmax, P) bool
+    t_array: np.ndarray,         # (B, width) datenums
+    num_compute_list: Sequence[int],
+    pairs: np.ndarray,           # (P, 2) 0-based
+    nchans: int,
+    band_prefix: bool = True,
+) -> Dict[str, object]:
+    """Dense flag tensor -> the reference's string-keyed stdict.
+
+    Keys are 7-decimal stringified window datenums, values 1-based element
+    numbers (one entry per flagged pair touching the element), one 'size'
+    key, and, when band_prefix, keys prefixed "NN_" by 1-based band number.
+    """
+    out: Dict[str, object] = {}
+    B = flags.shape[0]
+    for b in range(B):
+        for w in range(int(num_compute_list[b])):
+            flagged = np.where(flags[b, w])[0]
+            elements: List[int] = []
+            for p in flagged:
+                i, j = pairs[p]
+                elements.extend([int(i) + 1, int(j) + 1])
+            key = stdict_timestamp_key(t_array[b, w])
+            if band_prefix:
+                key = str(b + 1).zfill(2) + "_" + key
+            out[key] = np.asarray(elements, dtype=np.int64)
+    out["size"] = int(nchans)
+    return out
+
+
+def _not_ported(what: str, item: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported to PyTorch yet (ROADMAP.md, {item})"
+    )
+
+
+class NarrowBandPipeline:
+    """Narrow-band (OLS) least-squares pipeline on one device.
+
+    The constructor designs the filter bank, window grids and DFT tables on
+    the host and moves them to ``device``; `run` / `run_raw` execute the step
+    there.  The arguments are the JAX pipeline's.  In this port:
+
+    - ``alpha < 1`` (LTS), ``xcorr_method`` 'fft' and 'fused',
+      ``subsample_delays=True`` and ``window_method='patches'`` raise
+      ``NotImplementedError``;
+    - ``xcorr_method`` 'mxu' and 'pallas' both search lags with the
+      ``icorr_peak`` kernel, on the bucket's dense tables or its stacked
+      ones;
+    - every product is computed in IEEE float32 whatever
+      ``matmul_precision`` says;
+    - ``xcorr_chunk_mb`` and ``xcorr_lag_tile`` are accepted and change
+      nothing: they bound the (B, W, P, nlag) correlation on the TPU, and
+      the kernel never forms it.
+
+    ``device=None`` means ``"cuda"``; without CUDA that raises.  Pass
+    ``device="cpu"`` to run the kernels' plain versions on the CPU.
+    """
+
+    def __init__(
+        self,
+        plan: NarrowBandPlan,
+        rij: np.ndarray,
+        filter_type: str = "cheby1",
+        filter_order: int = 2,
+        filter_ripple: float = 0.01,
+        alpha: float = 1.0,
+        apply_filter: bool = True,
+        dtype=torch.float32,
+        c_steps: int = 4,
+        taper_percentage: float = 0.01,
+        max_lts_candidates: int = 0,
+        xcorr_method: str = "mxu",
+        window_method: str = "strided",
+        max_lag_s: float = None,
+        matmul_precision: str = "high",
+        lts_candidate_chunk: int = 0,
+        lts_funnel_k: int = 0,
+        subsample_delays: bool = False,
+        bucket_bands: bool = True,
+        bucket_ratio: float = 1.3,
+        bucket_slack: float = 1.08,
+        xcorr_chunk_mb: float = 16.0,
+        xcorr_lag_tile: int = 512,
+        band_limit_db: float = 0.0,
+        *,
+        device=None,
+    ):
+        if float(alpha) < 1.0:
+            raise _not_ported("alpha < 1 (LTS)", "Queue 1 item 6")
+        if xcorr_method == "fused":
+            raise _not_ported("xcorr_method='fused'", "Queue 2 item 2")
+        if xcorr_method == "fft":
+            raise _not_ported("xcorr_method='fft'", "Queue 1 item 11")
+        if xcorr_method not in ("mxu", "pallas"):
+            raise ValueError(f"unknown xcorr_method {xcorr_method!r}")
+        if subsample_delays:
+            raise _not_ported("subsample_delays=True", "Queue 1 item 11")
+        if window_method == "patches":
+            raise _not_ported("window_method='patches'", "Queue 1 item 11")
+        if window_method not in ("strided", "gather"):
+            raise ValueError(f"unknown window_method {window_method!r}")
+        if dtype != torch.float32:
+            raise _not_ported(f"dtype={dtype}", "Queue 1 item 11")
+        if matmul_precision not in ("highest", "high", "default"):
+            raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+        del c_steps, max_lts_candidates, lts_candidate_chunk, lts_funnel_k
+        del bucket_ratio, xcorr_chunk_mb, xcorr_lag_tile
+
+        self.device = resolve_device(device)
+        self.plan = plan
+        self.rij = np.asarray(rij, dtype=np.float64)
+        self.alpha = 1.0
+        self.apply_filter = apply_filter
+        self.filter_type = filter_type
+        self.filter_order = filter_order
+        self.filter_ripple = filter_ripple
+        self.dtype = dtype
+        self.xcorr_method = xcorr_method
+        self.window_method = window_method
+        self.max_lag_s = max_lag_s
+        self.matmul_precision = matmul_precision
+        self.nchans = self.rij.shape[1]
+        self.band_limit_db = (
+            "auto" if band_limit_db == "auto" else float(band_limit_db)
+        )
+        st: Dict[str, np.ndarray] = {}   # host constants, see state_dict()
+
+        # ---- geometry / solver constants ----
+        X, pairs = coarray(self.rij)
+        self.X64 = X
+        self.pairs_np = pairs
+        lsq = SOLVE.precompute_lstsq(X)
+        self.XtX_inv64 = lsq["XtX_inv"]
+        st["X"], st["pinv"], st["XtX_inv"] = X, lsq["pinv"], lsq["XtX_inv"]
+
+        # ---- filter bank ----
+        self.zerophase = filter_type == "butter"
+        self.sos_list = None
+        if apply_filter:
+            edges = [plan.edges(b) for b in range(plan.nbands)]
+            h_bank, self.sos_list, L = F.build_filter_bank(
+                edges, filter_type, filter_order, filter_ripple,
+                plan.fs, plan.npts,
+            )
+            st["h_bank"] = h_bank
+            self.nfft_filter = F.next_pow2(plan.npts + L)
+            for b, bt in enumerate(plan.bt_products()):
+                if bt < 5.0:
+                    lo, hi = plan.edges(b)
+                    logger.warning(
+                        "CAUTION: BT < 5! Band between %s Hz and %s Hz has BT = %s",
+                        lo, hi, bt,
+                    )
+        st["taper"] = F.taper_window(plan.npts, taper_percentage)
+
+        # ---- window grid ----
+        grid = build_window_grid(plan)
+        self.grid = grid
+        st["win_mask"] = grid.win_mask
+        max_lag = None
+        if max_lag_s is not None:
+            max_lag = min(int(max_lag_s * plan.fs), grid.Lmax - 1)
+        if self.band_limit_db and (xcorr_method != "mxu" or self.sos_list is None):
+            logger.warning(
+                "band_limit_db needs xcorr_method='mxu' and an in-pipeline "
+                "filter bank (apply_filter=True); ignoring"
+            )
+            self.band_limit_db = 0.0
+
+        def tables(Lmax, lengths, band_idx):
+            bml = min(max_lag, Lmax - 1) if max_lag is not None else None
+            if xcorr_method == "pallas":
+                tab = XC.precompute_pallas_tables(
+                    Lmax, lengths, dtype=np.float32, max_lag=bml,
+                )
+                return {k: tab[k] for k in ("Cf", "Sf", "e2", "lo", "hi")}, \
+                    tab["lag_min"]
+            tab = XC.precompute_dft_tables(Lmax, dtype=np.float32, max_lag=bml)
+            if self.band_limit_db:
+                if self.band_limit_db == "auto":
+                    bts = plan.bt_products()
+                    db = band_limit_auto_db(min(bts[int(b)] for b in band_idx))
+                else:
+                    db = float(self.band_limit_db)
+                kmin, kmax = XC.band_limit_bins(
+                    self.sos_list, band_idx, tab["nfft"], plan.fs, db,
+                    zerophase=self.zerophase,
+                )
+                tab = XC.slice_tables_bins(tab, kmin, kmax)
+            return {k: tab[k] for k in ("Cf", "Sf", "Ec", "Es")}, tab["lag_min"]
+
+        self.bucket_bands = bool(bucket_bands)
+        self._buckets: List[dict] = []
+        if self.bucket_bands:
+            bgrids = build_bucket_grids(plan, max_lag=max_lag, slack=bucket_slack)
+            for i, g in enumerate(bgrids):
+                tab, lag_min = tables(g.Lmax, g.lengths, g.band_idx)
+                pre = f"bucket{i}."
+                for k, v in tab.items():
+                    st[pre + k] = v
+                st[pre + "len_mask"] = g.len_mask
+                st[pre + "lengths"] = g.lengths.astype(np.float64)
+                if xcorr_method == "mxu":
+                    st[pre + "lag_mask"] = g.lag_mask
+                if window_method == "gather":
+                    st[pre + "idx"] = g.idx
+                self._buckets.append({"grid": g, "prefix": pre,
+                                      "lag_min": lag_min})
+            order = np.concatenate([g.band_idx for g in bgrids])
+            st["bucket_inv_perm"] = np.argsort(order).astype(np.int32)
+        else:
+            tab, self._lag_min = tables(grid.Lmax, grid.lengths,
+                                        range(plan.nbands))
+            for k, v in tab.items():
+                st["tables." + k] = v
+            st["tables.len_mask"] = grid.len_mask
+            st["tables.lengths"] = grid.lengths.astype(np.float64)
+            if xcorr_method == "mxu":
+                lag_mask = grid.lag_mask
+                if max_lag is not None:
+                    c = grid.Lmax - 1
+                    lag_mask = lag_mask[:, c - max_lag: c + max_lag + 1]
+                st["tables.lag_mask"] = lag_mask
+            if window_method == "gather":
+                st["tables.idx"] = grid.idx
+
+        # ---- window timestamps (host) ----
+        self._t_epoch_rel = np.zeros((plan.nbands, plan.width))
+        for b, wp in enumerate(plan.windows):
+            self._t_epoch_rel[b, : wp.n_windows] = wp.end_times_epoch(0.0, plan.fs)
+
+        self._pairs = torch.as_tensor(pairs, dtype=torch.int64, device=self.device)
+        self.load_state(state_from_numpy(st))
+
+    # ------------------------------------------------------------------
+    def state_dict(self) -> Dict[str, torch.Tensor]:
+        """The pipeline's host-built constants, by name (tensors on its device).
+
+        ``h_bank``, ``taper``, ``X``, ``pinv``, ``XtX_inv``, ``win_mask``; with
+        bucketing, per bucket ``bucket{i}.`` + ``Cf``/``Sf`` and ``Ec``/``Es``
+        ('mxu') or ``e2``/``lo``/``hi`` ('pallas'), ``len_mask``, ``lengths``,
+        ``lag_mask`` ('mxu'), ``idx`` ('gather'), and ``bucket_inv_perm``;
+        without bucketing the same names under ``tables.``.
+        """
+        return dict(self._state)
+
+    def load_state(self, state: Dict[str, torch.Tensor]) -> None:
+        """Replace the constants with ``state`` (same names and shapes as
+        `state_dict`), moved to this pipeline's device."""
+        if hasattr(self, "_state"):
+            missing = set(self._state) - set(state)
+            if missing:
+                raise KeyError(f"state lacks {sorted(missing)}")
+            for k, v in state.items():
+                if k in self._state and tuple(v.shape) != tuple(self._state[k].shape):
+                    raise ValueError(
+                        f"state[{k!r}] has shape {tuple(v.shape)}, "
+                        f"expected {tuple(self._state[k].shape)}"
+                    )
+        self._state = {k: v.to(self.device) for k, v in state.items()}
+        # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu')
+        self._e2 = {}
+        if self.xcorr_method == "mxu":
+            for pre in ([b["prefix"] for b in self._buckets]
+                        if self.bucket_bands else ["tables."]):
+                self._e2[pre] = XC.stack_inverse_table(
+                    self._state[pre + "Ec"], self._state[pre + "Es"]
+                )
+
+    # ------------------------------------------------------------------
+    def _xcorr(self, win: torch.Tensor, pre: str, lag_min: int):
+        s = self._state
+        if self.xcorr_method == "pallas":
+            tab = {k: s[pre + k] for k in ("Cf", "Sf", "e2", "lo", "hi")}
+            tab["lag_min"] = lag_min
+            return XC.cross_correlate_pallas(win, self._pairs, tab, self.plan.fs)
+        tab = {"Cf": s[pre + "Cf"], "Sf": s[pre + "Sf"],
+               "e2": self._e2[pre], "lag_min": lag_min}
+        return XC.cross_correlate_mxu(win, self._pairs, s[pre + "lag_mask"],
+                                      tab, self.plan.fs)
+
+    def _delays(self, y: torch.Tensor):
+        """Filtered bank (B, C, T) -> (tau, rho, mdccm) over the window grid."""
+        if self.bucket_bands:
+            return self._xcorr_bucketed(y)
+        s = {k[len("tables."):]: v for k, v in self._state.items()
+             if k.startswith("tables.")}
+        if self.window_method == "strided":
+            win = extract_windows_strided(y, self.plan, s["len_mask"], s["lengths"])
+        else:
+            win = extract_windows(y, s["idx"], s["len_mask"], s["lengths"])
+        return self._xcorr(win, "tables.", self._lag_min)
+
+    def _xcorr_bucketed(self, y: torch.Tensor):
+        """Per-window-length bucket xcorr on compact (Wmax_g, Lmax_g) grids,
+        re-assembled into the full (B, Wmax, P) grid in band order."""
+        plan = self.plan
+        Wmax = plan.max_windows
+        s = self._state
+        taus, rhos, mds = [], [], []
+        for bk in self._buckets:
+            g, pre = bk["grid"], bk["prefix"]
+            if self.window_method == "strided":
+                win = extract_windows_strided_bucket(
+                    y, plan.windows, g, s[pre + "len_mask"], s[pre + "lengths"],
+                )
+            else:
+                bidx = torch.as_tensor(g.band_idx, dtype=torch.int64,
+                                       device=y.device)
+                win = extract_windows(
+                    y[bidx], s[pre + "idx"], s[pre + "len_mask"],
+                    s[pre + "lengths"],
+                )
+            tau, rho, md = self._xcorr(win, pre, bk["lag_min"])
+            pad = Wmax - tau.shape[1]
+            if pad:
+                tau = Fnn.pad(tau, (0, 0, 0, pad))
+                rho = Fnn.pad(rho, (0, 0, 0, pad))
+                md = Fnn.pad(md, (0, pad))
+            taus.append(tau)
+            rhos.append(rho)
+            mds.append(md)
+        inv = s["bucket_inv_perm"].long()
+        return (torch.cat(taus)[inv], torch.cat(rhos)[inv], torch.cat(mds)[inv])
+
+    def _solve_masked(self, tau, mdccm, win_mask=None):
+        """Slowness solve + window-validity masking."""
+        s = self._state
+        out = SOLVE.ols_solve(tau, s["X"], s["pinv"], s["XtX_inv"])
+        wm = s["win_mask"] if win_mask is None else win_mask
+        zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
+        res = {k: torch.where(wm, out[k], zero) for k in _OUTPUTS}
+        res["mdccm"] = torch.where(wm, mdccm, zero)
+        return res
+
+    def _step(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        s = self._state
+        x = x.to(self.dtype)
+        if self.apply_filter:
+            y = F.filter_bank_fft(x, s["h_bank"], s["taper"], self.nfft_filter,
+                                  self.zerophase)
+        else:
+            # ltsva contract: the caller already filtered and tapered the data
+            y = x[None].expand((self.plan.nbands,) + tuple(x.shape))
+        tau, rho, mdccm = self._delays(y)
+        return self._solve_masked(tau, mdccm)
+
+    def _to_device(self, data: np.ndarray) -> torch.Tensor:
+        # cast on the host, as the JAX pipeline does, then copy
+        return torch.as_tensor(np.asarray(data, dtype=np.float32)).to(self.device)
+
+    # ------------------------------------------------------------------
+    def run(self, st: ArrayStream, freq_resp_list: Optional[np.ndarray] = None
+            ) -> NarrowBandResult:
+        """Execute on one ArrayStream (shape-checked against the plan)."""
+        if st.npts != self.plan.npts:
+            raise ValueError(
+                f"stream has {st.npts} samples but plan was built for {self.plan.npts}"
+            )
+        dev = self._step(self._to_device(st.data))
+        return self._package(dev, st.start_epoch, freq_resp_list)
+
+    def run_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Raw device outputs for one (C, T) array (benchmark path)."""
+        return self._step(self._to_device(data))
+
+    def run_batch_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Raw device outputs for a batch (A, C, T) of arrays, stacked on a
+        leading axis."""
+        x = self._to_device(data)
+        outs = [self._step(x[a]) for a in range(x.shape[0])]
+        return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
+
+    # ------------------------------------------------------------------
+    def _package(
+        self, dev: Dict[str, torch.Tensor], start_epoch: float,
+        freq_resp_list: Optional[np.ndarray],
+    ) -> NarrowBandResult:
+        plan = self.plan
+        B, width, Wmax = plan.nbands, plan.width, plan.max_windows
+
+        def dense(name):
+            a = np.zeros((B, width))
+            a[:, :Wmax] = dev[name].detach().cpu().numpy().astype(np.float64)
+            return a
+
+        t_array = epoch_to_datenum(
+            np.where(self._t_epoch_rel > 0, self._t_epoch_rel + start_epoch, 0.0)
+        )
+        w_array = h_array = None
+        if self.sos_list is not None and freq_resp_list is not None:
+            w_array, h_array = F.sosfreqz_bank(
+                self.sos_list, np.asarray(freq_resp_list), plan.fs
+            )
+        return NarrowBandResult(
+            vel_array=dense("vel"),
+            baz_array=dense("baz"),
+            mdccm_array=dense("mdccm"),
+            t_array=t_array,
+            sig_tau_array=dense("sig_tau"),
+            vel_uncert_array=dense("vel_uncert"),
+            baz_uncert_array=dense("baz_uncert"),
+            num_compute_list=list(plan.num_compute_list),
+            flags=None,
+            pairs=self.pairs_np,
+            nchans=self.nchans,
+            plan=plan,
+            w_array=w_array,
+            h_array=h_array,
+        )

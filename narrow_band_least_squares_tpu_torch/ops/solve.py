@@ -1,0 +1,132 @@
+"""Batched slowness inversion: closed-form 2-parameter least squares.
+
+Port of ``narrow_band_least_squares_tpu/ops/solve.py`` (OLS half).  The
+co-array system ``tau = X s`` has two unknowns, so the per-window ``lstsq``
+of the reference's solver is one product with a precomputed pseudo-inverse,
+batched over every (band, window) cell.  sigma_tau and the 1-sigma
+velocity/back-azimuth uncertainties come from the same residuals.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+
+SIGMA_TAU_DOF_SHIFT = 2  # matches oracle.ltsva.SIGMA_TAU_DOF_SHIFT
+
+
+def precompute_lstsq(X: np.ndarray) -> Dict[str, np.ndarray]:
+    """Host-side constants for the batched solve: pinv and (X^T X)^-1."""
+    XtX = X.T @ X
+    XtX_inv = np.linalg.inv(XtX)
+    pinv = XtX_inv @ X.T              # (2, P)
+    return {"X": X, "pinv": pinv, "XtX_inv": XtX_inv}
+
+
+def vel_baz_from_slowness(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """s: (..., 2) slowness [s/km] -> (trace velocity [km/s], back-azimuth [deg]).
+
+    ``vel`` is NaN where |s| = 0; ``baz`` lies in [0, 360) (``remainder``
+    takes the sign of the divisor, as ``%`` does in JAX and NumPy).
+    """
+    sx, sy = s[..., 0], s[..., 1]
+    smag = torch.sqrt(sx * sx + sy * sy)
+    vel = torch.where(smag > 0, 1.0 / torch.clamp(smag, min=1e-30),
+                      torch.full_like(smag, float("nan")))
+    baz = torch.remainder(torch.rad2deg(torch.atan2(-sx, -sy)), 360.0)
+    return vel, baz
+
+
+def ols_solve(
+    tau: torch.Tensor,       # (..., P)
+    X: torch.Tensor,         # (P, 2)
+    pinv: torch.Tensor,      # (2, P)
+    XtX_inv: torch.Tensor,   # (2, 2)
+) -> Dict[str, torch.Tensor]:
+    """Batched OLS.  Returns vel, baz, sig_tau, vel_uncert, baz_uncert, s, resid."""
+    P = tau.shape[-1]
+    s = torch.einsum("kp,...p->...k", pinv, tau)
+    resid = tau - torch.einsum("pk,...k->...p", X, s)
+    dof = max(P - SIGMA_TAU_DOF_SHIFT, 1)
+    sigma2 = torch.sum(resid * resid, dim=-1) / dof
+    sig_tau = torch.sqrt(sigma2)
+    vel, baz = vel_baz_from_slowness(s)
+    vel_uncert, baz_uncert = uncertainties(s, sigma2, XtX_inv)
+    return {
+        "vel": vel, "baz": baz, "sig_tau": sig_tau,
+        "vel_uncert": vel_uncert, "baz_uncert": baz_uncert,
+        "s": s, "resid": resid,
+    }
+
+
+def uncertainties(
+    s: torch.Tensor,         # (..., 2)
+    sigma2: torch.Tensor,    # (...)
+    XtX_inv: torch.Tensor,   # (2, 2)
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """1-sigma vel/baz uncertainties: linearized slowness-ellipse propagation."""
+    sx, sy = s[..., 0], s[..., 1]
+    smag2 = torch.clamp(sx * sx + sy * sy, min=1e-30)
+    smag = torch.sqrt(smag2)
+    # cov = sigma2 * XtX_inv; quadratic forms g^T cov g
+    a, b_, c = XtX_inv[0, 0], XtX_inv[0, 1], XtX_inv[1, 1]
+
+    gvx = -sx / (smag2 * smag)
+    gvy = -sy / (smag2 * smag)
+    var_v = sigma2 * (a * gvx * gvx + 2 * b_ * gvx * gvy + c * gvy * gvy)
+
+    gtx = -sy / smag2
+    gty = sx / smag2
+    var_t = sigma2 * (a * gtx * gtx + 2 * b_ * gtx * gty + c * gty * gty)
+
+    return (torch.sqrt(torch.clamp(var_v, min=0.0)),
+            torch.rad2deg(torch.sqrt(torch.clamp(var_t, min=0.0))))
+
+
+def chi2_ellipse_uncertainties(
+    vel: np.ndarray,         # (...) trace velocity [km/s]
+    baz: np.ndarray,         # (...) back-azimuth [deg]
+    sig_tau: np.ndarray,     # (...) delay-residual RMS [s]
+    XtX_inv: np.ndarray,     # (2, 2) or (..., 2, 2) normal-matrix inverse
+    conf: float = 0.90,
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Szuberla & Olson (2004) slowness-plane confidence-ellipse intervals.
+
+    The (1 - conf) confidence region of the slowness estimate is the ellipse
+    ``{ds : ds^T C^-1 ds <= 1}`` with
+    ``C = chi2_ppf(conf, 2) * sig_tau^2 * (X^T X)^-1``
+    (chi2_ppf(q, 2) = -2 ln(1 - q)).  The velocity interval comes from the
+    ellipse's radial extent, the back-azimuth interval from its angular
+    extent seen from the origin.  Host-side NumPy: the intervals are an
+    API-boundary product.
+    """
+    vel = np.asarray(vel, dtype=np.float64)
+    baz = np.asarray(baz, dtype=np.float64)
+    sig_tau = np.asarray(sig_tau, dtype=np.float64)
+    XtX_inv = np.asarray(XtX_inv, dtype=np.float64)
+    k = -2.0 * np.log1p(-float(conf))          # chi2.ppf(conf, 2)
+    with np.errstate(divide="ignore", invalid="ignore"):
+        smag = np.where(vel > 0, 1.0 / np.maximum(vel, 1e-30), np.inf)
+    az = np.radians(baz)
+    # s = -|s| (sin az, cos az); u = radial unit vector, t = tangential
+    ux, uy = -np.sin(az), -np.cos(az)
+    tx, ty = -uy, ux
+    a = XtX_inv[..., 0, 0]
+    b_ = XtX_inv[..., 0, 1]
+    c = XtX_inv[..., 1, 1]
+    C_scale = k * sig_tau * sig_tau
+    d_r = np.sqrt(
+        np.maximum(C_scale * (a * ux * ux + 2 * b_ * ux * uy + c * uy * uy), 0.0)
+    )
+    d_t = np.sqrt(
+        np.maximum(C_scale * (a * tx * tx + 2 * b_ * tx * ty + c * ty * ty), 0.0)
+    )
+    lo = 1.0 / (smag + d_r)
+    hi = np.where(smag > d_r, 1.0 / np.maximum(smag - d_r, 1e-30), np.inf)
+    vel_ci = 0.5 * (hi - lo)                   # half-width of the interval
+    with np.errstate(invalid="ignore"):
+        baz_ci = np.degrees(np.arcsin(np.clip(d_t / smag, 0.0, 1.0)))
+    baz_ci = np.where(d_t >= smag, 180.0, baz_ci)  # ellipse encloses origin
+    return vel_ci, baz_ci

@@ -1,0 +1,233 @@
+"""Batched inter-element delay estimation: DFT-as-matmul cross-correlation.
+
+Port of ``narrow_band_least_squares_tpu/ops/xcorr.py``.  Every
+(band, window, element-pair) cell is one row of a batched computation:
+
+    spectra:      F  = win @ [Cf | Sf]                 (torch.matmul, fp32)
+    cross-spec:   CS = F_j * conj(F_i)
+    correlation:  cc = [Re CS | Im CS] @ [Ec ; -Es]    (icorr_peak)
+    delay:        tau = (first argmax over the band's lags + lag_min) / fs
+    rho = peak / sqrt(E_i * E_j),  MdCCM = median over pairs of rho
+
+The last two lines of the chain run in the ``icorr_peak`` kernel, which
+never writes the (rows, lags) correlation out.  Conventions are those of the
+reference: ``cc_p(l) = sum_t x_j(t + l) x_i(t)``, lags ascending, the first
+maximum wins.  Tables are built in float64 on the host and cast to float32.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import numpy as np
+import torch
+import torch.nn.functional as Fnn
+
+from narrow_band_least_squares_tpu_torch.ops.kernels.xcorr_peak import icorr_peak
+from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
+
+
+def band_limit_bins(
+    sos_list, band_idx, nfft: int, fs: float, limit_db: float,
+    zerophase: bool = False,
+) -> Tuple[int, int]:
+    """Contiguous DFT-bin range covering the bands' filter passbands.
+
+    Returns (kmin, kmax) such that every bin where ANY of the bands'
+    magnitude responses exceeds ``-limit_db`` dB of the group peak is inside
+    the range.  The DFT-as-matmul form then only needs those table rows.
+    """
+    from scipy import signal as _sig
+
+    K = nfft // 2 + 1
+    freqs = np.arange(K) * fs / nfft
+    mag = np.zeros(K)
+    for b in band_idx:
+        _, h = _sig.sosfreqz(sos_list[int(b)], worN=freqs, fs=fs)
+        m = np.abs(h)
+        if zerophase:
+            m = m * m
+        mag = np.maximum(mag, m)
+    thresh = mag.max() * 10.0 ** (-float(limit_db) / 20.0)
+    keep = np.flatnonzero(mag >= thresh)
+    if len(keep) == 0:
+        return 0, K - 1
+    return int(keep[0]), int(keep[-1])
+
+
+def slice_tables_bins(tab: Dict[str, np.ndarray], kmin: int, kmax: int
+                      ) -> Dict[str, np.ndarray]:
+    """Restrict DFT matmul tables to bin rows [kmin, kmax]."""
+    K = tab["Cf"].shape[1]
+    kmax = min(kmax, K - 1)
+    sl = slice(kmin, kmax + 1)
+    out = dict(tab)
+    out["Cf"] = tab["Cf"][:, sl]
+    out["Sf"] = tab["Sf"][:, sl]
+    out["Ec"] = tab["Ec"][sl]
+    out["Es"] = tab["Es"][sl]
+    return out
+
+
+def precompute_dft_tables(Lmax: int, dtype=np.float32,
+                          nfft: int | None = None,
+                          max_lag: int | None = None) -> Dict[str, np.ndarray]:
+    """DFT matmul tables.  ``max_lag`` restricts the evaluated lag range to
+    ``[-max_lag, max_lag]``."""
+    n = int(nfft) if nfft else 2 * Lmax  # >= 2*Lmax - 1
+    K = n // 2 + 1
+    t = np.arange(Lmax)[:, None]                    # (L, 1)
+    k = np.arange(K)[None, :]                       # (1, K)
+    ang_f = 2.0 * np.pi * t * k / n
+    Cf = np.cos(ang_f)
+    Sf = np.sin(ang_f)
+
+    half = Lmax - 1 if max_lag is None else min(int(max_lag), Lmax - 1)
+    lags = np.arange(-half, half + 1)               # ascending, 'full' order
+    m = np.mod(lags, n)[None, :]                    # (1, nlag)
+    w = np.full((K, 1), 2.0)
+    w[0, 0] = 1.0
+    if n % 2 == 0:
+        w[-1, 0] = 1.0
+    ang_i = 2.0 * np.pi * np.arange(K)[:, None] * m / n
+    Ec = (w / n) * np.cos(ang_i)
+    Es = (w / n) * np.sin(ang_i)
+    return {
+        "Cf": Cf.astype(dtype), "Sf": Sf.astype(dtype),
+        "Ec": Ec.astype(dtype), "Es": Es.astype(dtype),
+        "nfft": n, "lag_min": int(lags[0]),
+    }
+
+
+def _round_up_128(x: int) -> int:
+    return ((x + 127) // 128) * 128
+
+
+def stack_inverse_table(Ec: np.ndarray | torch.Tensor,
+                        Es: np.ndarray | torch.Tensor):
+    """``e2 = [Ec ; -Es]`` with rows zero-padded to a multiple of 128: the
+    inverse-DFT operand of ``icorr_peak``."""
+    K, nlag = Ec.shape
+    K2p = _round_up_128(2 * K)
+    if isinstance(Ec, torch.Tensor):
+        e2 = torch.cat([Ec, -Es], dim=0)
+        return Fnn.pad(e2, (0, 0, 0, K2p - 2 * K)).contiguous()
+    e2 = np.zeros((K2p, nlag), dtype=Ec.dtype)
+    e2[:K] = Ec
+    e2[K:2 * K] = -Es
+    return e2
+
+
+def precompute_pallas_tables(
+    Lmax: int, band_lengths: np.ndarray, dtype=np.float32,
+    max_lag: int | None = None,
+) -> Dict[str, np.ndarray]:
+    """Stacked/padded DFT tables + per-band lag bounds for ``icorr_peak``.
+
+    ``max_lag`` caps the evaluated lag range to ``[-max_lag, max_lag]``,
+    exactly like `precompute_dft_tables`."""
+    half = Lmax - 1 if max_lag is None else min(int(max_lag), Lmax - 1)
+    tab = precompute_dft_tables(Lmax, dtype, max_lag=half)
+    K = tab["Cf"].shape[1]
+    e2 = stack_inverse_table(tab["Ec"], tab["Es"])
+    bh = np.minimum(np.asarray(band_lengths) - 1, half)            # (B,)
+    lo = (half - bh).astype(np.int32)
+    hi = (half + bh).astype(np.int32)
+    return {
+        "Cf": tab["Cf"], "Sf": tab["Sf"], "e2": e2,
+        "K": K, "K2p": e2.shape[0], "nlag": 2 * half + 1, "lag_min": -half,
+        "lo": lo, "hi": hi,
+    }
+
+
+def median_last(x: torch.Tensor) -> torch.Tensor:
+    """Median over the last axis, the mean of the two middle values for an
+    even count (``jnp.median``; ``torch.median`` returns the lower one)."""
+    n = x.shape[-1]
+    s = torch.sort(x, dim=-1).values
+    return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
+
+
+def _cross_spectra(win, pairs, Cf, Sf):
+    """Energies (B, W, C) and stacked cross-spectra (B*W*P, 2K)."""
+    B, W, C, Lmax = win.shape
+    energy = torch.sum(win * win, dim=-1)
+    flat = win.reshape(B * W * C, Lmax)
+    with fp32_matmul():
+        ReF = torch.matmul(flat, Cf).reshape(B, W, C, -1)
+        ImF = (-torch.matmul(flat, Sf)).reshape(B, W, C, -1)
+    i, j = pairs[:, 0], pairs[:, 1]
+    ReI, ImI = ReF[:, :, i, :], ImF[:, :, i, :]
+    ReJ, ImJ = ReF[:, :, j, :], ImF[:, :, j, :]
+    ReCS = ReJ * ReI + ImJ * ImI                     # F_j * conj(F_i)
+    ImCS = ImJ * ReI - ReJ * ImI
+    K = ReCS.shape[-1]
+    cs2 = torch.cat([ReCS, ImCS], dim=-1).reshape(-1, 2 * K)
+    return energy, cs2
+
+
+def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs):
+    """``icorr_peak`` over every (band, window, pair) row, then tau/rho/MdCCM."""
+    B, W = win.shape[:2]
+    P = pairs.shape[0]
+    cs2 = Fnn.pad(cs2, (0, e2.shape[0] - cs2.shape[1])).contiguous()
+    lo = lo_b[:, None].expand(B, W * P).reshape(-1).contiguous()
+    hi = hi_b[:, None].expand(B, W * P).reshape(-1).contiguous()
+    peak, idx = icorr_peak(cs2, e2, lo, hi)
+    peak = peak.reshape(B, W, P)
+    tau = (idx.reshape(B, W, P).to(win.dtype) + lag_min) / fs
+    Ei = energy[:, :, pairs[:, 0]]
+    Ej = energy[:, :, pairs[:, 1]]
+    denom = torch.sqrt(Ei * Ej)
+    rho = torch.where(denom > 0, peak / denom, torch.zeros_like(peak))
+    return tau, rho, median_last(rho)
+
+
+def cross_correlate_mxu(
+    win: torch.Tensor,       # (B, W, C, Lmax) demeaned, zero-padded windows
+    pairs: torch.Tensor,     # (P, 2) int64
+    lag_mask: torch.Tensor,  # (B, nlag) bool, one contiguous run per band
+    tables: Dict,            # precompute_dft_tables (tensors), "e2" optional
+    fs: float,
+    subsample: bool = False,
+    lag_tile: int = 512,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """DFT-as-matmul cross-correlation.  Returns (tau, rho, mdccm).
+
+    The integer-lag search is ``icorr_peak``: each band's ``lag_mask`` is
+    the contiguous range ``[half - bh, half + bh]``, which becomes the
+    kernel's ``[lo, hi]``.  ``tables["e2"]`` (`stack_inverse_table`) is used
+    when present and built from Ec/Es otherwise.  ``lag_tile`` is accepted
+    for signature parity and changes nothing: the kernel never forms the
+    (rows, lags) correlation that the JAX path tiles.
+    """
+    if subsample:
+        raise NotImplementedError(
+            "subsample_delays=True is not ported yet (ROADMAP.md, Queue 1 "
+            "item 11)"
+        )
+    del lag_tile
+    nlag = lag_mask.shape[-1]
+    m = lag_mask.to(torch.int32)
+    lo = m.argmax(dim=-1).to(torch.int32)
+    hi = (nlag - 1 - m.flip(-1).argmax(dim=-1)).to(torch.int32)
+    e2 = tables.get("e2")
+    if e2 is None:
+        e2 = stack_inverse_table(tables["Ec"], tables["Es"])
+    energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
+    lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
+    return _peak_search(win, pairs, energy, cs2, e2, lo, hi, lag_min, fs)
+
+
+def cross_correlate_pallas(
+    win: torch.Tensor,       # (B, W, C, Lmax)
+    pairs: torch.Tensor,     # (P, 2)
+    tables: Dict,            # precompute_pallas_tables (tensors)
+    fs: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Cross-correlation on the stacked tables of `precompute_pallas_tables`;
+    same contract as `cross_correlate_mxu`."""
+    energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
+    lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
+    return _peak_search(win, pairs, energy, cs2, tables["e2"],
+                        tables["lo"], tables["hi"], lag_min, fs)

@@ -1,0 +1,56 @@
+"""Time conversions.
+
+Downstream consumers of the reference expect window timestamps as matplotlib
+datenums (days since 1970-01-01, matplotlib's default epoch), plotted with
+``xaxis_date`` (reference ``plotting.py:91``) and, for LTS flag dictionaries,
+stringified with 7 decimal places (reference ``plotting.py:923-927``).
+Internally everything is POSIX epoch seconds (float).
+A copy of ``narrow_band_least_squares_tpu/utils/timeutils.py``: the port
+imports nothing of the JAX package, so it keeps its own.
+"""
+
+from __future__ import annotations
+
+from datetime import datetime, timezone
+from typing import Union
+
+import numpy as np
+
+SECONDS_PER_DAY = 86400.0
+
+
+def parse_utc(t: Union[str, float, int, datetime, None]) -> float:
+    """Parse an ISO-8601 string / datetime / epoch number to epoch seconds."""
+    if t is None:
+        return 0.0
+    if isinstance(t, (int, float)):
+        return float(t)
+    if isinstance(t, datetime):
+        if t.tzinfo is None:
+            t = t.replace(tzinfo=timezone.utc)
+        return t.timestamp()
+    s = str(t).strip().replace("Z", "+00:00")
+    dt = datetime.fromisoformat(s)
+    if dt.tzinfo is None:
+        dt = dt.replace(tzinfo=timezone.utc)
+    return dt.timestamp()
+
+
+def epoch_to_datenum(epoch_s: Union[float, np.ndarray]) -> Union[float, np.ndarray]:
+    """POSIX epoch seconds -> matplotlib datenum (days since 1970-01-01)."""
+    return np.asarray(epoch_s, dtype=np.float64) / SECONDS_PER_DAY
+
+
+def datenum_to_epoch(datenum: Union[float, np.ndarray]) -> Union[float, np.ndarray]:
+    """Matplotlib datenum (days since 1970-01-01) -> POSIX epoch seconds."""
+    return np.asarray(datenum, dtype=np.float64) * SECONDS_PER_DAY
+
+
+def stdict_timestamp_key(datenum: float) -> str:
+    """Format a window datenum as an LTS flag-dictionary key.
+
+    The reference's plotting code matches stdict keys against window times by
+    rounding both to 7 decimal places (reference ``plotting.py:923-935``), so
+    keys are written with exactly 7 decimals.
+    """
+    return format(float(datenum), ".7f")

@@ -1,0 +1,88 @@
+"""PyTorch port: import boundaries and device selection.
+
+The port and ``chip_smoke.py`` import neither ``jax`` nor the JAX package;
+importing the port builds no kernel; an entry point given no ``device`` runs
+on CUDA and raises where CUDA is absent, never falling back to the CPU.
+"""
+
+import ast
+import pathlib
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT = ROOT / "narrow_band_least_squares_tpu_torch"
+FORBIDDEN = ("jax", "jaxlib", "narrow_band_least_squares_tpu")
+
+
+def _imports(path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+FILES = sorted(PORT.rglob("*.py")) + [ROOT / "chip_smoke.py"]
+
+
+@pytest.mark.parametrize("path", FILES, ids=[str(p.relative_to(ROOT)) for p in FILES])
+def test_no_jax_imports(path):
+    for mod in _imports(path):
+        top = mod.split(".")[0]
+        assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+def test_import_builds_nothing():
+    code = (
+        "import sys, narrow_band_least_squares_tpu_torch as p\n"
+        "from narrow_band_least_squares_tpu_torch import api, models, ops, state\n"
+        "from narrow_band_least_squares_tpu_torch.ops.kernels import _build, xcorr_peak\n"
+        "assert xcorr_peak._bound is None and not _build._libs\n"
+        "assert not any(m.split('.')[0] in ('jax', 'narrow_band_least_squares_tpu')"
+        " for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)[:5]\n"
+        "assert callable(p.narrow_band_least_squares)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_entry_points_without_device_raise_without_cuda(small_stream):
+    if torch.cuda.is_available():
+        pytest.skip("this box has CUDA: the default device is usable")
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    st = small_stream
+    tst = ArrayStream(data=st.data, fs=st.fs, start_epoch=st.start_epoch,
+                      latitudes=list(st.latitudes), longitudes=list(st.longitudes))
+    fl, nb, _ = get_freqlist(0.3, 1.2, "log", 2)
+    wl = get_winlenlist("constant", nb, 30, 0, 0)
+    plan = make_plan(fl, "log", wl, 0.5, st.npts, st.fs)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    fr = np.logspace(-2, 0, 10)
+    calls = [
+        lambda: NarrowBandPipeline(plan, rij),
+        lambda: api.filter_data(tst, "cheby1", 0.3, 1.2, 2, 0.01),
+        lambda: api.ltsva(tst, st.latitudes, st.longitudes, 30, 0.5),
+        lambda: api.narrow_band_least_squares(
+            wl, 0.5, 1.0, tst, st.latitudes, st.longitudes, nb, None, None,
+            fl, "log", fr, "cheby1", 2, 0.01),
+        lambda: api.narrow_band_loop(
+            0, fl, "log", fr, tst, "cheby1", 2, 0.01, st.latitudes,
+            st.longitudes, wl, 0.5, 1.0, 30),
+    ]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            call()

@@ -14,7 +14,18 @@ kernel.  Every failure exits non-zero.  The second-to-last line is the
 kernels' JSON record; the last is
 ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
-``--phases`` picks a subset (``build,kernel,main,timing``) for a quick check.
+Phases, in order (``--phases`` picks a subset for a quick check):
+
+- ``build``: ``nvcc`` on every ``csrc/*.cu``, all at once (always runs);
+- ``kernel``: ``icorr_peak`` against its plain version;
+- ``main``: the canonical run with the default ``xcorr_method='mxu'``;
+- ``fused-kernel``: ``fused_xcorr_bucket`` against its plain version on
+  every canonical bucket, a mixed-length bucket and a ragged random one;
+- ``fused-main``: the canonical run through the API with
+  ``set_performance_defaults(xcorr_method='fused')``;
+- ``multiarray``: ``MultiArrayPipeline`` on four canonical arrays, 'fused'
+  and 'mxu', against single-array runs, and ``BroadbandPipeline``;
+- ``timing``: step, per-bucket kernel and multi-array times, profiles.
 """
 
 from __future__ import annotations
@@ -36,7 +47,11 @@ WINLEN, WINLEN_1, WINLEN_X, WINOVER = 50, 60, 30, 0.5
 SEED = 42
 MDCCM_THRESH = 0.6
 TOL = 1e-4            # pipeline outputs, rtol and atol
-KERNEL_RTOL = 1e-5    # icorr_peak peak against the plain version
+KERNEL_RTOL = 1e-5    # kernel peak / rho against the plain version
+MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
+MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
+PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
+          "multiarray", "timing")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -231,22 +246,23 @@ def compare_outputs(gpu, cpu, ncl):
         fail("fewer than 99% of valid windows agree between cuda and cpu")
 
 
-def ground_truth(out, ncl):
+def ground_truth(out, ncl, baz_true=BAZ_TRUE, vel_true=VEL_TRUE, label=""):
     vel, baz, mdccm = out[0], out[1], out[2]
     checked = 0
     for b, n in enumerate(ncl):
         conf = mdccm[b, :n] > MDCCM_THRESH
         if conf.sum() < 3:
             continue
-        db = (np.median(baz[b, :n][conf]) - BAZ_TRUE + 180.0) % 360.0 - 180.0
+        db = (np.median(baz[b, :n][conf]) - baz_true + 180.0) % 360.0 - 180.0
         mv = float(np.median(vel[b, :n][conf]))
-        log(f"band {b}: {int(conf.sum())} confident windows, median baz "
-            f"{BAZ_TRUE + db:.2f} deg, median vel {mv:.4f} km/s")
-        if abs(db) > 3.0 or abs(mv - VEL_TRUE) > 0.1 * VEL_TRUE:
-            fail(f"band {b}: ground truth missed (baz {BAZ_TRUE}, vel {VEL_TRUE})")
+        log(f"{label}band {b}: {int(conf.sum())} confident windows, median baz "
+            f"{baz_true + db:.2f} deg, median vel {mv:.4f} km/s")
+        if abs(db) > 3.0 or abs(mv - vel_true) > 0.1 * vel_true:
+            fail(f"{label}band {b}: ground truth missed (baz {baz_true}, "
+                 f"vel {vel_true})")
         checked += 1
     if checked == 0:
-        fail("no band has confident windows")
+        fail(f"{label}no band has confident windows")
 
 
 def phase_main():
@@ -265,16 +281,251 @@ def phase_main():
     if launches == 0:
         fail("the main path launched no icorr_peak kernel")
     ncl = gpu[6]
-    for i, nm in ((0, "vel"), (1, "baz"), (2, "mdccm"), (5, "sig_tau")):
-        valid = np.concatenate([gpu[i][b, :n] for b, n in enumerate(ncl)])
-        if gpu[i].shape != (NBANDS, gpu[0].shape[1]):
-            fail(f"{nm} has shape {gpu[i].shape}")
-        if nm != "vel" and not np.isfinite(valid).all():
-            fail(f"{nm} has non-finite values in valid windows")
+    check_shapes(gpu, ncl, NBANDS)
     cpu = run_api(st, freqlist, winlens, "cpu")
     compare_outputs(gpu, cpu, ncl)
     ground_truth(gpu, ncl)
     return launches
+
+
+def check_shapes(out, ncl, nbands):
+    """(B, width) outputs, finite baz/MdCCM/sig_tau on every valid window."""
+    for i, nm in ((0, "vel"), (1, "baz"), (2, "mdccm"), (5, "sig_tau")):
+        valid = np.concatenate([out[i][b, :n] for b, n in enumerate(ncl)])
+        if out[i].shape != (nbands, out[0].shape[1]):
+            fail(f"{nm} has shape {out[i].shape}")
+        if nm != "vel" and not np.isfinite(valid).all():
+            fail(f"{nm} has non-finite values in valid windows")
+
+
+# --------------------------------------------------------------------------
+# fused_xcorr_bucket against its plain version
+# --------------------------------------------------------------------------
+
+def capture_fused_inputs(pipe, data):
+    """Run one step with a recorder around fused_xcorr_bucket and return
+    the arguments of every launch (not counted as the main path's)."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+
+    real, seen = FX.fused_xcorr_bucket, []
+
+    def rec(*args):
+        seen.append(args)
+        return real(*args)
+
+    FX.fused_xcorr_bucket = rec
+    try:
+        pipe.run_raw(data)
+    finally:
+        FX.fused_xcorr_bucket = real
+    return seen
+
+
+def check_fused(name, args):
+    """Kernel vs plain version on the card.  ``rho`` within KERNEL_RTOL
+    (rtol and atol); ``idx`` exact except at near-ties, where the fp64
+    correlation at the kernel's own ``idx`` must lie within KERNEL_RTOL (in
+    rho units) of the fp64 maximum over [lo, hi].  Returns (max |rho
+    error|, near-tie rows)."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+
+    rho, idx = FX.fused_xcorr_bucket(*args)
+    rr, ir = FX.fused_xcorr_bucket_reference(*args)
+    torch.cuda.synchronize()
+    if not torch.isfinite(rho).all():
+        fail(f"fused_xcorr_bucket {name}: non-finite rho")
+    err = (rho - rr).abs()
+    max_err = float(err.max())
+    if bool((err > KERNEL_RTOL * rr.abs() + KERNEL_RTOL).any()):
+        fail(f"fused_xcorr_bucket {name}: rho differs beyond {KERNEL_RTOL} "
+             f"(max abs err {max_err:.3e})")
+    bad = idx != ir
+    nbad = int(bad.sum())
+    if nbad:
+        y, hop, maxstart, lo, hi, lm, Cf, Sf, Ec, Es, pairs, W = args
+        cc, denom = FX.fused_correlation(
+            y.double(), hop, maxstart, lm.double(), Cf.double(), Sf.double(),
+            Ec.double(), Es.double(), pairs, W)
+        col = torch.arange(cc.shape[-1], device=cc.device)
+        valid = (col >= lo[:, :, None, None]) & (col <= hi[:, :, None, None])
+        best = cc.masked_fill(~valid, float("-inf")).amax(-1)
+        own = cc.gather(-1, idx.long()[..., None])[..., 0]
+        gap = ((best - own) / denom)[bad]
+        if bool((gap > KERNEL_RTOL).any()):
+            fail(f"fused_xcorr_bucket {name}: {nbad} rows pick another lag that "
+                 f"is not a near-tie (max gap {float(gap.max()):.3e})")
+    log(f"fused_xcorr_bucket {name}: y {tuple(args[0].shape)} Lg="
+        f"{args[5].shape[1]} Kp={args[6].shape[1]} nlag={args[8].shape[1]} "
+        f"W={args[11]} P={args[10].shape[0]}: max|rho err| {max_err:.3e}, "
+        f"idx exact except {nbad} near-tie rows")
+    return max_err, nbad
+
+
+def fused_random_case(seed=6):
+    """Three bands of 77/70/64 samples in a 77-sample bucket, 5 channels,
+    hops 20/19/17 and 35 windows: the last windows of each band clamp to
+    its own T - Lb, and the lag range pads 153 lags to 256."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+
+    Bg, C, T, Lg, W = 3, 5, 700, 77, 35
+    lengths = np.array([77, 70, 64])
+    pairs = np.array([(i, j) for i in range(C) for j in range(i + 1, C)], np.int32)
+    tab = FX.precompute_fused_tables(Lg, pairs, C)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    bh = lengths - 1
+    half = Lg - 1
+    cuda = lambda a, dt: torch.as_tensor(np.asarray(a), dtype=dt, device="cuda")
+    col = lambda v: cuda(np.asarray(v)[:, None], torch.int32)
+    return (
+        torch.randn(Bg, C, T, generator=g, device="cuda"),
+        col([20, 19, 17]), col(T - lengths), col(half - bh), col(half + bh),
+        cuda(np.arange(Lg)[None, :] < lengths[:, None], torch.float32),
+        *(cuda(tab[k], torch.float32) for k in ("Cf", "Sf", "Ec", "Es")),
+        cuda(pairs, torch.int32), W,
+    )
+
+
+def fused_pipeline(plan, rij, **kw):
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+
+    return NarrowBandPipeline(plan, rij, filter_type="cheby1", alpha=1.0,
+                              xcorr_method="fused", device="cuda", **kw)
+
+
+def phase_fused_kernel():
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+
+    st, freqlist, winlens = canonical_inputs()
+    plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
+    pipe = fused_pipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans))
+    max_err = 0.0
+    for i, args in enumerate(capture_fused_inputs(pipe, st.data)):
+        max_err = max(max_err, check_fused(f"canonical bucket {i}", args)[0])
+    # tests/test_xcorr_methods.py:457: one bucket of a 30 s and a 29 s band
+    sm = synthetic_plane_wave(nchans=5, duration_s=300, fs=10.0, baz_deg=200.0,
+                              trace_vel_kms=0.33, f0=0.6, bandwidth=0.8,
+                              snr=10, seed=3)
+    mplan = make_plan([0.3, 0.7, 1.4], "linear", [30, 29], 0.95, sm.npts, sm.fs)
+    mpipe = fused_pipeline(mplan, get_rij(sm.latitudes, sm.longitudes, sm.nchans),
+                           bucket_slack=4.0)
+    Lg = max(wp.winlensamp for wp in mplan.windows)
+    short = min(mplan.windows, key=lambda wp: wp.winlensamp)
+    if len(mpipe._buckets) != 1 or short.starts[-1] <= mplan.npts - Lg:
+        fail("the mixed-length fixture does not reach past T - Lg")
+    for args in capture_fused_inputs(mpipe, sm.data):
+        max_err = max(max_err, check_fused("mixed-length bucket", args)[0])
+    max_err = max(max_err, check_fused("ragged-random", fused_random_case())[0])
+    return max_err
+
+
+def phase_fused_main():
+    """The canonical run with xcorr_method='fused' through the API."""
+    import torch
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    st, freqlist, winlens = canonical_inputs()
+    prev = api.set_performance_defaults(xcorr_method="fused")
+    try:
+        FX.launches = XP.launches = 0
+        t0 = time.perf_counter()
+        gpu = run_api(st, freqlist, winlens, "cuda")
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        launches, icorr = FX.launches, XP.launches
+        log(f"fused main path (cuda, first call incl. host set-up): "
+            f"{t_first:.3f} s, fused_xcorr_bucket launches {launches}, "
+            f"icorr_peak launches {icorr}")
+        if launches == 0 or icorr != 0:
+            fail("the fused main path must launch fused_xcorr_bucket and no "
+                 "icorr_peak")
+        ncl = gpu[6]
+        check_shapes(gpu, ncl, NBANDS)
+        cpu = run_api(st, freqlist, winlens, "cpu")
+        compare_outputs(gpu, cpu, ncl)
+        ground_truth(gpu, ncl, label="fused ")
+    finally:
+        api.set_performance_defaults(xcorr_method=None)
+        api.set_performance_defaults(**prev)
+    return launches
+
+
+# --------------------------------------------------------------------------
+# multi-array and broadband
+# --------------------------------------------------------------------------
+
+def multiarray_inputs():
+    """benchmarks/scaling.py:154-164: four 8-element arrays, baz 200-230."""
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    streams = [synthetic_plane_wave(nchans=NCHANS, duration_s=DURATION_S, fs=FS,
+                                    baz_deg=baz, trace_vel_kms=VEL_TRUE,
+                                    seed=SEED + k)
+               for k, baz in enumerate(MULTI_BAZ)]
+    freqlist, nbands, _ = get_freqlist(FMIN, FMAX, "log", NBANDS)
+    winlens = get_winlenlist("adaptive", nbands, WINLEN, WINLEN_1, WINLEN_X)
+    plan = make_plan(freqlist, "log", winlens, WINOVER, streams[0].npts, FS)
+    rijs = [get_rij(s.latitudes, s.longitudes, s.nchans) for s in streams]
+    return plan, rijs, np.stack([s.data for s in streams])
+
+
+def phase_multiarray():
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import (
+        BroadbandPipeline, MultiArrayPipeline, NarrowBandPipeline,
+    )
+    from narrow_band_least_squares_tpu_torch.utils import get_rij
+
+    plan, rijs, data = multiarray_inputs()
+    ncl = plan.num_compute_list
+    for method in ("fused", "mxu"):
+        out = MultiArrayPipeline(plan, rijs, xcorr_method=method,
+                                 device="cuda").run_raw(data)
+        torch.cuda.synchronize()
+        worst = 0.0
+        for k, rij in enumerate(rijs):
+            one = NarrowBandPipeline(plan, rij, xcorr_method=method,
+                                     device="cuda").run_raw(data[k])
+            for name, v in one.items():
+                a, b = out[name][k], v
+                if method == "fused":
+                    same = torch.equal(torch.isnan(a), torch.isnan(b)) and \
+                        torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+                    if not same:
+                        fail(f"multiarray fused: array {k} {name} is not bit "
+                             f"for bit the single-array run")
+                    continue
+                d = (a - b).abs().nan_to_num()
+                worst = max(worst, float(d.max()))
+                if bool((d > MULTI_TOL + MULTI_TOL * b.abs().nan_to_num()).any()):
+                    fail(f"multiarray mxu: array {k} {name} differs from the "
+                         f"single-array run beyond {MULTI_TOL}")
+            res = tuple(out[n][k].cpu().numpy() for n in ("vel", "baz", "mdccm"))
+            ground_truth(res, ncl, baz_true=MULTI_BAZ[k],
+                         label=f"multiarray {method} array {k} ")
+        log(f"multiarray {method}: A={len(rijs)} equals the single-array runs "
+            + ("bit for bit" if method == "fused" else
+               f"within {MULTI_TOL} (max abs diff {worst:.3e})"))
+
+    st, _, _ = canonical_inputs()
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        res = BroadbandPipeline(FMIN, FMAX, WINLEN, WINOVER, st.npts, st.fs, rij,
+                                filter_type="cheby1", device=dev).run(st)
+        runs[dev] = (res.vel_array, res.baz_array, res.mdccm_array, None, None,
+                     res.sig_tau_array)
+    bncl = res.num_compute_list
+    check_shapes(runs["cuda"], bncl, 1)
+    compare_outputs(runs["cuda"], runs["cpu"], bncl)
+    ground_truth(runs["cuda"], bncl, label="broadband ")
 
 
 # --------------------------------------------------------------------------
@@ -356,6 +607,97 @@ def profile_step(label, pipe, data, steps=5):
             f"{count // steps:4d} calls/step  {key[:90]}")
 
 
+def fused_work(plan, band_idx, args):
+    """(flops, bytes) the function needs on these inputs: per real window of
+    each band, C*Lb*2K multiply-adds of the forward DFT and P*2K*(hi-lo+1)
+    of the inverse (K = Lg + 1, the unpadded bins), two FLOPs each; the band
+    rows, the four tables and the two outputs, each once."""
+    y, hop, maxstart, lo, hi, lm, Cf, Sf, Ec, Es, pairs, W = args
+    Bg, C, T = y.shape
+    Lg, P = lm.shape[1], pairs.shape[0]
+    K = Lg + 1
+    span = (hi - lo + 1).flatten().tolist()
+    macs = 0.0
+    for g, b in enumerate(band_idx):
+        wp = plan.windows[int(b)]
+        macs += wp.n_windows * (C * wp.winlensamp * 2 * K + P * 2 * K * span[g])
+    nbytes = 4.0 * (y.numel() + Cf.numel() + Sf.numel() + Ec.numel() + Es.numel()
+                    + 2 * Bg * W * P)
+    return 2.0 * macs, nbytes
+
+
+def time_fused(label, plans, st, fused_max_err, launches_main):
+    """Fused step times, per-bucket kernel / plain / bound, the staged 'mxu'
+    delays beside the fused ones, and the multi-array steps."""
+    from narrow_band_least_squares_tpu_torch.models import (
+        MultiArrayPipeline, NarrowBandPipeline,
+    )
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+    from narrow_band_least_squares_tpu_torch.utils import get_rij
+
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    for name, plan in plans.items():
+        pipe = fused_pipeline(plan, rij)
+        FX.launches = 0
+        pipe.run_raw(st.data)
+        per_step = FX.launches
+        ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+        nwin = sum(plan.num_compute_list)
+        work = [fused_work(plan, pipe._buckets[i]["grid"].band_idx, args)
+                for i, args in enumerate(capture_fused_inputs(pipe, st.data))]
+        f, b = (sum(v) for v in zip(*work))
+        log(f"[{label}] {name} fused: {ms:.4f} ms per run_raw step, "
+            f"{nwin / ms * 1e3:.1f} windows solved/s, fused_xcorr_bucket "
+            f"launches per step {per_step}; the function needs {f / 1e9:.2f} "
+            f"GFLOP and {b / 1e6:.1f} MB: bound "
+            f"{max(f / PEAK_FP32_FLOPS, b / PEAK_HBM_BYTES) * 1e3:.4f} ms")
+    plan = plans["canonical"]
+    pipe = fused_pipeline(plan, rij)
+    mxu = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda")
+    y = pipe._filter(pipe._to_device(st.data))
+    d_f = cuda_time_ms(lambda: pipe._delays(y), reps=20)
+    d_m = cuda_time_ms(lambda: mxu._delays(y), reps=20)
+    log(f"[{label}] canonical delays stage alone: fused {d_f:.4f} ms, staged "
+        f"'mxu' (cuBLAS spectra + icorr_peak) {d_m:.4f} ms")
+    profile_step(f"{label} fused", pipe, st.data)
+    k_ms = p_ms = flops = nbytes = 0.0
+    for i, args in enumerate(capture_fused_inputs(pipe, st.data)):
+        kt = cuda_time_ms(lambda: FX.fused_xcorr_bucket(*args), reps=20)
+        pt = cuda_time_ms(lambda: FX.fused_xcorr_bucket_reference(*args), reps=10)
+        f, b = fused_work(plan, pipe._buckets[i]["grid"].band_idx, args)
+        bound = max(f / PEAK_FP32_FLOPS, b / PEAK_HBM_BYTES) * 1e3
+        log(f"[{label}] fused_xcorr_bucket bucket {i}: y {tuple(args[0].shape)} "
+            f"Lg={args[5].shape[1]} Kp={args[6].shape[1]} nlag={args[8].shape[1]} "
+            f"W={args[11]}: kernel {kt * 1e3:.1f} us, plain {pt * 1e3:.1f} us, "
+            f"bound {bound * 1e3:.1f} us ({f / 1e9:.3f} GFLOP)")
+        k_ms, p_ms, flops, nbytes = k_ms + kt, p_ms + pt, flops + f, nbytes + b
+    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
+    bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_HBM_BYTES
+                else "bytes")
+    log(f"[{label}] fused_xcorr_bucket per canonical step: kernel {k_ms:.4f} ms, "
+        f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
+        f"({flops / 1e9:.2f} GFLOP); kernel at "
+        f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s; library: none (no single "
+        f"PyTorch call computes windows-to-peak; the staged 'mxu' delays above "
+        f"are the comparison)")
+
+    mplan, rijs, data = multiarray_inputs()
+    for method in ("fused", "mxu"):
+        multi = MultiArrayPipeline(mplan, rijs, xcorr_method=method, device="cuda")
+        ms = cuda_time_ms(lambda: multi.run_raw(data), reps=10)
+        nwin = len(rijs) * sum(mplan.num_compute_list)
+        log(f"[{label}] multiarray A={len(rijs)} {method}: {ms:.4f} ms per "
+            f"run_raw step, {nwin / ms * 1e3:.1f} windows solved/s")
+    return {
+        "name": "fused_xcorr_bucket", "route": "cuda",
+        "source": "narrow_band_least_squares_tpu_torch/csrc/fused_xcorr.cu",
+        "replaces": "narrow_band_least_squares_tpu/ops/kernels/fused_xcorr.py:201",
+        "launches": launches_main, "max_abs_err": fused_max_err,
+        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
+        "bound_by": bound_by, "library_ms": None,
+    }
+
+
 def phase_timing(label, launches_main):
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
@@ -424,13 +766,16 @@ def phase_timing(label, launches_main):
             "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
             "bound_by": bound_by, "library_ms": l_ms,
         }
-    return rec
+    return rec, plans, st
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--phases", default="build,kernel,main,timing")
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma-separated subset of " + ",".join(PHASES))
     phases = set(ap.parse_args().phases.split(","))
+    if not phases <= set(PHASES):
+        fail(f"unknown phases {sorted(phases - set(PHASES))}")
 
     import torch
 
@@ -459,10 +804,15 @@ def main() -> int:
     if "kernel" in phases:
         phase_kernel()
     launches = phase_main() if "main" in phases else 0
+    fused_err = phase_fused_kernel() if "fused-kernel" in phases else None
+    fused_launches = phase_fused_main() if "fused-main" in phases else 0
+    if "multiarray" in phases:
+        phase_multiarray()
     if "timing" in phases:
-        rec = phase_timing(label, launches)
+        rec, plans, st = phase_timing(label, launches)
+        frec = time_fused(label, plans, st, fused_err, fused_launches)
         log(f"[{label}]")
-        log(json.dumps({"kernels": [rec]}))
+        log(json.dumps({"kernels": [rec, frec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

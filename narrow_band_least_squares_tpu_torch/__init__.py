@@ -16,7 +16,11 @@ What is ported so far is the OLS narrow-band main path:
   ``icorr_peak`` (`ops.xcorr`, `ops.kernels`, ``csrc/xcorr_peak.cu``),
 - the closed-form OLS slowness solve (`ops.solve`),
 - the pipeline (`models.NarrowBandPipeline`) and the reference-parity API
-  (`api`).
+  (`api`),
+- ``xcorr_method='fused'``, whose delay search per window-length bucket is
+  the CUDA kernel ``fused_xcorr_bucket`` (``csrc/fused_xcorr.cu``),
+- `models.MultiArrayPipeline` (many arrays per step, OLS, one device) and
+  `models.BroadbandPipeline` (one band).
 
 Importing the package builds no kernel: a kernel is compiled at its first
 launch on the card.
@@ -39,13 +43,19 @@ _API_NAMES = (
 )
 
 
+_MODEL_NAMES = ("NarrowBandPipeline", "MultiArrayPipeline", "BroadbandPipeline")
+
+
 def __getattr__(name):
     if name in _API_NAMES:
         from narrow_band_least_squares_tpu_torch import api
         return getattr(api, name)
+    if name in _MODEL_NAMES:
+        from narrow_band_least_squares_tpu_torch import models
+        return getattr(models, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __version__ = "0.1.0"
 
-__all__ = ["ArrayStream", *_API_NAMES]
+__all__ = ["ArrayStream", *_API_NAMES, *_MODEL_NAMES]

@@ -1,7 +1,15 @@
+from narrow_band_least_squares_tpu_torch.models.broadband import BroadbandPipeline
+from narrow_band_least_squares_tpu_torch.models.multiarray import MultiArrayPipeline
 from narrow_band_least_squares_tpu_torch.models.narrowband import (
     NarrowBandPipeline,
     NarrowBandResult,
     flags_to_stdict,
 )
 
-__all__ = ["NarrowBandPipeline", "NarrowBandResult", "flags_to_stdict"]
+__all__ = [
+    "BroadbandPipeline",
+    "MultiArrayPipeline",
+    "NarrowBandPipeline",
+    "NarrowBandResult",
+    "flags_to_stdict",
+]

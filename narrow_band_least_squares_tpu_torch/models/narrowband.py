@@ -8,6 +8,9 @@ Port of ``narrow_band_least_squares_tpu/models/narrowband.py`` for OLS
       --DFT matmul + icorr_peak--> delays+MdCCM (B, W, P) --2x2 solve-->
       vel/baz/sigma_tau (B, W)
 
+With ``xcorr_method='fused'`` the middle arrow is one ``fused_xcorr_bucket``
+launch per bucket, from the band rows straight to (rho, lag index).
+
 Ragged per-band window counts live in masks (the reference's dense-prefix +
 ``num_compute_list`` contract).  The host builds every constant once, in
 float64, and keeps it on the device in float32: the filter bank, the solve
@@ -30,6 +33,7 @@ from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
 from narrow_band_least_squares_tpu_torch.ops import filters as F
 from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
 from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
+from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
 from narrow_band_least_squares_tpu_torch.ops.windows import (
     build_bucket_grids,
     build_window_grid,
@@ -137,12 +141,14 @@ class NarrowBandPipeline:
     the host and moves them to ``device``; `run` / `run_raw` execute the step
     there.  The arguments are the JAX pipeline's.  In this port:
 
-    - ``alpha < 1`` (LTS), ``xcorr_method`` 'fft' and 'fused',
-      ``subsample_delays=True`` and ``window_method='patches'`` raise
-      ``NotImplementedError``;
+    - ``alpha < 1`` (LTS), ``xcorr_method='fft'``, ``window_method=
+      'patches'`` and ``subsample_delays=True`` with 'mxu' raise
+      ``NotImplementedError``; with 'pallas' and 'fused' the JAX package
+      ignores ``subsample_delays`` with a warning, and so does the port;
     - ``xcorr_method`` 'mxu' and 'pallas' both search lags with the
       ``icorr_peak`` kernel, on the bucket's dense tables or its stacked
-      ones;
+      ones; 'fused' runs each bucket in one ``fused_xcorr_bucket`` launch
+      and always buckets the bands;
     - every product is computed in IEEE float32 whatever
       ``matmul_precision`` says;
     - ``xcorr_chunk_mb`` and ``xcorr_lag_tile`` are accepted and change
@@ -184,14 +190,18 @@ class NarrowBandPipeline:
     ):
         if float(alpha) < 1.0:
             raise _not_ported("alpha < 1 (LTS)", "Queue 1 item 6")
-        if xcorr_method == "fused":
-            raise _not_ported("xcorr_method='fused'", "Queue 2 item 2")
         if xcorr_method == "fft":
             raise _not_ported("xcorr_method='fft'", "Queue 1 item 11")
-        if xcorr_method not in ("mxu", "pallas"):
+        if xcorr_method not in ("mxu", "pallas", "fused"):
             raise ValueError(f"unknown xcorr_method {xcorr_method!r}")
         if subsample_delays:
-            raise _not_ported("subsample_delays=True", "Queue 1 item 11")
+            if xcorr_method == "mxu":
+                raise _not_ported("subsample_delays=True", "Queue 1 item 11")
+            logger.warning(
+                "subsample_delays is ignored with xcorr_method=%r (the kernel "
+                "returns integer-lag peaks); use xcorr_method='mxu' for "
+                "parabolic sub-sample refinement", xcorr_method,
+            )
         if window_method == "patches":
             raise _not_ported("window_method='patches'", "Queue 1 item 11")
         if window_method not in ("strided", "gather"):
@@ -286,21 +296,41 @@ class NarrowBandPipeline:
                 tab = XC.slice_tables_bins(tab, kmin, kmax)
             return {k: tab[k] for k in ("Cf", "Sf", "Ec", "Es")}, tab["lag_min"]
 
-        self.bucket_bands = bool(bucket_bands)
+        def fused_tables(g):
+            # the JAX package's _fused_buckets: each band's windows start at
+            # w*hop clamped to its own T - Lb, never the bucket's T - Lg
+            bml = min(max_lag, g.Lmax - 1) if max_lag is not None else None
+            tab = FX.precompute_fused_tables(g.Lmax, pairs, self.nchans, max_lag=bml)
+            half = g.Lmax - 1 if bml is None else bml
+            lengths = g.lengths.astype(np.int64)
+            bh = np.minimum(lengths - 1, half)
+            col = lambda v: np.asarray(v, dtype=np.int32)[:, None]
+            out = {k: tab[k] for k in ("Cf", "Sf", "Ec", "Es")}
+            out["hop"] = col([plan.windows[int(b)].hop for b in g.band_idx])
+            out["maxstart"] = col(plan.npts - lengths)
+            out["lo"], out["hi"] = col(half - bh), col(half + bh)
+            out["len_mask"] = g.len_mask.reshape(len(g.band_idx), g.Lmax)
+            return out, tab["lag_min"]
+
+        # the fused kernel works per bucket, so 'fused' always buckets
+        self.bucket_bands = bool(bucket_bands) or xcorr_method == "fused"
         self._buckets: List[dict] = []
         if self.bucket_bands:
             bgrids = build_bucket_grids(plan, max_lag=max_lag, slack=bucket_slack)
             for i, g in enumerate(bgrids):
-                tab, lag_min = tables(g.Lmax, g.lengths, g.band_idx)
                 pre = f"bucket{i}."
+                if xcorr_method == "fused":
+                    tab, lag_min = fused_tables(g)
+                else:
+                    tab, lag_min = tables(g.Lmax, g.lengths, g.band_idx)
+                    tab["len_mask"] = g.len_mask
+                    tab["lengths"] = g.lengths.astype(np.float64)
+                    if xcorr_method == "mxu":
+                        tab["lag_mask"] = g.lag_mask
+                    if window_method == "gather":
+                        tab["idx"] = g.idx
                 for k, v in tab.items():
                     st[pre + k] = v
-                st[pre + "len_mask"] = g.len_mask
-                st[pre + "lengths"] = g.lengths.astype(np.float64)
-                if xcorr_method == "mxu":
-                    st[pre + "lag_mask"] = g.lag_mask
-                if window_method == "gather":
-                    st[pre + "idx"] = g.idx
                 self._buckets.append({"grid": g, "prefix": pre,
                                       "lag_min": lag_min})
             order = np.concatenate([g.band_idx for g in bgrids])
@@ -327,6 +357,7 @@ class NarrowBandPipeline:
             self._t_epoch_rel[b, : wp.n_windows] = wp.end_times_epoch(0.0, plan.fs)
 
         self._pairs = torch.as_tensor(pairs, dtype=torch.int64, device=self.device)
+        self._pairs32 = self._pairs.to(torch.int32)
         self.load_state(state_from_numpy(st))
 
     # ------------------------------------------------------------------
@@ -337,7 +368,11 @@ class NarrowBandPipeline:
         bucketing, per bucket ``bucket{i}.`` + ``Cf``/``Sf`` and ``Ec``/``Es``
         ('mxu') or ``e2``/``lo``/``hi`` ('pallas'), ``len_mask``, ``lengths``,
         ``lag_mask`` ('mxu'), ``idx`` ('gather'), and ``bucket_inv_perm``;
-        without bucketing the same names under ``tables.``.
+        without bucketing the same names under ``tables.``.  With 'fused',
+        per bucket ``Cf``/``Sf``/``Ec``/``Es`` (padded, `precompute_fused_tables`),
+        and per band of the bucket, as ``(Bg, 1)`` int32 columns, ``hop``,
+        ``maxstart`` (the band's last window start, ``T - Lb``) and the lag
+        bounds ``lo``/``hi``, with ``len_mask`` ``(Bg, Lg)``.
         """
         return dict(self._state)
 
@@ -355,6 +390,7 @@ class NarrowBandPipeline:
                         f"expected {tuple(self._state[k].shape)}"
                     )
         self._state = {k: v.to(self.device) for k, v in state.items()}
+        self._fused_rows = {}   # per (bucket, arrays), see _fused_inputs
         # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu')
         self._e2 = {}
         if self.xcorr_method == "mxu":
@@ -376,70 +412,142 @@ class NarrowBandPipeline:
         return XC.cross_correlate_mxu(win, self._pairs, s[pre + "lag_mask"],
                                       tab, self.plan.fs)
 
+    def _extract(self, y: torch.Tensor, bk: Optional[dict] = None):
+        """Windows of one array's filtered bank (B, C, T): over the global
+        grid, or over bucket ``bk``'s compact (Bg, Wg, C, Lg) grid."""
+        s, pre = self._state, "tables." if bk is None else bk["prefix"]
+        if self.window_method == "strided":
+            if bk is None:
+                return extract_windows_strided(y, self.plan, s[pre + "len_mask"],
+                                               s[pre + "lengths"])
+            return extract_windows_strided_bucket(
+                y, self.plan.windows, bk["grid"], s[pre + "len_mask"],
+                s[pre + "lengths"],
+            )
+        if bk is not None:
+            y = y[torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
+                                  device=y.device)]
+        return extract_windows(y, s[pre + "idx"], s[pre + "len_mask"],
+                               s[pre + "lengths"])
+
     def _delays(self, y: torch.Tensor):
         """Filtered bank (B, C, T) -> (tau, rho, mdccm) over the window grid."""
-        if self.bucket_bands:
-            return self._xcorr_bucketed(y)
-        s = {k[len("tables."):]: v for k, v in self._state.items()
-             if k.startswith("tables.")}
-        if self.window_method == "strided":
-            win = extract_windows_strided(y, self.plan, s["len_mask"], s["lengths"])
-        else:
-            win = extract_windows(y, s["idx"], s["len_mask"], s["lengths"])
-        return self._xcorr(win, "tables.", self._lag_min)
+        return tuple(v[0] for v in self._delays_merged(y[None]))
 
-    def _xcorr_bucketed(self, y: torch.Tensor):
-        """Per-window-length bucket xcorr on compact (Wmax_g, Lmax_g) grids,
-        re-assembled into the full (B, Wmax, P) grid in band order."""
-        plan = self.plan
-        Wmax = plan.max_windows
-        s = self._state
-        taus, rhos, mds = [], [], []
-        for bk in self._buckets:
-            g, pre = bk["grid"], bk["prefix"]
-            if self.window_method == "strided":
-                win = extract_windows_strided_bucket(
-                    y, plan.windows, g, s[pre + "len_mask"], s[pre + "lengths"],
-                )
-            else:
-                bidx = torch.as_tensor(g.band_idx, dtype=torch.int64,
-                                       device=y.device)
-                win = extract_windows(
-                    y[bidx], s[pre + "idx"], s[pre + "len_mask"],
-                    s[pre + "lengths"],
-                )
-            tau, rho, md = self._xcorr(win, pre, bk["lag_min"])
-            pad = Wmax - tau.shape[1]
+    def _delays_batched(self, y: torch.Tensor):
+        """Filtered banks of A arrays (A, B, C, T) -> (tau, rho, mdccm) of
+        shape (A, B, Wmax, P) / (A, B, Wmax), the arrays merged into one
+        batch: the window axis for 'mxu' and 'pallas', the band rows of each
+        fused launch for 'fused'.  Each array's result is the single-array
+        one (bit for bit with 'fused')."""
+        if self.xcorr_method == "pallas" and self.bucket_bands:
+            raise ValueError(
+                "multi-array delays with xcorr_method='pallas' need "
+                "bucket_bands=False: the JAX package merges bucketed arrays "
+                "through its 'mxu' correlator, which needs the Ec/Es tables "
+                "that 'pallas' buckets do not carry (it fails there with "
+                "KeyError: 'Ec')"
+            )
+        return self._delays_merged(y)
+
+    def _delays_merged(self, y: torch.Tensor):
+        A = y.shape[0]
+        if self.xcorr_method == "fused":
+            return self._xcorr_fused(y.reshape((-1,) + tuple(y.shape[2:])), arrays=A)
+        Wmax = self.plan.max_windows
+
+        def merged(bk):
+            # A x (Bg, Wg, C, Lg) -> (Bg, A*Wg, C, Lg): window a*Wg + w
+            wins = [self._extract(y[a], bk) for a in range(A)]
+            return wins[0] if A == 1 else torch.cat(wins, dim=1)
+
+        def split(t):
+            # (Bg, A*Wg, ...) -> (A, Bg, Wmax, ...), zero-padded windows
+            Bg, Wg = t.shape[0], t.shape[1] // A
+            t = t.reshape((Bg, A, Wg) + tuple(t.shape[2:])).transpose(0, 1)
+            pad = Wmax - Wg
+            return Fnn.pad(t, (0, 0) * (t.dim() - 3) + (0, pad)) if pad else t
+
+        if not self.bucket_bands:
+            return tuple(split(v) for v in self._xcorr(merged(None), "tables.",
+                                                       self._lag_min))
+        outs = [[split(v) for v in self._xcorr(merged(bk), bk["prefix"],
+                                               bk["lag_min"])]
+                for bk in self._buckets]
+        return self._bucket_order(outs)
+
+    def _bucket_order(self, outs):
+        """Per-bucket (tau, rho, mdccm), each (A, Bg, Wmax, ...), -> the full
+        (A, B, Wmax, ...) grid in band order."""
+        inv = self._state["bucket_inv_perm"].long()
+        return tuple(torch.cat(v, dim=1)[:, inv] for v in zip(*outs))
+
+    def _fused_inputs(self, i: int, arrays: int):
+        """Bucket i's band rows in the (A*B, C, T) stack and its per-band
+        columns tiled over the A arrays (cached until `load_state`)."""
+        key = (i, arrays)
+        if key not in self._fused_rows:
+            bk, s, B = self._buckets[i], self._state, self.plan.nbands
+            pre, band_idx = bk["prefix"], bk["grid"].band_idx
+            rows = np.concatenate([a * B + band_idx for a in range(arrays)])
+            self._fused_rows[key] = (
+                torch.as_tensor(rows, dtype=torch.int64, device=self.device),
+                *(s[pre + k].repeat(arrays, 1).contiguous()
+                  for k in ("hop", "maxstart", "lo", "hi", "len_mask")),
+            )
+        return self._fused_rows[key]
+
+    def _xcorr_fused(self, y: torch.Tensor, arrays: int = 1):
+        """Fused delays: (A*B, C, T) band rows of A arrays -> (tau, rho,
+        mdccm) of shape (A, B, Wmax, P) / (A, B, Wmax).
+
+        One `fused_xcorr_bucket` launch per window-length bucket covers the
+        bucket's bands of every array (rows a*B + band)."""
+        plan, s, A = self.plan, self._state, arrays
+        outs = []
+        for i, bk in enumerate(self._buckets):
+            pre, g = bk["prefix"], bk["grid"]
+            rows, hop, maxstart, lo, hi, len_mask = self._fused_inputs(i, A)
+            rho, idx = FX.fused_xcorr_bucket(
+                y[rows], hop, maxstart, lo, hi, len_mask,
+                s[pre + "Cf"], s[pre + "Sf"], s[pre + "Ec"], s[pre + "Es"],
+                self._pairs32, g.Wmax,
+            )
+            tau = (idx.to(y.dtype) + bk["lag_min"]) / plan.fs
+            md = XC.median_last(rho)
+            pad = plan.max_windows - g.Wmax
             if pad:
                 tau = Fnn.pad(tau, (0, 0, 0, pad))
                 rho = Fnn.pad(rho, (0, 0, 0, pad))
                 md = Fnn.pad(md, (0, pad))
-            taus.append(tau)
-            rhos.append(rho)
-            mds.append(md)
-        inv = s["bucket_inv_perm"].long()
-        return (torch.cat(taus)[inv], torch.cat(rhos)[inv], torch.cat(mds)[inv])
+            outs.append([v.reshape((A, -1) + tuple(v.shape[1:]))
+                         for v in (tau, rho, md)])
+        return self._bucket_order(outs)
 
-    def _solve_masked(self, tau, mdccm, win_mask=None):
-        """Slowness solve + window-validity masking."""
+    def _solve_masked(self, tau, mdccm, geometry=None):
+        """Slowness solve + window-validity masking; ``geometry`` is an
+        array's (X, pinv, XtX_inv), the pipeline's own by default."""
         s = self._state
-        out = SOLVE.ols_solve(tau, s["X"], s["pinv"], s["XtX_inv"])
-        wm = s["win_mask"] if win_mask is None else win_mask
+        X, pinv, XtX_inv = geometry or (s["X"], s["pinv"], s["XtX_inv"])
+        out = SOLVE.ols_solve(tau, X, pinv, XtX_inv)
+        wm = s["win_mask"]
         zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
         res = {k: torch.where(wm, out[k], zero) for k in _OUTPUTS}
         res["mdccm"] = torch.where(wm, mdccm, zero)
         return res
 
-    def _step(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+    def _filter(self, x: torch.Tensor) -> torch.Tensor:
+        """One array's raw (C, T) -> the filtered bank (B, C, T)."""
         s = self._state
         x = x.to(self.dtype)
         if self.apply_filter:
-            y = F.filter_bank_fft(x, s["h_bank"], s["taper"], self.nfft_filter,
-                                  self.zerophase)
-        else:
-            # ltsva contract: the caller already filtered and tapered the data
-            y = x[None].expand((self.plan.nbands,) + tuple(x.shape))
-        tau, rho, mdccm = self._delays(y)
+            return F.filter_bank_fft(x, s["h_bank"], s["taper"], self.nfft_filter,
+                                     self.zerophase)
+        # ltsva contract: the caller already filtered and tapered the data
+        return x[None].expand((self.plan.nbands,) + tuple(x.shape))
+
+    def _step(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
+        tau, rho, mdccm = self._delays(self._filter(x))
         return self._solve_masked(tau, mdccm)
 
     def _to_device(self, data: np.ndarray) -> torch.Tensor:

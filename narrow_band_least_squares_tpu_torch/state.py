@@ -5,7 +5,9 @@ construction to every run is the set of constants the host designs once:
 the filter bank ``h_bank`` and ``taper``; the solve matrices ``X``, ``pinv``
 and ``XtX_inv``; per window-length bucket the DFT tables (``Cf``/``Sf`` with
 ``Ec``/``Es``, or the stacked ``e2`` with the lag bounds ``lo``/``hi``), the
-masks ``len_mask``/``lag_mask`` and the window ``lengths``; and the
+masks ``len_mask``/``lag_mask`` and the window ``lengths`` (with
+``xcorr_method='fused'``: the padded Cf/Sf/Ec/Es, ``len_mask`` and per band
+``hop``, ``maxstart``, ``lo``, ``hi``); and the
 ``bucket_inv_perm`` that restores band order.  `NarrowBandPipeline.state_dict`
 names them; `state_from_numpy` turns a dict of NumPy arrays with the same
 names (the JAX pipeline's constants, for example) into tensors that

@@ -44,7 +44,13 @@ def test_import_builds_nothing():
         "import sys, narrow_band_least_squares_tpu_torch as p\n"
         "from narrow_band_least_squares_tpu_torch import api, models, ops, state\n"
         "from narrow_band_least_squares_tpu_torch.ops.kernels import _build, xcorr_peak\n"
-        "assert xcorr_peak._bound is None and not _build._libs\n"
+        "from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr\n"
+        "from narrow_band_least_squares_tpu_torch.models import (\n"
+        "    BroadbandPipeline, MultiArrayPipeline)\n"
+        "assert xcorr_peak._bound is None and fused_xcorr._bound is None\n"
+        "assert not _build._libs\n"
+        "assert p.MultiArrayPipeline is MultiArrayPipeline\n"
+        "assert p.BroadbandPipeline is BroadbandPipeline\n"
         "assert not any(m.split('.')[0] in ('jax', 'narrow_band_least_squares_tpu')"
         " for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)[:5]\n"
         "assert callable(p.narrow_band_least_squares)\n"
@@ -59,7 +65,9 @@ def test_entry_points_without_device_raise_without_cuda(small_stream):
         pytest.skip("this box has CUDA: the default device is usable")
     from narrow_band_least_squares_tpu_torch import api
     from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
-    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.models import (
+        BroadbandPipeline, NarrowBandPipeline,
+    )
     from narrow_band_least_squares_tpu_torch.utils import (
         get_freqlist, get_rij, get_winlenlist, make_plan,
     )
@@ -74,6 +82,8 @@ def test_entry_points_without_device_raise_without_cuda(small_stream):
     fr = np.logspace(-2, 0, 10)
     calls = [
         lambda: NarrowBandPipeline(plan, rij),
+        lambda: NarrowBandPipeline(plan, rij, xcorr_method="fused"),
+        lambda: BroadbandPipeline(0.3, 1.2, 30.0, 0.5, st.npts, st.fs, rij),
         lambda: api.filter_data(tst, "cheby1", 0.3, 1.2, 2, 0.01),
         lambda: api.ltsva(tst, st.latitudes, st.longitudes, 30, 0.5),
         lambda: api.narrow_band_least_squares(

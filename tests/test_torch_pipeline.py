@@ -90,6 +90,14 @@ def _jax_state(p, method="mxu"):
     d = {"h_bank": p._h_bank, "taper": p._taper, "X": p._X, "pinv": p._pinv,
          "XtX_inv": p._XtX_inv, "win_mask": p._win_mask,
          "bucket_inv_perm": p._bucket_inv_perm}
+    if method == "fused":
+        # the one-hot pair selections sbi/sbj have no port counterpart
+        for i, bk in enumerate(p._fused_buckets):
+            for k in ("Cf", "Sf", "Ec", "Es"):
+                d[f"bucket{i}.{k}"] = bk["tables"][k]
+            for k in ("hop", "maxstart", "lo", "hi", "len_mask"):
+                d[f"bucket{i}.{k}"] = bk[k]
+        return {k: np.asarray(v) for k, v in d.items()}
     tabs = ("Cf", "Sf", "Ec", "Es") if method == "mxu" else ("Cf", "Sf", "e2", "lo", "hi")
     for i, bk in enumerate(p._buckets):
         for k in tabs:
@@ -204,7 +212,6 @@ def test_performance_defaults_reach_the_pipeline(small_stream):
 
 @pytest.mark.parametrize("kw,item", [
     ({"alpha": 0.75}, "Queue 1 item 6"),
-    ({"xcorr_method": "fused"}, "Queue 2 item 2"),
     ({"xcorr_method": "fft"}, "Queue 1 item 11"),
     ({"subsample_delays": True}, "Queue 1 item 11"),
     ({"window_method": "patches"}, "Queue 1 item 11"),

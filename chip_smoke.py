@@ -16,16 +16,22 @@ kernels' JSON record; the last is
 
 Phases, in order (``--phases`` picks a subset for a quick check):
 
-- ``build``: ``nvcc`` on every ``csrc/*.cu``, all at once (always runs);
-- ``kernel``: ``icorr_peak`` against its plain version;
-- ``main``: the canonical run with the default ``xcorr_method='mxu'``;
+- ``build``: ``nvcc`` on every ``csrc/*.cu``, all at once, and a look at
+  the tensor-core library's SASS for tf32 ``HGMMA`` (always runs);
+- ``kernel``: ``icorr_peak`` against its plain version at each
+  ``matmul_precision``: 'highest' (fp32 CUDA cores), 'high' (3xTF32) and
+  'default' (1xTF32) on the tensor cores;
+- ``main``: the canonical run with the default ``xcorr_method='mxu'`` at
+  the default 'high' (tensor-core route), then at 'highest' (fp32 route)
+  and 'default';
 - ``fused-kernel``: ``fused_xcorr_bucket`` against its plain version on
   every canonical bucket, a mixed-length bucket and a ragged random one;
 - ``fused-main``: the canonical run through the API with
   ``set_performance_defaults(xcorr_method='fused')``;
 - ``multiarray``: ``MultiArrayPipeline`` on four canonical arrays, 'fused'
   and 'mxu', against single-array runs, and ``BroadbandPipeline``;
-- ``timing``: step, per-bucket kernel and multi-array times, profiles.
+- ``timing``: step, per-bucket kernel (per precision) and multi-array
+  times, profiles.
 """
 
 from __future__ import annotations
@@ -48,6 +54,12 @@ SEED = 42
 MDCCM_THRESH = 0.6
 TOL = 1e-4            # pipeline outputs, rtol and atol
 KERNEL_RTOL = 1e-5    # kernel peak / rho against the plain version
+# 'default' (1xTF32) against its emulated plain version: the same exact
+# tf32 products summed in another order; measured on an H100 at most
+# 2.1e-6 of the largest peak (5.8e-6 before the kernel folded K blocks in
+# fp32 registers), so the kernel tolerance holds for it too
+DEFAULT_RTOL = 1e-5
+PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
@@ -55,6 +67,7 @@ PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 
@@ -107,42 +120,88 @@ def cuda_time_ms(fn, reps: int, warmup: int = 2) -> float:
     return t0.elapsed_time(t1) / reps
 
 
+def device_ms(fn, reps: int) -> float:
+    """Mean device time of ``fn()`` over ``reps`` calls queued behind a spin
+    kernel, so that they run back to back: the host's launch gaps between
+    calls, which ``cuda_time_ms`` counts for short kernels, do not."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = torch.cuda.Event(enable_timing=True)
+    t1 = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(50_000_000)   # ~25 ms: the host queues the calls meanwhile
+    t0.record()
+    for _ in range(reps):
+        fn()
+    t1.record()
+    torch.cuda.synchronize()
+    return t0.elapsed_time(t1) / reps
+
+
 # --------------------------------------------------------------------------
 # icorr_peak against its plain version
 # --------------------------------------------------------------------------
 
-def check_icorr(name, cs2, e2, lo, hi):
-    """Kernel vs plain version on the card.  ``idx`` must be exact except at
-    near-ties split by accumulation order, where the kernel's own value at
-    its ``idx`` must lie within KERNEL_RTOL * max|peak| of the reference peak.
-    Returns (max |peak error|, near-tie rows)."""
+def own_value(cs2, e2, rows, cols, precision):
+    """float64 value of the products the kernel takes at ``precision`` for
+    (row, lag) pairs: the exact product ('highest'), or the exact sum of
+    the tf32 split products ('high': lo.hi + hi.lo + hi.hi; 'default':
+    hi.hi)."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    a, b = cs2[rows], e2[:, cols].T.contiguous()
+    if precision == "highest":
+        return (a.double() * b.double()).sum(-1)
+    (ah, al), (bh, bl) = XP.tf32_split(a), XP.tf32_split(b)
+    v = (ah.double() * bh.double()).sum(-1)
+    if precision == "high":
+        v = v + (al.double() * bh.double() + ah.double() * bl.double()).sum(-1)
+    return v
+
+
+def check_icorr(name, cs2, e2, lo, hi, precision="highest", against=None,
+                e2t=None):
+    """Kernel at ``precision`` vs the plain version at ``against`` (default
+    the same precision: the split emulated in fp32 matmuls) on the card.
+    ``idx`` must be exact except at near-ties, where the kernel's own value
+    at its ``idx`` must lie within rtol * max|peak| of the reference peak
+    (rtol: KERNEL_RTOL, or DEFAULT_RTOL for 'default' against itself).
+    Checks that the precision's route launched.  Returns (max |peak
+    error|, near-tie rows)."""
     import torch
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
-    pk, ix = XP.icorr_peak(cs2, e2, lo, hi)
-    pr, ir = XP.icorr_peak_reference(cs2, e2, lo, hi)
+    against = against or precision
+    rtol = DEFAULT_RTOL if against == "default" else KERNEL_RTOL
+    before = (XP.launches, XP.launches_tc)
+    pk, ix = XP.icorr_peak(cs2, e2, lo, hi, precision=precision, e2t=e2t)
+    tc = precision != "highest"
+    if (XP.launches - before[0], XP.launches_tc - before[1]) != (int(not tc), int(tc)):
+        fail(f"icorr_peak {name} ({precision}) took the wrong route")
+    pr, ir = XP.icorr_peak_reference(cs2, e2, lo, hi, precision=against)
     torch.cuda.synchronize()
     fin = torch.isfinite(pr)
     scale = float(pr[fin].abs().max()) if bool(fin.any()) else 1.0
+    tag = f"icorr_peak {name} [{precision} vs plain {against}]"
     if not torch.equal(torch.isfinite(pk), fin):
-        fail(f"icorr_peak {name}: finite pattern of peak differs")
+        fail(f"{tag}: finite pattern of peak differs")
     err = (pk[fin] - pr[fin]).abs()
     max_err = float(err.max()) if err.numel() else 0.0
-    if bool((err > KERNEL_RTOL * pr[fin].abs() + KERNEL_RTOL * scale).any()):
-        fail(f"icorr_peak {name}: peak differs beyond rtol {KERNEL_RTOL} "
+    if bool((err > rtol * pr[fin].abs() + rtol * scale).any()):
+        fail(f"{tag}: peak differs beyond rtol {rtol} "
              f"(max abs err {max_err:.3e}, scale {scale:.3e})")
     bad = (ix != ir).nonzero().flatten()
     if bad.numel():
-        # the kernel's correlation at its own idx, in float64
-        rows = bad
-        own = (cs2[rows].double() * e2[:, ix[rows].long()].double().T).sum(-1)
-        gap = (own - pr[rows].double()).abs()
-        if bool((gap > KERNEL_RTOL * scale).any()):
-            fail(f"icorr_peak {name}: {bad.numel()} rows pick another lag "
-                 f"that is not a near-tie (max gap {float(gap.max()):.3e})")
-    log(f"icorr_peak {name}: R={cs2.shape[0]} K2p={cs2.shape[1]} "
-        f"nlag={e2.shape[1]}: max|peak err| {max_err:.3e} "
-        f"(scale {scale:.3e}), idx exact except {bad.numel()} near-tie rows")
+        own = own_value(cs2, e2, bad, ix[bad].long(), precision)
+        gap = (own - pr[bad].double()).abs()
+        if bool((gap > rtol * scale).any()):
+            fail(f"{tag}: {bad.numel()} rows pick another lag that is not a "
+                 f"near-tie (max gap {float(gap.max()):.3e})")
+    log(f"{tag}: R={cs2.shape[0]} K2p={cs2.shape[1]} nlag={e2.shape[1]}: "
+        f"max|peak err| {max_err:.3e} (scale {scale:.3e}, "
+        f"{max_err / scale:.2e} of it), idx exact except {bad.numel()} "
+        f"near-tie rows")
     return max_err, int(bad.numel())
 
 
@@ -158,7 +217,7 @@ def random_case(R, K2p, nlag, seed):
     return cs2, e2, (half - bh).to(torch.int32), (half + bh).to(torch.int32)
 
 
-TIE_LAGS = (5, 130, 259)   # in three different 64-lag tiles of 260 lags
+TIE_LAGS = (5, 130, 259)   # in three different 64- and 128-lag tiles of 260
 
 
 def tie_case(R=300, K2p=256, nlag=260, seed=4):
@@ -183,19 +242,30 @@ def tie_case(R=300, K2p=256, nlag=260, seed=4):
 
 
 def phase_kernel():
+    """Each route against the plain version of its own precision, and
+    'high' also against fp32; the tie case at every precision."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
-    check_icorr("canonical-largest-K", *random_case(1092, 2432, 2399, 1))
-    check_icorr("canonical-largest-R", *random_case(2212, 1280, 1199, 2))
-    check_icorr("ragged-small", *random_case(77, 200, 131, 3))
+    cases = {"canonical-largest-K": random_case(1092, 2432, 2399, 1),
+             "canonical-largest-R": random_case(2212, 1280, 1199, 2),
+             "ragged-small": random_case(77, 200, 131, 3)}
     cs2, e2, lo, hi, want = tie_case()
-    check_icorr("tie", cs2, e2, lo, hi)
-    _, ix = XP.icorr_peak(cs2, e2, lo, hi)
-    wrong = int((ix != want).sum())
-    if wrong:
-        fail(f"icorr_peak tie: {wrong} rows did not pick the first maximum")
-    log(f"icorr_peak tie: all {cs2.shape[0]} rows picked the first of the "
-        f"tied lags {TIE_LAGS}")
+    cases["tie"] = (cs2, e2, lo, hi)
+    errs = {}
+    for prec in PRECISIONS:
+        for name, args in cases.items():
+            errs[prec] = max(errs.get(prec, 0.0),
+                             check_icorr(name, *args, precision=prec)[0])
+            if prec == "high":
+                check_icorr(name, *args, precision=prec, against="highest")
+        _, ix = XP.icorr_peak(cs2, e2, lo, hi, precision=prec)
+        wrong = int((ix != want).sum())
+        if wrong:
+            fail(f"icorr_peak tie ({prec}): {wrong} rows did not pick the first "
+                 f"maximum")
+        log(f"icorr_peak tie ({prec}): all {cs2.shape[0]} rows picked the first "
+            f"of the tied lags {TIE_LAGS}")
+    return errs
 
 
 # --------------------------------------------------------------------------
@@ -265,26 +335,55 @@ def ground_truth(out, ncl, baz_true=BAZ_TRUE, vel_true=VEL_TRUE, label=""):
         fail(f"{label}no band has confident windows")
 
 
-def phase_main():
+def run_api_at(st, freqlist, winlens, precision):
+    """The canonical API run on the card at ``matmul_precision``; returns
+    (outputs, launches of the fp32 route, launches of the tensor-core
+    route)."""
     import torch
+    from narrow_band_least_squares_tpu_torch import api
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
+    prev = api.set_performance_defaults(
+        matmul_precision=None if precision == "high" else precision)
+    try:
+        XP.launches = XP.launches_tc = 0
+        t0 = time.perf_counter()
+        out = run_api(st, freqlist, winlens, "cuda")
+        torch.cuda.synchronize()
+        t_first = time.perf_counter() - t0
+        f32, tc = XP.launches, XP.launches_tc
+    finally:
+        api.set_performance_defaults(matmul_precision=None)
+        api.set_performance_defaults(**prev)
+    log(f"main path at {precision} (cuda, first call incl. host set-up): "
+        f"{t_first:.3f} s, icorr_peak launches: fp32 route {f32}, "
+        f"tensor-core route {tc}")
+    return out, f32, tc
+
+
+def phase_main():
+    """The canonical run at the default 'high' must take the tensor-core
+    route only, 'highest' the fp32 route only; both match the CPU run and
+    the truth.  'default' (1xTF32 may move near-tied lags) takes the
+    tensor-core route and must hit the truth.  Returns the main-path
+    launches per precision."""
     st, freqlist, winlens = canonical_inputs()
-    XP.launches = 0
-    t0 = time.perf_counter()
-    gpu = run_api(st, freqlist, winlens, "cuda")
-    torch.cuda.synchronize()
-    t_first = time.perf_counter() - t0
-    launches = XP.launches
-    log(f"main path (cuda, first call incl. host set-up): {t_first:.3f} s, "
-        f"icorr_peak launches {launches}")
-    if launches == 0:
-        fail("the main path launched no icorr_peak kernel")
-    ncl = gpu[6]
-    check_shapes(gpu, ncl, NBANDS)
-    cpu = run_api(st, freqlist, winlens, "cpu")
-    compare_outputs(gpu, cpu, ncl)
-    ground_truth(gpu, ncl)
+    cpu = None
+    launches = {}
+    for prec in ("high", "highest", "default"):
+        gpu, f32, tc = run_api_at(st, freqlist, winlens, prec)
+        own, other = (f32, tc) if prec == "highest" else (tc, f32)
+        if own == 0 or other != 0:
+            fail(f"the main path at {prec} must launch only the "
+                 f"{'fp32' if prec == 'highest' else 'tensor-core'} route")
+        launches[prec] = own
+        ncl = gpu[6]
+        check_shapes(gpu, ncl, NBANDS)
+        if prec != "default":
+            if cpu is None:
+                cpu = run_api(st, freqlist, winlens, "cpu")
+            compare_outputs(gpu, cpu, ncl)
+        ground_truth(gpu, ncl, label=f"{prec} ")
     return launches
 
 
@@ -431,12 +530,12 @@ def phase_fused_main():
     st, freqlist, winlens = canonical_inputs()
     prev = api.set_performance_defaults(xcorr_method="fused")
     try:
-        FX.launches = XP.launches = 0
+        FX.launches = XP.launches = XP.launches_tc = 0
         t0 = time.perf_counter()
         gpu = run_api(st, freqlist, winlens, "cuda")
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches, icorr = FX.launches, XP.launches
+        launches, icorr = FX.launches, XP.launches + XP.launches_tc
         log(f"fused main path (cuda, first call incl. host set-up): "
             f"{t_first:.3f} s, fused_xcorr_bucket launches {launches}, "
             f"icorr_peak launches {icorr}")
@@ -534,15 +633,15 @@ def phase_multiarray():
 
 def capture_icorr_inputs(pipe, data):
     """Run one step with a recorder around the xcorr module's icorr_peak, and
-    return the inputs of every launch (these launches are not counted as the
-    main path's)."""
+    return the arguments of every launch, ((cs2, e2, lo, hi), keywords)
+    (these launches are not counted as the main path's)."""
     from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
 
     real, seen = XC.icorr_peak, []
 
-    def rec(cs2, e2, lo, hi):
-        seen.append((cs2, e2, lo, hi))
-        return real(cs2, e2, lo, hi)
+    def rec(cs2, e2, lo, hi, **kw):
+        seen.append(((cs2, e2, lo, hi), kw))
+        return real(cs2, e2, lo, hi, **kw)
 
     XC.icorr_peak = rec
     try:
@@ -564,14 +663,31 @@ def icorr_work(cs2, e2, lo, hi):
     return flops, nbytes
 
 
-def library_peak(cs2, e2, lo, hi):
-    """The PyTorch yardstick: one matmul, a [lo, hi] mask, torch.max."""
+def library_peak(cs2, e2, lo, hi, tf32=False):
+    """The PyTorch yardstick: one matmul (fp32 SGEMM, or with ``tf32`` the
+    1xTF32 one), a [lo, hi] mask, torch.max."""
     import torch
 
-    cc = torch.matmul(cs2, e2)
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+    try:
+        cc = torch.matmul(cs2, e2)
+    finally:
+        torch.set_float32_matmul_precision(prev)
     col = torch.arange(cc.shape[1], device=cc.device)
     bad = (col[None, :] < lo[:, None]) | (col[None, :] > hi[:, None])
     return cc.masked_fill_(bad, float("-inf")).max(dim=1)
+
+
+def icorr_bound_ms(flops, nbytes, precision):
+    """(bound ms, what bounds it): the larger of the operations over the
+    route's peak (fp32 CUDA cores; tf32 tensor cores, three products per
+    fp32 multiply-add at 'high') and the bytes over the HBM rate."""
+    ops = (flops / PEAK_FP32_FLOPS if precision == "highest" else
+           3 * flops / PEAK_TF32_FLOPS if precision == "high" else
+           flops / PEAK_TF32_FLOPS)
+    mem = nbytes / PEAK_HBM_BYTES
+    return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
 def profile_step(label, pipe, data, steps=5):
@@ -698,7 +814,78 @@ def time_fused(label, plans, st, fused_max_err, launches_main):
     }
 
 
+SOURCES = {"highest": "narrow_band_least_squares_tpu_torch/csrc/xcorr_peak.cu",
+           "high": "narrow_band_least_squares_tpu_torch/csrc/xcorr_peak_tc.cu",
+           "default": "narrow_band_least_squares_tpu_torch/csrc/xcorr_peak_tc.cu"}
+
+
+def time_icorr(label, name, pipe, data, check):
+    """Per bucket and per step of plan ``name``: kernel ms at each
+    precision, its bound, the plain version's ms at that precision, and the
+    library calls (fp32 SGEMM, and 1xTF32 SGEMM for 'default') + mask +
+    max, all as device time (`device_ms`); the kernel also by CUDA events
+    over calls as the host issues them (``event_ms``, host gaps included).  The inputs
+    are the same at every precision (the spectra are fp32); ``check`` holds
+    every bucket against the plain versions.  Returns per precision {ms,
+    event_ms, plain_ms, library_ms, bound_ms, bound_by, max_abs_err}."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    tot = {p: dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
+                   flops=0.0, nbytes=0.0, max_abs_err=0.0) for p in PRECISIONS}
+    seen = capture_icorr_inputs(pipe, data)
+    for i, (args, kw) in enumerate(seen):
+        e2t = kw.get("e2t")
+        if e2t is None:
+            e2t = XP.transpose_split_table(args[1])
+        lib = {False: device_ms(lambda: library_peak(*args), reps=5),
+               True: device_ms(lambda: library_peak(*args, tf32=True), reps=5)}
+        f, b = icorr_work(*args)
+        parts = []
+        for prec in PRECISIONS:
+            t = tot[prec]
+            if check:
+                err, _ = check_icorr(f"{name} bucket {i}", *args, precision=prec,
+                                     e2t=e2t)
+                t["max_abs_err"] = max(t["max_abs_err"], err)
+                if prec == "high":
+                    check_icorr(f"{name} bucket {i}", *args, precision=prec,
+                                against="highest", e2t=e2t)
+            run = lambda: XP.icorr_peak(*args, precision=prec, e2t=e2t)
+            kt = device_ms(run, reps=10)
+            et = cuda_time_ms(run, reps=10)
+            pt = device_ms(lambda: XP.icorr_peak_reference(*args, precision=prec),
+                           reps=3)
+            lt = lib[prec == "default"]
+            bound, _ = icorr_bound_ms(f, b, prec)
+            parts.append(f"{prec} {kt * 1e3:.1f} ({et * 1e3:.1f})/{pt * 1e3:.1f}/"
+                         f"{lt * 1e3:.1f}/{bound * 1e3:.1f}")
+            t["ms"] += kt
+            t["event_ms"] += et
+            t["plain_ms"] += pt
+            t["library_ms"] += lt
+            t["flops"] += f
+            t["nbytes"] += b
+        log(f"[{label}] icorr_peak {name} bucket {i}: R={args[0].shape[0]} "
+            f"K2p={args[0].shape[1]} nlag={args[1].shape[1]} ({f / 1e9:.3f} "
+            f"GFLOP), kernel (events)/plain/library/bound us: " + ", ".join(parts))
+    for prec in PRECISIONS:
+        t = tot[prec]
+        t["bound_ms"], t["bound_by"] = icorr_bound_ms(t["flops"], t["nbytes"], prec)
+        lib = "1xTF32 SGEMM" if prec == "default" else "fp32 SGEMM"
+        log(f"[{label}] icorr_peak per {name} step at {prec} ({len(seen)} "
+            f"launches): kernel {t['ms']:.4f} ms (by events {t['event_ms']:.4f} "
+            f"ms), plain {t['plain_ms']:.4f} ms, "
+            f"library ({lib} + mask + max) {t['library_ms']:.4f} ms, bound "
+            f"{t['bound_ms']:.4f} ms by {t['bound_by']} ({t['flops'] / 1e9:.2f} "
+            f"GFLOP); kernel at {t['flops'] / (t['ms'] * 1e-3) / 1e12:.2f} "
+            f"fp32-equivalent TFLOP/s")
+    return tot
+
+
 def phase_timing(label, launches_main):
+    """Steps at each precision on the canonical and dense50 plans, the
+    profile of the canonical 'mxu' step at 'high' and 'highest', and
+    icorr_peak per bucket.  Returns the canonical icorr_peak records."""
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
@@ -714,59 +901,57 @@ def phase_timing(label, launches_main):
     wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
     plans["dense50"] = make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)
 
-    rec = None
+    recs = []
     for name, plan in plans.items():
-        pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", alpha=1.0,
-                                  device="cuda")
-        XP.launches = 0
-        pipe.run_raw(st.data)
-        per_step = XP.launches
-        ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
         nwin = sum(plan.num_compute_list)
-        log(f"[{label}] {name}: {ms:.4f} ms per run_raw step, "
-            f"{nwin / ms * 1e3:.1f} windows solved/s, icorr_peak launches "
-            f"per step {per_step}")
+        for prec in PRECISIONS:
+            pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", alpha=1.0,
+                                      matmul_precision=prec, device="cuda")
+            XP.launches = XP.launches_tc = 0
+            pipe.run_raw(st.data)
+            per_step = XP.launches + XP.launches_tc
+            ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+            log(f"[{label}] {name} at {prec}: {ms:.4f} ms per run_raw step, "
+                f"{nwin / ms * 1e3:.1f} windows solved/s, icorr_peak launches "
+                f"per step {per_step}")
+            if name == "canonical" and prec != "default":
+                profile_step(f"{label} {prec}", pipe, st.data)
+        torch.cuda.synchronize()
+        tot = time_icorr(label, name, pipe, st.data, check=name == "canonical")
         if name != "canonical":
             continue
-        profile_step(label, pipe, st.data)
-        seen = capture_icorr_inputs(pipe, st.data)
-        k_ms = p_ms = l_ms = flops = nbytes = 0.0
-        max_err = 0.0
-        for i, args in enumerate(seen):
-            err, _ = check_icorr(f"main-path bucket {i}", *args)
-            max_err = max(max_err, err)
-            kt = cuda_time_ms(lambda: XP.icorr_peak(*args), reps=20)
-            pt = cuda_time_ms(lambda: XP.icorr_peak_reference(*args), reps=10)
-            lt = cuda_time_ms(lambda: library_peak(*args), reps=10)
-            f, b = icorr_work(*args)
-            bound = max(f / PEAK_FP32_FLOPS, b / PEAK_HBM_BYTES) * 1e3
-            log(f"[{label}] icorr_peak bucket {i}: R={args[0].shape[0]} "
-                f"K2p={args[0].shape[1]} nlag={args[1].shape[1]}: kernel "
-                f"{kt * 1e3:.1f} us, plain {pt * 1e3:.1f} us, library "
-                f"{lt * 1e3:.1f} us, bound {bound * 1e3:.1f} us "
-                f"({f / 1e9:.3f} GFLOP)")
-            k_ms += kt
-            p_ms += pt
-            l_ms += lt
-            flops += f
-            nbytes += b
-        bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-        bound_by = ("operations" if flops / PEAK_FP32_FLOPS
-                    >= nbytes / PEAK_HBM_BYTES else "bytes")
-        log(f"[{label}] icorr_peak per canonical step ({len(seen)} launches): "
-            f"kernel {k_ms:.4f} ms, plain {p_ms:.4f} ms, library "
-            f"{l_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-            f"({flops / 1e9:.2f} GFLOP); kernel at "
-            f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s")
-        rec = {
-            "name": "icorr_peak", "route": "cuda",
-            "source": "narrow_band_least_squares_tpu_torch/csrc/xcorr_peak.cu",
-            "replaces": "narrow_band_least_squares_tpu/ops/kernels/xcorr_peak.py:94",
-            "launches": launches_main, "max_abs_err": max_err,
-            "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-            "bound_by": bound_by, "library_ms": l_ms,
-        }
-    return rec, plans, st
+        for prec in PRECISIONS:
+            t = tot[prec]
+            recs.append({
+                "name": f"icorr_peak@{prec}", "route": "cuda",
+                "precision": prec, "source": SOURCES[prec],
+                "replaces": "narrow_band_least_squares_tpu/ops/kernels/xcorr_peak.py:94",
+                "launches": launches_main.get(prec, 0),
+                "max_abs_err": t["max_abs_err"], "ms": t["ms"],
+                "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+                "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+            })
+    return recs, plans, st
+
+
+def check_sass():
+    """The tensor-core library must hold tf32 HGMMA (wgmma) instructions."""
+    import re
+    from narrow_band_least_squares_tpu_torch.ops.kernels import _build
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    hgmma = [ln.strip() for ln in _build.sass("xcorr_peak_tc").splitlines()
+             if re.search(r"HGMMA\S*TF32", ln)]
+    if not hgmma:
+        mma = [ln.strip() for ln in _build.sass("xcorr_peak_tc").splitlines()
+               if "MMA" in ln][:5]
+        fail(f"xcorr_peak_tc's SASS holds no HGMMA with TF32 operands; its MMA "
+             f"lines: {mma}")
+    log(f"xcorr_peak_tc SASS: {len(hgmma)} tf32 HGMMA, e.g. {hgmma[0][:100]}")
+    lib = XP._lib_tc()
+    log(f"xcorr_peak_tc dynamic shared memory: "
+        f"{lib.nbls_icorr_peak_tc_smem_bytes(3)} B at 'high', "
+        f"{lib.nbls_icorr_peak_tc_smem_bytes(1)} B at 'default'")
 
 
 def main() -> int:
@@ -798,21 +983,22 @@ def main() -> int:
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for {sorted(report)}")
     for name, r in report.items():
         for line in r["ptxas"].splitlines():
-            if "registers" in line or "spill" in line:
+            if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 log(f"  {name}: {line.strip()}")
+    check_sass()
 
     if "kernel" in phases:
         phase_kernel()
-    launches = phase_main() if "main" in phases else 0
+    launches = phase_main() if "main" in phases else {}
     fused_err = phase_fused_kernel() if "fused-kernel" in phases else None
     fused_launches = phase_fused_main() if "fused-main" in phases else 0
     if "multiarray" in phases:
         phase_multiarray()
     if "timing" in phases:
-        rec, plans, st = phase_timing(label, launches)
+        recs, plans, st = phase_timing(label, launches)
         frec = time_fused(label, plans, st, fused_err, fused_launches)
         log(f"[{label}]")
-        log(json.dumps({"kernels": [rec, frec]}))
+        log(json.dumps({"kernels": recs + [frec]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

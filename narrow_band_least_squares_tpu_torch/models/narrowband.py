@@ -34,6 +34,7 @@ from narrow_band_least_squares_tpu_torch.ops import filters as F
 from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
 from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
 from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 from narrow_band_least_squares_tpu_torch.ops.windows import (
     build_bucket_grids,
     build_window_grid,
@@ -149,8 +150,12 @@ class NarrowBandPipeline:
       ``icorr_peak`` kernel, on the bucket's dense tables or its stacked
       ones; 'fused' runs each bucket in one ``fused_xcorr_bucket`` launch
       and always buckets the bands;
-    - every product is computed in IEEE float32 whatever
-      ``matmul_precision`` says;
+    - ``matmul_precision`` sets the lag search (`icorr_peak`) on the card:
+      'highest' is IEEE fp32 on the CUDA cores, 'high' (the default; bf16x3
+      on the TPU) is 3xTF32 and 'default' (one bf16 pass) is 1xTF32 on the
+      tensor cores.  On the CPU every precision computes IEEE fp32, as the
+      JAX package does there.  The forward-DFT matmuls and
+      ``fused_xcorr_bucket`` are IEEE fp32 at every precision;
     - ``xcorr_chunk_mb`` and ``xcorr_lag_tile`` are accepted and change
       nothing: they bound the (B, W, P, nlag) correlation on the TPU, and
       the kernel never forms it.
@@ -208,8 +213,7 @@ class NarrowBandPipeline:
             raise ValueError(f"unknown window_method {window_method!r}")
         if dtype != torch.float32:
             raise _not_ported(f"dtype={dtype}", "Queue 1 item 11")
-        if matmul_precision not in ("highest", "high", "default"):
-            raise ValueError(f"unknown matmul_precision {matmul_precision!r}")
+        XP.check_precision(matmul_precision)
         del c_steps, max_lts_candidates, lts_candidate_chunk, lts_funnel_k
         del bucket_ratio, xcorr_chunk_mb, xcorr_lag_tile
 
@@ -391,26 +395,39 @@ class NarrowBandPipeline:
                     )
         self._state = {k: v.to(self.device) for k, v in state.items()}
         self._fused_rows = {}   # per (bucket, arrays), see _fused_inputs
-        # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu')
-        self._e2 = {}
-        if self.xcorr_method == "mxu":
-            for pre in ([b["prefix"] for b in self._buckets]
-                        if self.bucket_bands else ["tables."]):
+        # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu'),
+        # and for the tensor-core route its transposed tf32 split
+        self._e2, self._e2t = {}, {}
+        if self.xcorr_method == "fused":
+            return
+        split = self.matmul_precision != "highest" and self.device.type == "cuda"
+        for pre in ([b["prefix"] for b in self._buckets]
+                    if self.bucket_bands else ["tables."]):
+            if self.xcorr_method == "mxu":
                 self._e2[pre] = XC.stack_inverse_table(
                     self._state[pre + "Ec"], self._state[pre + "Es"]
                 )
+            if split:
+                e2 = self._e2.get(pre)
+                self._e2t[pre] = XP.transpose_split_table(
+                    self._state[pre + "e2"] if e2 is None else e2)
 
     # ------------------------------------------------------------------
     def _xcorr(self, win: torch.Tensor, pre: str, lag_min: int):
         s = self._state
+        prec = self.matmul_precision
         if self.xcorr_method == "pallas":
             tab = {k: s[pre + k] for k in ("Cf", "Sf", "e2", "lo", "hi")}
-            tab["lag_min"] = lag_min
-            return XC.cross_correlate_pallas(win, self._pairs, tab, self.plan.fs)
-        tab = {"Cf": s[pre + "Cf"], "Sf": s[pre + "Sf"],
-               "e2": self._e2[pre], "lag_min": lag_min}
+        else:
+            tab = {"Cf": s[pre + "Cf"], "Sf": s[pre + "Sf"], "e2": self._e2[pre]}
+        tab["lag_min"] = lag_min
+        if pre in self._e2t:
+            tab["e2t"] = self._e2t[pre]
+        if self.xcorr_method == "pallas":
+            return XC.cross_correlate_pallas(win, self._pairs, tab, self.plan.fs,
+                                             precision=prec)
         return XC.cross_correlate_mxu(win, self._pairs, s[pre + "lag_mask"],
-                                      tab, self.plan.fs)
+                                      tab, self.plan.fs, precision=prec)
 
     def _extract(self, y: torch.Tensor, bk: Optional[dict] = None):
         """Windows of one array's filtered bank (B, C, T): over the global

@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface.  It is compiled by ``nvcc``
 for ``sm_90a`` into ``build/nbls_torch_kernels/lib<name>_<hash>.so`` at the
-root of the checkout and loaded with ``ctypes``; the hash covers the source
-and the flags, so an edited source is rebuilt.  The sources include no
+root of the checkout and loaded with ``ctypes``; the hash covers the source,
+every shared header ``csrc/*.cuh`` and the flags, so an edited source or
+header is rebuilt.  The sources include no
 PyTorch header: such a build takes seconds, where one through
 ``torch.utils.cpp_extension.load`` takes minutes.  A failed build raises.
 
@@ -45,11 +46,11 @@ def _nvcc() -> str:
 
 
 def _target(name: str) -> Path:
-    src = CSRC_DIR / f"{name}.cu"
-    digest = hashlib.sha256(
-        src.read_bytes() + " ".join(NVCC_FLAGS).encode()
-    ).hexdigest()[:16]
-    return BUILD_DIR / f"lib{name}_{digest}.so"
+    h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.name.encode() + header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
 
 
 def build_all(names: List[str] | None = None) -> Dict[str, dict]:
@@ -81,6 +82,21 @@ def build_all(names: List[str] | None = None) -> Dict[str, dict]:
     if failed:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failed))
     return report
+
+
+def sass(name: str) -> str:
+    """``cuobjdump -sass`` of source ``name``'s built library (built first
+    if it has no build): what the card runs."""
+    so = _target(name)
+    if not so.exists():
+        build_all([name])
+    tool = Path(_nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(tool), "-sass", str(so)], capture_output=True,
+                         text=True, timeout=300)
+    if out.returncode != 0:
+        raise RuntimeError(f"cuobjdump -sass {so.name} exited {out.returncode}: "
+                           f"{out.stderr.strip()}")
+    return out.stdout
 
 
 def load_library(name: str) -> ctypes.CDLL:

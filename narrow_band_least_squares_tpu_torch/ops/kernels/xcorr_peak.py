@@ -1,32 +1,104 @@
 """Fused inverse-DFT correlation + masked first-max peak search.
 
 Port of ``narrow_band_least_squares_tpu/ops/kernels/xcorr_peak.py::icorr_peak``
-(Pallas, TPU) to a CUDA C++ kernel for Hopper, ``csrc/xcorr_peak.cu``.  For
-every row r::
+(Pallas, TPU) to CUDA C++ kernels for Hopper.  For every row r::
 
     peak[r] = max_{lo[r] <= l <= hi[r]} (cs2 @ e2)[r, l]
     idx[r]  = the first l that reaches it
 
-The (R, nlag) correlation never reaches device memory.  A CUDA tensor always
-goes to the kernel; a CPU tensor goes to ``icorr_peak_reference``, the plain
-PyTorch version, which the tests hold against the JAX kernel and the card
-holds the CUDA kernel against.  The kernel computes in fp32 whatever matmul
-precision the caller names.
+The (R, nlag) correlation never reaches device memory.  The product runs
+at the caller's ``precision``, mapped from the TPU's as follows:
+
+- ``'highest'``: IEEE fp32 on the CUDA cores, ``csrc/xcorr_peak.cu``;
+- ``'high'`` (bf16x3 on the TPU): 3xTF32 on the tensor cores, each operand
+  split as ``hi = rna_tf32(x)``, ``lo = rna_tf32(x - hi)`` and the product
+  taken as ``lo.hi + hi.lo + hi.hi`` in fp32, ``csrc/xcorr_peak_tc.cu``;
+- ``'default'`` (one bf16 pass): 1xTF32, ``hi.hi``, the same kernel.
+
+A CUDA tensor always goes to a kernel, and each route counts its launches
+(``launches``: fp32; ``launches_tc``: tensor cores).  A CPU tensor goes to
+``icorr_peak_reference`` in IEEE fp32 whatever the precision, as XLA on the
+CPU ignores the hint: the port equals the JAX package there.
+``icorr_peak_reference(..., precision=)`` emulates the split on any device;
+the card holds the tensor-core kernel against it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Tuple
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as Fnn
 
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
 
-# Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+PRECISIONS = ("highest", "high", "default")
+# tf32 products per fp32 multiply-add on the tensor-core route
+TF32_PRODUCTS = {"high": 3, "default": 1}
+# lags per tile and K per block of the tensor-core kernel: the split e2
+# table's row and column padding
+LAG_TILE_TC = 128
+K_BLOCK_TC = 32
+
+# Launches of each CUDA route since the count was last set to 0.
+launches = 0      # 'highest': the fp32 CUDA-core kernel
+launches_tc = 0   # 'high' / 'default': the tensor-core kernel
 
 _bound = None
+_bound_tc = None
+
+
+def check_precision(precision: str) -> None:
+    if precision not in PRECISIONS:
+        raise ValueError(
+            f"unknown matmul precision {precision!r}; expected one of {PRECISIONS}"
+        )
+
+
+def tf32_round(x: torch.Tensor) -> torch.Tensor:
+    """fp32 -> the nearest tf32 value (10 mantissa bits), ties away from
+    zero, as ``cvt.rna.tf32.f32``: integer operations on the fp32 bits.
+    ±inf and NaN pass through; a value past the largest tf32 becomes inf."""
+    b = x.contiguous().view(torch.int32)
+    special = (b & 0x7F800000) == 0x7F800000
+    r = torch.where(special, b, (b + 0x1000) & -0x2000)
+    return r.view(torch.float32)
+
+
+def tf32_split(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(hi, lo) with ``hi = rna(x)`` and ``lo = rna(x - hi)``."""
+    hi = tf32_round(x)
+    return hi, tf32_round(x - hi)
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
+
+def transpose_split_table(e2: torch.Tensor) -> torch.Tensor:
+    """``e2 (K2, nlag)`` -> ``(2, nlag_p, K2_p)``: the split of ``e2ᵀ``
+    (hi, lo), K-major as ``wgmma`` takes tf32 B, zero-padded to ``nlag_p``
+    rows (``nlag`` rounded up to ``LAG_TILE_TC``) and ``K2_p`` columns
+    (``K2`` rounded up to ``K_BLOCK_TC``; the pipeline's K2 is already a
+    multiple of 128).  A constant of the pipeline, built once with it."""
+    K2, nlag = e2.shape
+    et = Fnn.pad(e2.t(), (0, _round_up(K2, K_BLOCK_TC) - K2,
+                          0, _round_up(nlag, LAG_TILE_TC) - nlag))
+    return torch.stack(tf32_split(et)).contiguous()
+
+
+def _product(cs2, e2, precision):
+    """``cs2 @ e2`` at ``precision`` from fp32 matmuls: the split products
+    summed small terms first, as the tensor-core kernel takes them."""
+    with fp32_matmul():
+        if precision == "highest":
+            return cs2 @ e2
+        a_hi, a_lo = tf32_split(cs2)
+        b_hi, b_lo = tf32_split(e2)
+        if precision == "default":
+            return a_hi @ b_hi
+        return (a_lo @ b_hi + a_hi @ b_lo) + a_hi @ b_hi
 
 
 def icorr_peak_reference(
@@ -34,10 +106,12 @@ def icorr_peak_reference(
     e2: torch.Tensor,        # (K2, nlag) float32
     lo: torch.Tensor,        # (R,) int32
     hi: torch.Tensor,        # (R,) int32
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: one fp32 matmul, a [lo, hi] mask, max, first argmax."""
-    with fp32_matmul():
-        cc = cs2 @ e2
+    """Plain version: the product at ``precision`` (fp32 matmuls, the tf32
+    split emulated bit for bit), a [lo, hi] mask, max, first argmax."""
+    check_precision(precision)
+    cc = _product(cs2, e2, precision)
     col = torch.arange(cc.shape[1], device=cc.device, dtype=torch.int32)
     valid = (col[None, :] >= lo[:, None]) & (col[None, :] <= hi[:, None])
     ccm = torch.where(valid, cc, torch.tensor(-torch.inf, dtype=cc.dtype,
@@ -86,18 +160,98 @@ def _lib():
     return _bound
 
 
+def _lib_tc():
+    global _bound_tc
+    if _bound_tc is None:
+        from narrow_band_least_squares_tpu_torch.ops.kernels._build import load_library
+
+        lib = load_library("xcorr_peak_tc")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        lib.nbls_icorr_peak_tc.argtypes = [p, p, p, p, p, p, p, p, p,
+                                           i, i, i, i, i, p]
+        lib.nbls_icorr_peak_tc.restype = ctypes.c_int
+        lib.nbls_icorr_peak_tc_lag_tile.argtypes = []
+        lib.nbls_icorr_peak_tc_lag_tile.restype = ctypes.c_int
+        lib.nbls_icorr_peak_tc_smem_bytes.argtypes = [i]
+        lib.nbls_icorr_peak_tc_smem_bytes.restype = ctypes.c_int
+        if lib.nbls_icorr_peak_tc_lag_tile() != LAG_TILE_TC:
+            raise RuntimeError(
+                f"xcorr_peak_tc's lag tile is {lib.nbls_icorr_peak_tc_lag_tile()}, "
+                f"the split tables are padded to {LAG_TILE_TC}"
+            )
+        _bound_tc = lib
+    return _bound_tc
+
+
+def _launch_f32(cs2, e2, lo, hi, peak, idx):
+    R, K2 = cs2.shape
+    nlag = e2.shape[1]
+    lib = _lib()
+    ntiles = -(-nlag // lib.nbls_icorr_peak_lag_tile())
+    if ntiles * R >= 2**31 or R * K2 >= 2**40:
+        raise ValueError(f"icorr_peak shape out of range: R={R}, K2={K2}, nlag={nlag}")
+    part_val = torch.empty((ntiles, R), dtype=torch.float32, device=cs2.device)
+    part_idx = torch.empty((ntiles, R), dtype=torch.int32, device=cs2.device)
+    stream = torch.cuda.current_stream(cs2.device).cuda_stream
+    return lib.nbls_icorr_peak_f32(
+        cs2.data_ptr(), e2.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        peak.data_ptr(), idx.data_ptr(), part_val.data_ptr(),
+        part_idx.data_ptr(), R, K2, nlag, stream,
+    )
+
+
+def _launch_tc(cs2, e2, e2t, lo, hi, peak, idx, nprod):
+    nlag = e2.shape[1]
+    if e2t is None:
+        e2t = transpose_split_table(e2)
+    K2 = _round_up(cs2.shape[1], K_BLOCK_TC)
+    if K2 != cs2.shape[1]:   # whole K blocks; zero columns add nothing
+        cs2 = Fnn.pad(cs2, (0, K2 - cs2.shape[1]))
+    R = cs2.shape[0]
+    nlag_p = _round_up(nlag, LAG_TILE_TC)
+    if (e2t.shape != (2, nlag_p, K2) or e2t.dtype != torch.float32
+            or e2t.device != cs2.device or not e2t.is_contiguous()):
+        raise ValueError(
+            f"icorr_peak needs the split table of e2, (2, {nlag_p}, {K2}) "
+            f"float32 contiguous on {cs2.device} (transpose_split_table); got "
+            f"{tuple(e2t.shape)} {e2t.dtype} on {e2t.device}"
+        )
+    ntiles = nlag_p // LAG_TILE_TC
+    if ntiles * R >= 2**31 or max(R, nlag_p) * K2 >= 2**31:
+        raise ValueError(f"icorr_peak shape out of range: R={R}, K2={K2}, nlag={nlag}")
+    lib = _lib_tc()
+    dev = cs2.device
+    a_split = torch.empty((2 if nprod == 3 else 1, R, K2), dtype=torch.float32,
+                          device=dev)
+    part_val = torch.empty((ntiles, R), dtype=torch.float32, device=dev)
+    part_idx = torch.empty((ntiles, R), dtype=torch.int32, device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    return lib.nbls_icorr_peak_tc(
+        cs2.data_ptr(), a_split.data_ptr(), e2t.data_ptr(), lo.data_ptr(),
+        hi.data_ptr(), peak.data_ptr(), idx.data_ptr(), part_val.data_ptr(),
+        part_idx.data_ptr(), R, K2, nlag, nlag_p, nprod, stream,
+    )
+
+
 def icorr_peak(
     cs2: torch.Tensor,       # (R, K2) float32 stacked [Re(CS) | Im(CS)]
     e2: torch.Tensor,        # (K2, nlag) float32 stacked [Ec ; -Es]
     lo: torch.Tensor,        # (R,) int32 first valid lag index per row
     hi: torch.Tensor,        # (R,) int32 last valid lag index per row
+    *,
+    precision: str = "highest",
+    e2t: Optional[torch.Tensor] = None,   # transpose_split_table(e2)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ``argmax_l (cs2 @ e2)[:, lo:hi]``.  Returns (peak (R,) f32, idx (R,) i32).
 
     Rows are masked by [lo, hi] only; zero-padded K2 columns are harmless.
-    A row with no valid lag gives (-inf, 0).
+    A row with no valid lag gives (-inf, 0).  ``precision`` picks the CUDA
+    route (module docstring); on the CPU the product is IEEE fp32 whatever
+    it says.  ``e2t``, the split table of ``e2``, saves building it per call
+    on the tensor-core route; it is ignored elsewhere.
     """
-    global launches
+    global launches, launches_tc
+    check_precision(precision)
     _check(cs2, e2, lo, hi)
     dev = cs2.device
     if dev.type == "cpu":
@@ -107,28 +261,27 @@ def icorr_peak(
     for name, t in (("cs2", cs2), ("e2", e2), ("lo", lo), ("hi", hi)):
         if not t.is_contiguous():
             raise ValueError(f"icorr_peak needs a contiguous {name}")
-    R, K2 = cs2.shape
-    nlag = e2.shape[1]
+    R = cs2.shape[0]
     peak = torch.empty(R, dtype=torch.float32, device=dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
     if R == 0:
         return peak, idx
-    if nlag == 0:
+    if e2.shape[1] == 0:
         raise ValueError("icorr_peak needs at least one lag column")
-    lib = _lib()
-    ntiles = -(-nlag // lib.nbls_icorr_peak_lag_tile())
-    if ntiles * R >= 2**31 or R * K2 >= 2**40:
-        raise ValueError(f"icorr_peak shape out of range: R={R}, K2={K2}, nlag={nlag}")
-    part_val = torch.empty((ntiles, R), dtype=torch.float32, device=dev)
-    part_idx = torch.empty((ntiles, R), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nbls_icorr_peak_f32(
-            cs2.data_ptr(), e2.data_ptr(), lo.data_ptr(), hi.data_ptr(),
-            peak.data_ptr(), idx.data_ptr(), part_val.data_ptr(),
-            part_idx.data_ptr(), R, K2, nlag, stream,
-        )
+        if precision == "highest":
+            err = _launch_f32(cs2, e2, lo, hi, peak, idx)
+        else:
+            err = _launch_tc(cs2, e2, e2t, lo, hi, peak, idx,
+                             TF32_PRODUCTS[precision])
     if err != 0:
-        raise RuntimeError(f"icorr_peak kernel launch failed: CUDA error {err}")
-    launches += 1
+        raise RuntimeError(
+            f"icorr_peak ({precision}) kernel launch failed: "
+            + {-1: "the driver has no cuTensorMapEncodeTiled",
+               -2: "a TMA tensor map was refused"}.get(err, f"CUDA error {err}")
+        )
+    if precision == "highest":
+        launches += 1
+    else:
+        launches_tc += 1
     return peak, idx

@@ -10,7 +10,10 @@ Port of ``narrow_band_least_squares_tpu/ops/xcorr.py``.  Every
     rho = peak / sqrt(E_i * E_j),  MdCCM = median over pairs of rho
 
 The last two lines of the chain run in the ``icorr_peak`` kernel, which
-never writes the (rows, lags) correlation out.  Conventions are those of the
+never writes the (rows, lags) correlation out, at the pipeline's
+``matmul_precision`` (fp32, 3xTF32 or 1xTF32 on the card; see
+`ops.kernels.xcorr_peak`).  The forward-DFT products of ``_cross_spectra``
+stay IEEE fp32 (cuBLAS) at every precision.  Conventions are those of the
 reference: ``cc_p(l) = sum_t x_j(t + l) x_i(t)``, lags ascending, the first
 maximum wins.  Tables are built in float64 on the host and cast to float32.
 """
@@ -149,7 +152,8 @@ def median_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cross_spectra(win, pairs, Cf, Sf):
-    """Energies (B, W, C) and stacked cross-spectra (B*W*P, 2K)."""
+    """Energies (B, W, C) and stacked cross-spectra (B*W*P, 2K); the
+    spectra matmuls are IEEE fp32 whatever ``matmul_precision`` says."""
     B, W, C, Lmax = win.shape
     energy = torch.sum(win * win, dim=-1)
     flat = win.reshape(B * W * C, Lmax)
@@ -166,14 +170,17 @@ def _cross_spectra(win, pairs, Cf, Sf):
     return energy, cs2
 
 
-def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs):
-    """``icorr_peak`` over every (band, window, pair) row, then tau/rho/MdCCM."""
+def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
+                 precision="highest", e2t=None):
+    """``icorr_peak`` over every (band, window, pair) row at ``precision``
+    (``e2t``: e2's split table, `transpose_split_table`), then
+    tau/rho/MdCCM."""
     B, W = win.shape[:2]
     P = pairs.shape[0]
     cs2 = Fnn.pad(cs2, (0, e2.shape[0] - cs2.shape[1])).contiguous()
     lo = lo_b[:, None].expand(B, W * P).reshape(-1).contiguous()
     hi = hi_b[:, None].expand(B, W * P).reshape(-1).contiguous()
-    peak, idx = icorr_peak(cs2, e2, lo, hi)
+    peak, idx = icorr_peak(cs2, e2, lo, hi, precision=precision, e2t=e2t)
     peak = peak.reshape(B, W, P)
     tau = (idx.reshape(B, W, P).to(win.dtype) + lag_min) / fs
     Ei = energy[:, :, pairs[:, 0]]
@@ -191,15 +198,17 @@ def cross_correlate_mxu(
     fs: float,
     subsample: bool = False,
     lag_tile: int = 512,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """DFT-as-matmul cross-correlation.  Returns (tau, rho, mdccm).
 
-    The integer-lag search is ``icorr_peak``: each band's ``lag_mask`` is
-    the contiguous range ``[half - bh, half + bh]``, which becomes the
-    kernel's ``[lo, hi]``.  ``tables["e2"]`` (`stack_inverse_table`) is used
-    when present and built from Ec/Es otherwise.  ``lag_tile`` is accepted
-    for signature parity and changes nothing: the kernel never forms the
-    (rows, lags) correlation that the JAX path tiles.
+    The integer-lag search is ``icorr_peak`` at ``precision``: each band's
+    ``lag_mask`` is the contiguous range ``[half - bh, half + bh]``, which
+    becomes the kernel's ``[lo, hi]``.  ``tables["e2"]``
+    (`stack_inverse_table`) is used when present and built from Ec/Es
+    otherwise; ``tables["e2t"]``, its split table, when present.
+    ``lag_tile`` is accepted for signature parity and changes nothing: the
+    kernel never forms the (rows, lags) correlation that the JAX path tiles.
     """
     if subsample:
         raise NotImplementedError(
@@ -216,7 +225,8 @@ def cross_correlate_mxu(
         e2 = stack_inverse_table(tables["Ec"], tables["Es"])
     energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
     lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
-    return _peak_search(win, pairs, energy, cs2, e2, lo, hi, lag_min, fs)
+    return _peak_search(win, pairs, energy, cs2, e2, lo, hi, lag_min, fs,
+                        precision, tables.get("e2t"))
 
 
 def cross_correlate_pallas(
@@ -224,10 +234,12 @@ def cross_correlate_pallas(
     pairs: torch.Tensor,     # (P, 2)
     tables: Dict,            # precompute_pallas_tables (tensors)
     fs: float,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """Cross-correlation on the stacked tables of `precompute_pallas_tables`;
     same contract as `cross_correlate_mxu`."""
     energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
     lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
     return _peak_search(win, pairs, energy, cs2, tables["e2"],
-                        tables["lo"], tables["hi"], lag_min, fs)
+                        tables["lo"], tables["hi"], lag_min, fs,
+                        precision, tables.get("e2t"))

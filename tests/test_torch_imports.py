@@ -48,6 +48,7 @@ def test_import_builds_nothing():
         "from narrow_band_least_squares_tpu_torch.models import (\n"
         "    BroadbandPipeline, MultiArrayPipeline)\n"
         "assert xcorr_peak._bound is None and fused_xcorr._bound is None\n"
+        "assert xcorr_peak._bound_tc is None\n"
         "assert not _build._libs\n"
         "assert p.MultiArrayPipeline is MultiArrayPipeline\n"
         "assert p.BroadbandPipeline is BroadbandPipeline\n"

@@ -17,19 +17,23 @@ kernels' JSON record; the last is
 Phases, in order (``--phases`` picks a subset for a quick check):
 
 - ``build``: ``nvcc`` on every ``csrc/*.cu``, all at once, and a look at
-  the tensor-core library's SASS for tf32 ``HGMMA`` (always runs);
+  the SASS of the tensor-core libraries (``xcorr_peak_tc``,
+  ``fused_xcorr``) for tf32 ``HGMMA`` (always runs);
 - ``kernel``: ``icorr_peak`` against its plain version at each
   ``matmul_precision``: 'highest' (fp32 CUDA cores), 'high' (3xTF32) and
   'default' (1xTF32) on the tensor cores;
 - ``main``: the canonical run with the default ``xcorr_method='mxu'`` at
   the default 'high' (tensor-core route), then at 'highest' (fp32 route)
   and 'default';
-- ``fused-kernel``: ``fused_xcorr_bucket`` against its plain version on
-  every canonical bucket, a mixed-length bucket and a ragged random one;
+- ``fused-kernel``: ``fused_xcorr_bucket`` at each precision against its
+  plain version of the same precision on every canonical bucket, a
+  mixed-length bucket and a ragged random one;
 - ``fused-main``: the canonical run through the API with
-  ``set_performance_defaults(xcorr_method='fused')``;
+  ``set_performance_defaults(xcorr_method='fused')`` at 'high', 'highest'
+  and 'default', each on its own route;
 - ``multiarray``: ``MultiArrayPipeline`` on four canonical arrays, 'fused'
-  and 'mxu', against single-array runs, and ``BroadbandPipeline``;
+  at every precision (bit for bit) and 'mxu', against single-array runs,
+  and ``BroadbandPipeline``;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
   times, profiles.
 """
@@ -59,6 +63,14 @@ KERNEL_RTOL = 1e-5    # kernel peak / rho against the plain version
 # 2.1e-6 of the largest peak (5.8e-6 before the kernel folded K blocks in
 # fp32 registers), so the kernel tolerance holds for it too
 DEFAULT_RTOL = 1e-5
+# fused_xcorr_bucket at 'default' (one tf32 pass in both products) against
+# its emulated plain version, absolute in rho: the cross-spectra, products
+# of long sums, are rounded to tf32, so the two sum orders show through
+# that rounding.  The tolerance sits above the kernel's distance to its
+# emulation (at most 9.7e-5 on an H100) and below the emulation's own
+# distance to fp32 (at least 1.57e-4) on every checked case, both logged by
+# the fused-kernel phase, so a kernel that computed fp32 would fail
+FUSED_DEFAULT_ATOL = 1.2e-4
 PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
@@ -71,8 +83,15 @@ PEAK_TF32_FLOPS = 495e12
 PEAK_HBM_BYTES = 3.35e12
 
 
+T_START = time.perf_counter()
+
+
 def log(msg: str) -> None:
     print(msg, flush=True)
+
+
+def phase_done(name: str) -> None:
+    log(f"== phase {name} done at {time.perf_counter() - T_START:.1f} s")
 
 
 def fail(msg: str) -> None:
@@ -161,13 +180,14 @@ def own_value(cs2, e2, rows, cols, precision):
 
 
 def check_icorr(name, cs2, e2, lo, hi, precision="highest", against=None,
-                e2t=None):
+                prepared=None, exact_idx=False):
     """Kernel at ``precision`` vs the plain version at ``against`` (default
     the same precision: the split emulated in fp32 matmuls) on the card.
-    ``idx`` must be exact except at near-ties, where the kernel's own value
-    at its ``idx`` must lie within rtol * max|peak| of the reference peak
-    (rtol: KERNEL_RTOL, or DEFAULT_RTOL for 'default' against itself).
-    Checks that the precision's route launched.  Returns (max |peak
+    ``idx`` must be exact (``exact_idx``), or exact except at near-ties,
+    where the kernel's own value at its ``idx`` must lie within rtol *
+    max|peak| of the reference peak (rtol: KERNEL_RTOL, or DEFAULT_RTOL for
+    'default' against itself).  ``prepared``: the route's operand of e2,
+    built here unless given.  Checks that the precision's route launched.  Returns (max |peak
     error|, near-tie rows)."""
     import torch
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
@@ -175,7 +195,9 @@ def check_icorr(name, cs2, e2, lo, hi, precision="highest", against=None,
     against = against or precision
     rtol = DEFAULT_RTOL if against == "default" else KERNEL_RTOL
     before = (XP.launches, XP.launches_tc)
-    pk, ix = XP.icorr_peak(cs2, e2, lo, hi, precision=precision, e2t=e2t)
+    if prepared is None:
+        prepared = XP.prepare(e2, precision)
+    pk, ix = XP.icorr_peak(cs2, e2, lo, hi, precision=precision, prepared=prepared)
     tc = precision != "highest"
     if (XP.launches - before[0], XP.launches_tc - before[1]) != (int(not tc), int(tc)):
         fail(f"icorr_peak {name} ({precision}) took the wrong route")
@@ -192,6 +214,8 @@ def check_icorr(name, cs2, e2, lo, hi, precision="highest", against=None,
         fail(f"{tag}: peak differs beyond rtol {rtol} "
              f"(max abs err {max_err:.3e}, scale {scale:.3e})")
     bad = (ix != ir).nonzero().flatten()
+    if bad.numel() and exact_idx:
+        fail(f"{tag}: idx differs on {bad.numel()} rows")
     if bad.numel():
         own = own_value(cs2, e2, bad, ix[bad].long(), precision)
         gap = (own - pr[bad].double()).abs()
@@ -242,8 +266,9 @@ def tie_case(R=300, K2p=256, nlag=260, seed=4):
 
 
 def phase_kernel():
-    """Each route against the plain version of its own precision, and
-    'high' also against fp32; the tie case at every precision."""
+    """Each route against the plain version of its own precision ('idx'
+    exact on every row of the fp32 route), and 'high' also against fp32;
+    the tie case at every precision."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
     cases = {"canonical-largest-K": random_case(1092, 2432, 2399, 1),
@@ -254,11 +279,12 @@ def phase_kernel():
     errs = {}
     for prec in PRECISIONS:
         for name, args in cases.items():
-            errs[prec] = max(errs.get(prec, 0.0),
-                             check_icorr(name, *args, precision=prec)[0])
+            errs[prec] = max(errs.get(prec, 0.0), check_icorr(
+                name, *args, precision=prec, exact_idx=prec == "highest")[0])
             if prec == "high":
                 check_icorr(name, *args, precision=prec, against="highest")
-        _, ix = XP.icorr_peak(cs2, e2, lo, hi, precision=prec)
+        _, ix = XP.icorr_peak(cs2, e2, lo, hi, precision=prec,
+                              prepared=XP.prepare(e2, prec))
         wrong = int((ix != want).sum())
         if wrong:
             fail(f"icorr_peak tie ({prec}): {wrong} rows did not pick the first "
@@ -403,14 +429,15 @@ def check_shapes(out, ncl, nbands):
 
 def capture_fused_inputs(pipe, data):
     """Run one step with a recorder around fused_xcorr_bucket and return
-    the arguments of every launch (not counted as the main path's)."""
+    the positional arguments of every launch (not counted as the main
+    path's)."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
 
     real, seen = FX.fused_xcorr_bucket, []
 
-    def rec(*args):
+    def rec(*args, **kw):
         seen.append(args)
-        return real(*args)
+        return real(*args, **kw)
 
     FX.fused_xcorr_bucket = rec
     try:
@@ -420,45 +447,100 @@ def capture_fused_inputs(pipe, data):
     return seen
 
 
-def check_fused(name, args):
-    """Kernel vs plain version on the card.  ``rho`` within KERNEL_RTOL
-    (rtol and atol); ``idx`` exact except at near-ties, where the fp64
-    correlation at the kernel's own ``idx`` must lie within KERNEL_RTOL (in
-    rho units) of the fp64 maximum over [lo, hi].  Returns (max |rho
-    error|, near-tie rows)."""
+def check_fused(name, args, precision="highest"):
+    """Kernel at ``precision`` vs the plain version of the same precision
+    (the tf32 split emulated in fp32 matmuls) on the card.  ``rho`` within
+    the precision's tolerance (KERNEL_RTOL as rtol and atol, or
+    FUSED_DEFAULT_ATOL at 'default'); ``idx`` exact except at near-ties,
+    where the correlation at the kernel's own ``idx`` must lie within the
+    atol (in rho units) of the maximum over [lo, hi] (float64 at 'highest',
+    the fp32 emulation otherwise).  At 'default' also logs the emulation's
+    and the kernel's distance to fp32, which the tolerance must stay below.
+    Checks that the precision's route launched.  Returns (max |rho error|,
+    near-tie rows)."""
     import torch
     from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
 
-    rho, idx = FX.fused_xcorr_bucket(*args)
-    rr, ir = FX.fused_xcorr_bucket_reference(*args)
+    rtol, atol = ((0.0, FUSED_DEFAULT_ATOL) if precision == "default" else
+                  (KERNEL_RTOL, KERNEL_RTOL))
+    prepared = FX.prepare(*args[6:10], precision)
+    before = (FX.launches, FX.launches_tc)
+    rho, idx = FX.fused_xcorr_bucket(*args, precision=precision, prepared=prepared)
+    tc = precision != "highest"
+    if (FX.launches - before[0], FX.launches_tc - before[1]) != (int(not tc), int(tc)):
+        fail(f"fused_xcorr_bucket {name} ({precision}) took the wrong route")
+    rr, ir = FX.fused_xcorr_bucket_reference(*args, precision=precision)
     torch.cuda.synchronize()
+    tag = f"fused_xcorr_bucket {name} [{precision}]"
     if not torch.isfinite(rho).all():
-        fail(f"fused_xcorr_bucket {name}: non-finite rho")
+        fail(f"{tag}: non-finite rho")
     err = (rho - rr).abs()
     max_err = float(err.max())
-    if bool((err > KERNEL_RTOL * rr.abs() + KERNEL_RTOL).any()):
-        fail(f"fused_xcorr_bucket {name}: rho differs beyond {KERNEL_RTOL} "
-             f"(max abs err {max_err:.3e})")
+    if bool((err > rtol * rr.abs() + atol).any()):
+        fail(f"{tag}: rho differs beyond rtol {rtol} atol {atol} (max abs err "
+             f"{max_err:.3e})")
     bad = idx != ir
     nbad = int(bad.sum())
     if nbad:
         y, hop, maxstart, lo, hi, lm, Cf, Sf, Ec, Es, pairs, W = args
+        dt = torch.float64 if precision == "highest" else torch.float32
         cc, denom = FX.fused_correlation(
-            y.double(), hop, maxstart, lm.double(), Cf.double(), Sf.double(),
-            Ec.double(), Es.double(), pairs, W)
+            y.to(dt), hop, maxstart, lm.to(dt), Cf.to(dt), Sf.to(dt),
+            Ec.to(dt), Es.to(dt), pairs, W, precision)
         col = torch.arange(cc.shape[-1], device=cc.device)
         valid = (col >= lo[:, :, None, None]) & (col <= hi[:, :, None, None])
         best = cc.masked_fill(~valid, float("-inf")).amax(-1)
         own = cc.gather(-1, idx.long()[..., None])[..., 0]
         gap = ((best - own) / denom)[bad]
-        if bool((gap > KERNEL_RTOL).any()):
-            fail(f"fused_xcorr_bucket {name}: {nbad} rows pick another lag that "
-                 f"is not a near-tie (max gap {float(gap.max()):.3e})")
-    log(f"fused_xcorr_bucket {name}: y {tuple(args[0].shape)} Lg="
-        f"{args[5].shape[1]} Kp={args[6].shape[1]} nlag={args[8].shape[1]} "
-        f"W={args[11]} P={args[10].shape[0]}: max|rho err| {max_err:.3e}, "
-        f"idx exact except {nbad} near-tie rows")
+        if bool((gap > atol).any()):
+            fail(f"{tag}: {nbad} rows pick another lag that is not a near-tie "
+                 f"(max gap {float(gap.max()):.3e})")
+    extra = ""
+    if precision == "default":
+        r32, _ = FX.fused_xcorr_bucket_reference(*args, precision="highest")
+        extra = (f"; the plain 'default' lies {float((rr - r32).abs().max()):.3e} "
+                 f"and the kernel {float((rho - r32).abs().max()):.3e} from the "
+                 f"plain fp32")
+    log(f"{tag}: y {tuple(args[0].shape)} Lg={args[5].shape[1]} "
+        f"Kp={args[6].shape[1]} nlag={args[8].shape[1]} W={args[11]} "
+        f"P={args[10].shape[0]}: max|rho err| {max_err:.3e} (rtol {rtol}, atol "
+        f"{atol}), "
+        f"idx exact except {nbad} near-tie rows{extra}")
     return max_err, nbad
+
+
+def check_fused_chunks(name, args, precision, windows=8):
+    """The launch run in chunks of ``windows`` windows (a smaller
+    ``SCRATCH_FLOATS``; chunks that cut across band rows, the last one
+    short) gives the one-chunk launch's rho and idx bit for bit."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+
+    y, lm, Ec, pairs, W = args[0], args[5], args[8], args[10], args[11]
+    Bg, C, T = y.shape
+    shape = (Bg, C, T, lm.shape[1], W, Ec.shape[0], Ec.shape[1], pairs.shape[0],
+             precision)
+    whole, _ = FX.plan_chunks(*shape)
+    _, one = FX.plan_chunks(*shape, budget=1)
+    prepared = FX.prepare(*args[6:10], precision)
+    ref = FX.fused_xcorr_bucket(*args, precision=precision, prepared=prepared)
+    saved = FX.SCRATCH_FLOATS
+    FX.SCRATCH_FLOATS = windows * max(int(np.prod(v)) for v in one.values())
+    try:
+        chunk, _ = FX.plan_chunks(*shape)
+        got = FX.fused_xcorr_bucket(*args, precision=precision, prepared=prepared)
+    finally:
+        FX.SCRATCH_FLOATS = saved
+    torch.cuda.synchronize()
+    nchunks = -(-Bg * W // chunk)
+    if whole != Bg * W or chunk != windows or nchunks < 2:
+        fail(f"fused_xcorr_bucket {name} [{precision}]: chunk plan {whole} / "
+             f"{chunk} windows does not test chunking")
+    if not all(torch.equal(a, b) for a, b in zip(ref, got)):
+        fail(f"fused_xcorr_bucket {name} [{precision}]: {nchunks} chunks of "
+             f"{chunk} windows differ from one launch")
+    log(f"fused_xcorr_bucket {name} [{precision}]: {nchunks} chunks of {chunk} "
+        f"windows equal one chunk of {whole} bit for bit")
 
 
 def fused_random_case(seed=6):
@@ -494,15 +576,17 @@ def fused_pipeline(plan, rij, **kw):
 
 
 def phase_fused_kernel():
+    """Every precision against its own plain version on the canonical
+    buckets, the mixed-length bucket and the ragged random case, and a
+    launch in several chunks against one.  Returns max |rho error| per
+    precision."""
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     st, freqlist, winlens = canonical_inputs()
     plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
     pipe = fused_pipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans))
-    max_err = 0.0
-    for i, args in enumerate(capture_fused_inputs(pipe, st.data)):
-        max_err = max(max_err, check_fused(f"canonical bucket {i}", args)[0])
+    canon = capture_fused_inputs(pipe, st.data)
     # tests/test_xcorr_methods.py:457: one bucket of a 30 s and a 29 s band
     sm = synthetic_plane_wave(nchans=5, duration_s=300, fs=10.0, baz_deg=200.0,
                               trace_vel_kms=0.33, f0=0.6, bandwidth=0.8,
@@ -514,42 +598,81 @@ def phase_fused_kernel():
     short = min(mplan.windows, key=lambda wp: wp.winlensamp)
     if len(mpipe._buckets) != 1 or short.starts[-1] <= mplan.npts - Lg:
         fail("the mixed-length fixture does not reach past T - Lg")
-    for args in capture_fused_inputs(mpipe, sm.data):
-        max_err = max(max_err, check_fused("mixed-length bucket", args)[0])
-    max_err = max(max_err, check_fused("ragged-random", fused_random_case())[0])
-    return max_err
+    mixed = capture_fused_inputs(mpipe, sm.data)[0]
+    ragged = fused_random_case()
+    errs = {}
+    for prec in PRECISIONS:
+        worst = 0.0
+        for i, args in enumerate(canon):
+            worst = max(worst, check_fused(f"canonical bucket {i}", args, prec)[0])
+        worst = max(worst, check_fused("mixed-length bucket", mixed, prec)[0])
+        worst = max(worst, check_fused("ragged-random", ragged, prec)[0])
+        errs[prec] = worst
+        check_fused_chunks("canonical bucket 0", canon[0], prec)
+        check_fused_chunks("ragged-random", ragged, prec)
+    return errs
 
 
-def phase_fused_main():
-    """The canonical run with xcorr_method='fused' through the API."""
+def run_api_fused(st, freqlist, winlens, precision):
+    """The canonical API run with xcorr_method='fused' on the card at
+    ``matmul_precision``; returns (outputs, launches of the fp32 route,
+    launches of the tensor-core route)."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
     from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
-    st, freqlist, winlens = canonical_inputs()
-    prev = api.set_performance_defaults(xcorr_method="fused")
+    prev = api.set_performance_defaults(
+        xcorr_method="fused",
+        matmul_precision=None if precision == "high" else precision)
     try:
-        FX.launches = XP.launches = XP.launches_tc = 0
+        FX.launches = FX.launches_tc = XP.launches = XP.launches_tc = 0
         t0 = time.perf_counter()
-        gpu = run_api(st, freqlist, winlens, "cuda")
+        out = run_api(st, freqlist, winlens, "cuda")
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        launches, icorr = FX.launches, XP.launches + XP.launches_tc
-        log(f"fused main path (cuda, first call incl. host set-up): "
-            f"{t_first:.3f} s, fused_xcorr_bucket launches {launches}, "
-            f"icorr_peak launches {icorr}")
-        if launches == 0 or icorr != 0:
-            fail("the fused main path must launch fused_xcorr_bucket and no "
-                 "icorr_peak")
+        f32, tc, icorr = FX.launches, FX.launches_tc, XP.launches + XP.launches_tc
+    finally:
+        api.set_performance_defaults(xcorr_method=None, matmul_precision=None)
+        api.set_performance_defaults(**prev)
+    log(f"fused main path at {precision} (cuda, first call incl. host set-up): "
+        f"{t_first:.3f} s, fused_xcorr_bucket launches: fp32 route {f32}, "
+        f"tensor-core route {tc}; icorr_peak launches {icorr}")
+    if icorr != 0:
+        fail("the fused main path must launch no icorr_peak")
+    return out, f32, tc
+
+
+def phase_fused_main():
+    """The canonical run with xcorr_method='fused' through the API: at the
+    default 'high' only the tensor-core route, at 'highest' only the fp32
+    route; both match the CPU run and the truth.  'default' takes the
+    tensor-core route and must hit the truth.  Returns the main-path
+    launches per precision."""
+    st, freqlist, winlens = canonical_inputs()
+    cpu = None
+    launches = {}
+    for prec in ("high", "highest", "default"):
+        gpu, f32, tc = run_api_fused(st, freqlist, winlens, prec)
+        own, other = (f32, tc) if prec == "highest" else (tc, f32)
+        if own == 0 or other != 0:
+            fail(f"the fused main path at {prec} must launch only the "
+                 f"{'fp32' if prec == 'highest' else 'tensor-core'} route")
+        launches[prec] = own
         ncl = gpu[6]
         check_shapes(gpu, ncl, NBANDS)
-        cpu = run_api(st, freqlist, winlens, "cpu")
-        compare_outputs(gpu, cpu, ncl)
-        ground_truth(gpu, ncl, label="fused ")
-    finally:
-        api.set_performance_defaults(xcorr_method=None)
-        api.set_performance_defaults(**prev)
+        if prec != "default":
+            if cpu is None:
+                from narrow_band_least_squares_tpu_torch import api
+
+                prev = api.set_performance_defaults(xcorr_method="fused")
+                try:
+                    cpu = run_api(st, freqlist, winlens, "cpu")
+                finally:
+                    api.set_performance_defaults(xcorr_method=None)
+                    api.set_performance_defaults(**prev)
+            compare_outputs(gpu, cpu, ncl)
+        ground_truth(gpu, ncl, label=f"fused {prec} ")
     return launches
 
 
@@ -584,22 +707,22 @@ def phase_multiarray():
 
     plan, rijs, data = multiarray_inputs()
     ncl = plan.num_compute_list
-    for method in ("fused", "mxu"):
-        out = MultiArrayPipeline(plan, rijs, xcorr_method=method,
-                                 device="cuda").run_raw(data)
+    for method, prec in (("fused", "high"), ("fused", "highest"),
+                         ("fused", "default"), ("mxu", "high")):
+        kw = dict(xcorr_method=method, matmul_precision=prec, device="cuda")
+        out = MultiArrayPipeline(plan, rijs, **kw).run_raw(data)
         torch.cuda.synchronize()
         worst = 0.0
         for k, rij in enumerate(rijs):
-            one = NarrowBandPipeline(plan, rij, xcorr_method=method,
-                                     device="cuda").run_raw(data[k])
+            one = NarrowBandPipeline(plan, rij, **kw).run_raw(data[k])
             for name, v in one.items():
                 a, b = out[name][k], v
                 if method == "fused":
                     same = torch.equal(torch.isnan(a), torch.isnan(b)) and \
                         torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
                     if not same:
-                        fail(f"multiarray fused: array {k} {name} is not bit "
-                             f"for bit the single-array run")
+                        fail(f"multiarray fused {prec}: array {k} {name} is not "
+                             f"bit for bit the single-array run")
                     continue
                 d = (a - b).abs().nan_to_num()
                 worst = max(worst, float(d.max()))
@@ -608,10 +731,10 @@ def phase_multiarray():
                          f"single-array run beyond {MULTI_TOL}")
             res = tuple(out[n][k].cpu().numpy() for n in ("vel", "baz", "mdccm"))
             ground_truth(res, ncl, baz_true=MULTI_BAZ[k],
-                         label=f"multiarray {method} array {k} ")
-        log(f"multiarray {method}: A={len(rijs)} equals the single-array runs "
-            + ("bit for bit" if method == "fused" else
-               f"within {MULTI_TOL} (max abs diff {worst:.3e})"))
+                         label=f"multiarray {method} {prec} array {k} ")
+        log(f"multiarray {method} {prec}: A={len(rijs)} equals the single-array "
+            "runs " + ("bit for bit" if method == "fused" else
+                       f"within {MULTI_TOL} (max abs diff {worst:.3e})"))
 
     st, _, _ = canonical_inputs()
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
@@ -679,7 +802,7 @@ def library_peak(cs2, e2, lo, hi, tf32=False):
     return cc.masked_fill_(bad, float("-inf")).max(dim=1)
 
 
-def icorr_bound_ms(flops, nbytes, precision):
+def route_bound_ms(flops, nbytes, precision):
     """(bound ms, what bounds it): the larger of the operations over the
     route's peak (fp32 CUDA cores; tf32 tensor cores, three products per
     fp32 multiply-add at 'high') and the bytes over the HBM rate."""
@@ -724,27 +847,37 @@ def profile_step(label, pipe, data, steps=5):
 
 
 def fused_work(plan, band_idx, args):
-    """(flops, bytes) the function needs on these inputs: per real window of
-    each band, C*Lb*2K multiply-adds of the forward DFT and P*2K*(hi-lo+1)
-    of the inverse (K = Lg + 1, the unpadded bins), two FLOPs each; the band
-    rows, the four tables and the two outputs, each once."""
+    """(forward FLOPs, inverse FLOPs, bytes) the function needs on these
+    inputs: per real window of each band, C*Lb*2K multiply-adds of the
+    forward DFT and P*2K*(hi-lo+1) of the inverse (K = Lg + 1, the unpadded
+    bins), two FLOPs each; the band rows, the four tables and the two
+    outputs, each once."""
     y, hop, maxstart, lo, hi, lm, Cf, Sf, Ec, Es, pairs, W = args
     Bg, C, T = y.shape
     Lg, P = lm.shape[1], pairs.shape[0]
     K = Lg + 1
     span = (hi - lo + 1).flatten().tolist()
-    macs = 0.0
+    fwd = inv = 0.0
     for g, b in enumerate(band_idx):
         wp = plan.windows[int(b)]
-        macs += wp.n_windows * (C * wp.winlensamp * 2 * K + P * 2 * K * span[g])
+        fwd += wp.n_windows * C * wp.winlensamp * 2 * K
+        inv += wp.n_windows * P * 2 * K * span[g]
     nbytes = 4.0 * (y.numel() + Cf.numel() + Sf.numel() + Ec.numel() + Es.numel()
                     + 2 * Bg * W * P)
-    return 2.0 * macs, nbytes
+    return 2.0 * fwd, 2.0 * inv, nbytes
 
 
-def time_fused(label, plans, st, fused_max_err, launches_main):
-    """Fused step times, per-bucket kernel / plain / bound, the staged 'mxu'
-    delays beside the fused ones, and the multi-array steps."""
+def fused_bound_ms(fwd, inv, nbytes, precision):
+    """(bound ms, what bounds it) of the fused route at ``precision``: both
+    DFTs' operations at the route's rate (`route_bound_ms`)."""
+    return route_bound_ms(fwd + inv, nbytes, precision)
+
+
+def time_fused(label, plans, st, fused_errs, launches_main):
+    """Per precision: fused step times, per-bucket and per-step kernel /
+    plain / bound on the canonical plan (kernel and bound on dense50), the
+    staged 'mxu' delays beside the fused ones, and the multi-array steps.
+    Returns the canonical records of the kernels line."""
     from narrow_band_least_squares_tpu_torch.models import (
         MultiArrayPipeline, NarrowBandPipeline,
     )
@@ -752,66 +885,95 @@ def time_fused(label, plans, st, fused_max_err, launches_main):
     from narrow_band_least_squares_tpu_torch.utils import get_rij
 
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    recs = []
     for name, plan in plans.items():
-        pipe = fused_pipeline(plan, rij)
-        FX.launches = 0
-        pipe.run_raw(st.data)
-        per_step = FX.launches
-        ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
         nwin = sum(plan.num_compute_list)
-        work = [fused_work(plan, pipe._buckets[i]["grid"].band_idx, args)
-                for i, args in enumerate(capture_fused_inputs(pipe, st.data))]
-        f, b = (sum(v) for v in zip(*work))
-        log(f"[{label}] {name} fused: {ms:.4f} ms per run_raw step, "
-            f"{nwin / ms * 1e3:.1f} windows solved/s, fused_xcorr_bucket "
-            f"launches per step {per_step}; the function needs {f / 1e9:.2f} "
-            f"GFLOP and {b / 1e6:.1f} MB: bound "
-            f"{max(f / PEAK_FP32_FLOPS, b / PEAK_HBM_BYTES) * 1e3:.4f} ms")
+        for prec in PRECISIONS:
+            pipe = fused_pipeline(plan, rij, matmul_precision=prec)
+            FX.launches = FX.launches_tc = 0
+            pipe.run_raw(st.data)
+            per_step = (FX.launches, FX.launches_tc)
+            ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+            log(f"[{label}] {name} fused at {prec}: {ms:.4f} ms per run_raw "
+                f"step, {nwin / ms * 1e3:.1f} windows solved/s, "
+                f"fused_xcorr_bucket launches per step: fp32 route "
+                f"{per_step[0]}, tensor-core route {per_step[1]}")
+            if name == "canonical" and prec != "default":
+                profile_step(f"{label} fused {prec}", pipe, st.data)
+        canonical = name == "canonical"
+        tot = {p: dict(ms=0.0, event_ms=0.0, plain_ms=0.0, fwd=0.0, inv=0.0,
+                       nbytes=0.0) for p in PRECISIONS}
+        for i, args in enumerate(capture_fused_inputs(pipe, st.data)):
+            ff, fi, b = fused_work(plan, pipe._buckets[i]["grid"].band_idx, args)
+            f = ff + fi
+            parts = []
+            for prec in PRECISIONS:
+                prepared = FX.prepare(*args[6:10], prec)
+                run = lambda: FX.fused_xcorr_bucket(*args, precision=prec,
+                                                    prepared=prepared)
+                kt = device_ms(run, reps=10)
+                et = cuda_time_ms(run, reps=10)
+                pt = (device_ms(lambda: FX.fused_xcorr_bucket_reference(
+                    *args, precision=prec), reps=3) if canonical else 0.0)
+                bound, _ = fused_bound_ms(ff, fi, b, prec)
+                parts.append(f"{prec} {kt * 1e3:.1f} ({et * 1e3:.1f})/"
+                             + (f"{pt * 1e3:.1f}/" if canonical else "")
+                             + f"{bound * 1e3:.1f}")
+                t = tot[prec]
+                t["ms"] += kt
+                t["event_ms"] += et
+                t["plain_ms"] += pt
+                t["fwd"] += ff
+                t["inv"] += fi
+                t["nbytes"] += b
+            log(f"[{label}] fused_xcorr_bucket {name} bucket {i}: y "
+                f"{tuple(args[0].shape)} Lg={args[5].shape[1]} "
+                f"Kp={args[6].shape[1]} nlag={args[8].shape[1]} W={args[11]} "
+                f"({f / 1e9:.3f} GFLOP), kernel (events)/"
+                + ("plain/" if canonical else "") + "bound us: " + ", ".join(parts))
+        for prec in PRECISIONS:
+            t = tot[prec]
+            t["flops"] = t["fwd"] + t["inv"]
+            t["bound_ms"], t["bound_by"] = fused_bound_ms(t["fwd"], t["inv"],
+                                                          t["nbytes"], prec)
+            log(f"[{label}] fused_xcorr_bucket per {name} step at {prec}: kernel "
+                f"{t['ms']:.4f} ms (by events {t['event_ms']:.4f} ms)"
+                + (f", plain {t['plain_ms']:.4f} ms" if canonical else "")
+                + f", bound {t['bound_ms']:.4f} ms by {t['bound_by']} "
+                f"({t['flops'] / 1e9:.2f} GFLOP); kernel at "
+                f"{t['flops'] / (t['ms'] * 1e-3) / 1e12:.2f} fp32-equivalent "
+                f"TFLOP/s; library: none (no single PyTorch call computes "
+                f"windows-to-peak)")
+            if canonical:
+                recs.append({
+                    "name": f"fused_xcorr_bucket@{prec}", "route": "cuda",
+                    "precision": prec,
+                    "source": "narrow_band_least_squares_tpu_torch/csrc/fused_xcorr.cu",
+                    "replaces": "narrow_band_least_squares_tpu/ops/kernels/fused_xcorr.py:201",
+                    "launches": launches_main.get(prec, 0),
+                    "max_abs_err": (fused_errs or {}).get(prec),
+                    "ms": t["ms"], "plain_ms": t["plain_ms"],
+                    "bound_ms": t["bound_ms"], "bound_by": t["bound_by"],
+                    "library_ms": None,
+                })
     plan = plans["canonical"]
     pipe = fused_pipeline(plan, rij)
     mxu = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda")
     y = pipe._filter(pipe._to_device(st.data))
-    d_f = cuda_time_ms(lambda: pipe._delays(y), reps=20)
-    d_m = cuda_time_ms(lambda: mxu._delays(y), reps=20)
-    log(f"[{label}] canonical delays stage alone: fused {d_f:.4f} ms, staged "
-        f"'mxu' (cuBLAS spectra + icorr_peak) {d_m:.4f} ms")
-    profile_step(f"{label} fused", pipe, st.data)
-    k_ms = p_ms = flops = nbytes = 0.0
-    for i, args in enumerate(capture_fused_inputs(pipe, st.data)):
-        kt = cuda_time_ms(lambda: FX.fused_xcorr_bucket(*args), reps=20)
-        pt = cuda_time_ms(lambda: FX.fused_xcorr_bucket_reference(*args), reps=10)
-        f, b = fused_work(plan, pipe._buckets[i]["grid"].band_idx, args)
-        bound = max(f / PEAK_FP32_FLOPS, b / PEAK_HBM_BYTES) * 1e3
-        log(f"[{label}] fused_xcorr_bucket bucket {i}: y {tuple(args[0].shape)} "
-            f"Lg={args[5].shape[1]} Kp={args[6].shape[1]} nlag={args[8].shape[1]} "
-            f"W={args[11]}: kernel {kt * 1e3:.1f} us, plain {pt * 1e3:.1f} us, "
-            f"bound {bound * 1e3:.1f} us ({f / 1e9:.3f} GFLOP)")
-        k_ms, p_ms, flops, nbytes = k_ms + kt, p_ms + pt, flops + f, nbytes + b
-    bound_ms = max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3
-    bound_by = ("operations" if flops / PEAK_FP32_FLOPS >= nbytes / PEAK_HBM_BYTES
-                else "bytes")
-    log(f"[{label}] fused_xcorr_bucket per canonical step: kernel {k_ms:.4f} ms, "
-        f"plain {p_ms:.4f} ms, bound {bound_ms:.4f} ms by {bound_by} "
-        f"({flops / 1e9:.2f} GFLOP); kernel at "
-        f"{flops / (k_ms * 1e-3) / 1e12:.2f} TFLOP/s; library: none (no single "
-        f"PyTorch call computes windows-to-peak; the staged 'mxu' delays above "
-        f"are the comparison)")
+    d_f = device_ms(lambda: pipe._delays(y), reps=10)
+    d_m = device_ms(lambda: mxu._delays(y), reps=10)
+    log(f"[{label}] canonical delays stage alone at 'high' (device time): fused "
+        f"{d_f:.4f} ms, staged 'mxu' (cuBLAS spectra + icorr_peak) {d_m:.4f} ms")
 
     mplan, rijs, data = multiarray_inputs()
-    for method in ("fused", "mxu"):
-        multi = MultiArrayPipeline(mplan, rijs, xcorr_method=method, device="cuda")
+    for method, prec in (("fused", "high"), ("fused", "highest"), ("mxu", "high")):
+        multi = MultiArrayPipeline(mplan, rijs, xcorr_method=method,
+                                   matmul_precision=prec, device="cuda")
         ms = cuda_time_ms(lambda: multi.run_raw(data), reps=10)
         nwin = len(rijs) * sum(mplan.num_compute_list)
-        log(f"[{label}] multiarray A={len(rijs)} {method}: {ms:.4f} ms per "
-            f"run_raw step, {nwin / ms * 1e3:.1f} windows solved/s")
-    return {
-        "name": "fused_xcorr_bucket", "route": "cuda",
-        "source": "narrow_band_least_squares_tpu_torch/csrc/fused_xcorr.cu",
-        "replaces": "narrow_band_least_squares_tpu/ops/kernels/fused_xcorr.py:201",
-        "launches": launches_main, "max_abs_err": fused_max_err,
-        "ms": k_ms, "plain_ms": p_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None,
-    }
+        log(f"[{label}] multiarray A={len(rijs)} {method} at {prec}: {ms:.4f} ms "
+            f"per run_raw step, {nwin / ms * 1e3:.1f} windows solved/s")
+    return recs
 
 
 SOURCES = {"highest": "narrow_band_least_squares_tpu_torch/csrc/xcorr_peak.cu",
@@ -833,10 +995,8 @@ def time_icorr(label, name, pipe, data, check):
     tot = {p: dict(ms=0.0, event_ms=0.0, plain_ms=0.0, library_ms=0.0,
                    flops=0.0, nbytes=0.0, max_abs_err=0.0) for p in PRECISIONS}
     seen = capture_icorr_inputs(pipe, data)
-    for i, (args, kw) in enumerate(seen):
-        e2t = kw.get("e2t")
-        if e2t is None:
-            e2t = XP.transpose_split_table(args[1])
+    for i, (args, _) in enumerate(seen):
+        prep = {p: XP.prepare(args[1], p) for p in PRECISIONS}
         lib = {False: device_ms(lambda: library_peak(*args), reps=5),
                True: device_ms(lambda: library_peak(*args, tf32=True), reps=5)}
         f, b = icorr_work(*args)
@@ -845,18 +1005,18 @@ def time_icorr(label, name, pipe, data, check):
             t = tot[prec]
             if check:
                 err, _ = check_icorr(f"{name} bucket {i}", *args, precision=prec,
-                                     e2t=e2t)
+                                     prepared=prep[prec])
                 t["max_abs_err"] = max(t["max_abs_err"], err)
                 if prec == "high":
                     check_icorr(f"{name} bucket {i}", *args, precision=prec,
-                                against="highest", e2t=e2t)
-            run = lambda: XP.icorr_peak(*args, precision=prec, e2t=e2t)
+                                against="highest", prepared=prep[prec])
+            run = lambda: XP.icorr_peak(*args, precision=prec, prepared=prep[prec])
             kt = device_ms(run, reps=10)
             et = cuda_time_ms(run, reps=10)
             pt = device_ms(lambda: XP.icorr_peak_reference(*args, precision=prec),
                            reps=3)
             lt = lib[prec == "default"]
-            bound, _ = icorr_bound_ms(f, b, prec)
+            bound, _ = route_bound_ms(f, b, prec)
             parts.append(f"{prec} {kt * 1e3:.1f} ({et * 1e3:.1f})/{pt * 1e3:.1f}/"
                          f"{lt * 1e3:.1f}/{bound * 1e3:.1f}")
             t["ms"] += kt
@@ -870,7 +1030,7 @@ def time_icorr(label, name, pipe, data, check):
             f"GFLOP), kernel (events)/plain/library/bound us: " + ", ".join(parts))
     for prec in PRECISIONS:
         t = tot[prec]
-        t["bound_ms"], t["bound_by"] = icorr_bound_ms(t["flops"], t["nbytes"], prec)
+        t["bound_ms"], t["bound_by"] = route_bound_ms(t["flops"], t["nbytes"], prec)
         lib = "1xTF32 SGEMM" if prec == "default" else "fp32 SGEMM"
         log(f"[{label}] icorr_peak per {name} step at {prec} ({len(seen)} "
             f"launches): kernel {t['ms']:.4f} ms (by events {t['event_ms']:.4f} "
@@ -935,21 +1095,21 @@ def phase_timing(label, launches_main):
 
 
 def check_sass():
-    """The tensor-core library must hold tf32 HGMMA (wgmma) instructions."""
+    """The tensor-core libraries must hold tf32 HGMMA (wgmma) instructions."""
     import re
     from narrow_band_least_squares_tpu_torch.ops.kernels import _build
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
-    hgmma = [ln.strip() for ln in _build.sass("xcorr_peak_tc").splitlines()
-             if re.search(r"HGMMA\S*TF32", ln)]
-    if not hgmma:
-        mma = [ln.strip() for ln in _build.sass("xcorr_peak_tc").splitlines()
-               if "MMA" in ln][:5]
-        fail(f"xcorr_peak_tc's SASS holds no HGMMA with TF32 operands; its MMA "
-             f"lines: {mma}")
-    log(f"xcorr_peak_tc SASS: {len(hgmma)} tf32 HGMMA, e.g. {hgmma[0][:100]}")
+    for lib in ("xcorr_peak_tc", "fused_xcorr"):
+        sass = _build.sass(lib).splitlines()
+        hgmma = [ln.strip() for ln in sass if re.search(r"HGMMA\S*TF32", ln)]
+        if not hgmma:
+            mma = [ln.strip() for ln in sass if "MMA" in ln][:5]
+            fail(f"{lib}'s SASS holds no HGMMA with TF32 operands; its MMA "
+                 f"lines: {mma}")
+        log(f"{lib} SASS: {len(hgmma)} tf32 HGMMA, e.g. {hgmma[0][:100]}")
     lib = XP._lib_tc()
-    log(f"xcorr_peak_tc dynamic shared memory: "
+    log(f"tensor-core tile dynamic shared memory: "
         f"{lib.nbls_icorr_peak_tc_smem_bytes(3)} B at 'high', "
         f"{lib.nbls_icorr_peak_tc_smem_bytes(1)} B at 'default'")
 
@@ -986,19 +1146,32 @@ def main() -> int:
             if any(w in line for w in ("entry function", "registers", "spill", "smem")):
                 log(f"  {name}: {line.strip()}")
     check_sass()
+    phase_done("build")
 
     if "kernel" in phases:
         phase_kernel()
-    launches = phase_main() if "main" in phases else {}
-    fused_err = phase_fused_kernel() if "fused-kernel" in phases else None
-    fused_launches = phase_fused_main() if "fused-main" in phases else 0
+        phase_done("kernel")
+    launches = {}
+    if "main" in phases:
+        launches = phase_main()
+        phase_done("main")
+    fused_errs = fused_launches = None
+    if "fused-kernel" in phases:
+        fused_errs = phase_fused_kernel()
+        phase_done("fused-kernel")
+    if "fused-main" in phases:
+        fused_launches = phase_fused_main()
+        phase_done("fused-main")
     if "multiarray" in phases:
         phase_multiarray()
+        phase_done("multiarray")
     if "timing" in phases:
         recs, plans, st = phase_timing(label, launches)
-        frec = time_fused(label, plans, st, fused_err, fused_launches)
+        phase_done("timing (icorr_peak)")
+        frecs = time_fused(label, plans, st, fused_errs, fused_launches or {})
+        phase_done("timing (fused)")
         log(f"[{label}]")
-        log(json.dumps({"kernels": recs + [frec]}))
+        log(json.dumps({"kernels": recs + frecs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

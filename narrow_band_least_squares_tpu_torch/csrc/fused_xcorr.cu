@@ -3,7 +3,8 @@
 //
 // Replaces the TPU kernel narrow_band_least_squares_tpu/ops/kernels/
 // fused_xcorr.py::fused_xcorr_bucket (body _fused_kernel, pallas_call at
-// :245).  For band row g of y (Bg, C, T), window w < W and pair p = (i, j):
+// :245, split-precision dot _kdot at :57).  For band row g of y (Bg, C, T),
+// window w < W and pair p = (i, j):
 //     start   = min(w * hop[g], maxstart[g])
 //     win     = (y[g, :, start:start+Lg] * lm - mean) * lm   (y zero past T)
 //     E[c]    = sum_t win[c, t]^2
@@ -12,75 +13,97 @@
 //     cc[l]   = sum_k Re CS[k] Ec[k, l] - Im CS[k] Es[k, l]
 //     idx     = the FIRST l in [lo[g], hi[g]] reaching max cc (jnp.argmax)
 //     rho     = max cc / sqrt(E[i] E[j])  (0 where the denominator is 0)
-// All in IEEE fp32 (FMA) on the CUDA cores, whatever matmul precision the
-// caller names.
+// The two products (forward DFT, inverse DFT) run at the caller's matmul
+// precision, as the TPU kernel's _kdot does: nprod 0 is IEEE fp32 on the
+// CUDA cores ('highest'); on the tensor cores nprod 3 is 3xTF32 ('high')
+// and nprod 1 ('default') one tf32 pass in both products.  Window
+// statistics and cross-spectra are formed in fp32 at every precision.  At
+// 'default' the inverse DFT takes the cross-spectra rounded to tf32: each
+// is a product of long sums, so its rounding follows their last bits, and a
+// plain version that sums in another order agrees with this kernel only to
+// that rounding (chip_smoke.py states the tolerance it is held to).
 //
-// What bounds it: the fp32 operations.  The inverse DFT, 2 P 2K nlag FLOPs
-// per window, is about seven times the forward DFT at the canonical shapes;
-// together they are hundreds of FLOPs per byte of the band rows and tables,
-// so the bound is the card's fp32 CUDA-core rate (67 TFLOP/s), not memory.
+// What bounds it: the operations.  The inverse DFT, 2 P 2K nlag FLOPs per
+// window, is about seven times the forward DFT at the canonical shapes;
+// together they are hundreds of FLOPs per byte of the band rows and
+// tables, so the bound is the fp32 CUDA-core rate (67 TFLOP/s) at
+// 'highest' and the tf32 tensor-core rate (495 TFLOP/s, three products a
+// term at 'high') otherwise, not memory.
 //
 // Design.  The TPU kernel keeps a window tile's whole (Wt*P, nlag)
 // correlation in VMEM and walks the K tiles in order.  A Hopper block has
 // 227 KB of shared memory, less than one window's (P, nlag) correlation at
 // the canonical shapes, and a bucket holds too few windows to fill 132 SMs,
-// so the lag axis is split across blocks.  Splitting it would make every
-// lag block recompute the window's forward DFT; instead the launch runs
-// four passes on one stream:
+// so the lag axis is split across blocks, and the forward DFT, which every
+// lag block would otherwise recompute, is its own product.  Per launch, on
+// one stream, the same passes at every precision, each product on the fp32
+// tile of simt_tile.cuh ('highest') or the tensor-core tile of
+// peak_tile.cuh ('high', 'default'):
 //   1. window_stats: per (g, w, c), the mean and energy of the masked
 //      window (one warp each).
-//   2. spectra: F for every (g, w, c) as a tiled product of the windows
-//      (extracted, masked and demeaned as they are loaded) with [Cf | Sf],
-//      into a scratch of 2 Kp floats per row.  A bucket has only a few
-//      hundred (g, w, c) rows, so the window axis is split in SPLIT parts
-//      across blocks for parallelism, and spectra_sum adds the parts in a
-//      fixed order (no atomics: every run gives the same bits).  The
-//      spectra are twice the window's size and stay in L2; the windows
-//      themselves never reach device memory.
-//   3. xcorr_tile: one block per (128 rows of (g, w, p), 64 lags).  Per K
-//      chunk it stages the spectra of the few windows its rows span in
-//      shared memory, forms its rows' cross-spectra from them by the pair
-//      indices (the TPU kernel's block-diagonal one-hot matmuls become index
-//      reads), accumulates the 128 x 64 correlation tile in registers over
-//      K, and reduces it at once to a per-row (max, first argmax) within
-//      [lo, hi].  Neither the cross-spectra nor the correlation reach
-//      device memory.  A tile no row of the block searches is skipped.
-//   4. merge: per row, fold the lag tiles' partials in ascending order,
+//   2. windows: the masked, demeaned windows into an L2-resident scratch of
+//      (windows of the chunk)*C x Lgp floats (Lg rounded up to 32, zeros
+//      past Lg), as fp32
+//      ('highest') or as tf32 hi (and lo at 'high') planes.
+//   3. forward DFT: the spectra F = win @ [Cf | -Sf], 2 Kp floats a (g, w,
+//      c) row, Re F then Im F.  A bucket has only a few hundred such rows,
+//      so the samples are split in KSPLIT parts across blocks (4 on the fp32
+//      tile, 3 on the tensor cores: a wave each on the canonical buckets)
+//      and spectra_sum adds the parts in a fixed order: every run gives the
+//      same bits.  The tensor cores take [Cf | Sf]^T, split once per bucket
+//      with the pipeline.
+//   4. cross-spectra: [Re CS | -Im CS] of every (g, w, p) row, 2 Kp floats,
+//      fp32 ('highest'), tf32 hi and lo planes ('high') or the hi plane
+//      ('default'), into an L2-resident scratch.
+//   5. inverse DFT and masked first-max, one block per (rows of (g, w, p),
+//      128 lags), against [Ec ; Es] (or its split transpose): each block
+//      reduces its tile at once to a per-row (max, first argmax) within
+//      [lo, hi]; the correlation never reaches device memory.  A tile no
+//      row of the block searches is skipped.
+//   6. merge: per row, fold the lag tiles' partials in ascending order,
 //      replacing only on a strictly greater value (the first maximum wins,
 //      as in jnp.argmax), and divide by sqrt(E[i] E[j]).
-// Every row's arithmetic is fixed by its own (g, w, p) and the tables, not
-// by how many rows share the launch, so merging arrays into one launch
+// The windows and cross-spectra pass through scratch instead of being
+// formed on their way to shared memory: on the fp32 tile a loader that
+// formed them waited for its loads before the math (xcorr 2.87 ms per
+// canonical step against 2.25 ms for the same tile on a stored matrix,
+// H100 80GB HBM3 at 700 W), and the tensor cores' TMA loads need a stored
+// operand.  Forming the split cross-spectra in shared memory inside the
+// tensor-core producer warpgroup, so that they never reach device memory,
+// is left for later.
+// The passes run over the band rows' windows, flat index gw = g * W + w, in
+// chunks of gw_chunk (the caller's choice): each pass's scratch holds one
+// chunk, so it stays bounded however many windows and pairs a bucket has
+// (the cross-spectra alone are P * 2 Kp floats a window, P quadratic in the
+// elements).  The canonical and 50-band buckets fit one chunk.
+// No part count depends on the number of rows: every output is a K-ordered
+// sum fixed by its own (g, w, c) or (g, w, p) and the tables, not by how
+// many rows share the launch or the chunk, so merging arrays into one launch
 // changes no bit of any row.
 //
-// Limits: sizes whose flat offsets need more than 32 bits (Bg*C*T,
-// SPLIT*Bg*W*C*2*Kp, ceil(nlag/64)*Bg*W*P at 2^31 or more), and element
-// counts whose staged spectra, ((127/P + 2) * C) rows of 128 bytes, do not
-// fit a block's shared memory beside the tiles (C above 802), are refused
-// by the Python wrapper with a ValueError.  Window length is not limited:
-// the window is streamed through shared memory in chunks of 16 samples.
+// Limits: the band rows, the rows of rho and one window's scratch must have
+// 32-bit flat offsets; the Python wrapper refuses other sizes with a
+// ValueError that names the shape.  Shared memory does not depend on the
+// shapes (25 KB for the fp32 tile, 160 KB for the tensor-core tile), so the
+// element count and window length are not otherwise limited.  Kp and the
+// lag columns are multiples of 128 (precompute_fused_tables), so no tile
+// straddles Cf and Sf or Ec and Es.
 //
 // Plain C interface, bound from Python with ctypes; built with
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 // by narrow_band_least_squares_tpu_torch/ops/kernels/_build.py.
 
-#include <cuda_runtime.h>
-#include <math_constants.h>
+#include "peak_tile.cuh"
+#include "simt_tile.cuh"
 
 namespace {
 
-constexpr int BM = 128;  // rows per block
-constexpr int BN = 64;   // columns (spectra) or lags (xcorr) per block
-constexpr int BK = 16;   // reduction chunk staged in shared memory
-constexpr int TM = 8;    // rows per thread
-constexpr int TN = 4;    // columns per thread
-constexpr int NT = (BM / TM) * (BN / TN);  // 256 threads
-constexpr int LANES_PER_ROW = BN / TN;     // 16 lanes share one row group
-constexpr int SPLIT = 4;  // parts of the window axis in the spectra pass
-constexpr int XCORR_STATIC_SMEM = (2 * BK * (BM + 4) + 2 * BK * BN) * 4 + 4 * BM * 4;
-constexpr int MAX_SMEM = 232448;  // a block's shared memory on sm_90
+using namespace nbls;
+namespace st = nbls::simt;
 
-static_assert(LANES_PER_ROW == 16, "the shuffle reduction assumes 16 lanes");
-static_assert(NT == 256, "the tile loaders assume 256 threads");
+constexpr int BK = 16;         // K chunk of the fp32 tile
+constexpr int KSPLIT_F32 = 4;  // sample parts of the forward DFT, fp32 tile
+constexpr int KSPLIT_TC = 3;   // and tensor-core tile
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -88,38 +111,64 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// ---- pass 1: mean and energy of every (g, w, c) window -------------------
+// Where spectra row r = (g*W + w)*C + c takes its window from.
+struct WindowRow {
+  const float* yr;  // the (g, c) trace
+  const float* lm;  // the band's length mask
+  int start;
+  __device__ WindowRow(int r, const float* y, const int* hop,
+                       const int* maxstart, const float* len_mask, int C,
+                       int T, int Lg, int W) {
+    const int c = r % C, gw = r / C;
+    const int w = gw % W, g = gw / W;
+    start = min(w * hop[g], maxstart[g]);
+    yr = y + ((size_t)g * C + c) * T;
+    lm = len_mask + (size_t)g * Lg;
+  }
+  // y * lm at sample t < Lg of the window (y zero past T)
+  __device__ float masked(int t, int T) const {
+    const int ti = start + t;
+    return __fmul_rn((ti >= 0 && ti < T) ? yr[ti] : 0.f, lm[t]);
+  }
+};
+
+// Stores x as an fp32 value (planes 0), its tf32 hi (planes 1) or hi and
+// lo (planes 2) at offset o of the planes hi / lo.
+__device__ __forceinline__ void put(float x, float* hi, float* lo, size_t o,
+                                   int planes) {
+  if (planes == 0) {
+    hi[o] = x;
+    return;
+  }
+  const float h = tf32_rna(x);
+  hi[o] = h;
+  if (planes == 2) lo[o] = tf32_rna(x - h);
+}
+
+// ---- pass 1: mean and energy of the chunk's (g, w, c) windows, rows row0 ..
+// row0 + M of y's windows --------------------------------------------------
 __global__ void window_stats_kernel(const float* __restrict__ y,
                                     const int* __restrict__ hop,
                                     const int* __restrict__ maxstart,
                                     const float* __restrict__ len_mask,
                                     float* __restrict__ mean,
-                                    float* __restrict__ energy, int Bg, int C,
-                                    int T, int Lg, int W) {
+                                    float* __restrict__ energy, int row0,
+                                    int M, int C, int T, int Lg, int W) {
   const int row = (int)((blockIdx.x * (size_t)blockDim.x + threadIdx.x) >> 5);
   const int lane = threadIdx.x & 31;
-  if (row >= Bg * W * C) return;
-  const int c = row % C;
-  const int gw = row / C;
-  const int w = gw % W, g = gw / W;
-  const int start = min(w * hop[g], maxstart[g]);
-  const float* yr = y + ((size_t)g * C + c) * T;
-  const float* lm = len_mask + (size_t)g * Lg;
+  if (row >= M) return;
+  const WindowRow wr(row0 + row, y, hop, maxstart, len_mask, C, T, Lg, W);
   float s = 0.f, n = 0.f;
   for (int t = lane; t < Lg; t += 32) {
-    const int ti = start + t;
-    const float v = (ti >= 0 && ti < T) ? yr[ti] : 0.f;
-    s += __fmul_rn(v, lm[t]);
-    n += lm[t];
+    s += wr.masked(t, T);
+    n += wr.lm[t];
   }
   s = warp_sum(s);
   n = warp_sum(n);
   const float mu = s / n;
   float e = 0.f;
   for (int t = lane; t < Lg; t += 32) {
-    const int ti = start + t;
-    const float v = (ti >= 0 && ti < T) ? yr[ti] : 0.f;
-    const float x = __fmul_rn(__fsub_rn(__fmul_rn(v, lm[t]), mu), lm[t]);
+    const float x = __fmul_rn(__fsub_rn(wr.masked(t, T), mu), wr.lm[t]);
     e = fmaf(x, x, e);
   }
   e = warp_sum(e);
@@ -129,269 +178,116 @@ __global__ void window_stats_kernel(const float* __restrict__ y,
   }
 }
 
-// ---- pass 2: spectra F = win @ [Cf | -Sf] for every (g, w, c) row ---------
-// Part z of spec (z < SPLIT) sums the window samples [z*Lc, (z+1)*Lc); its
-// row r = (g*W + w)*C + c holds Re F in [0, Kp) and Im F in [Kp, 2Kp).
-__global__ void __launch_bounds__(NT)
-spectra_tile_kernel(const float* __restrict__ y, const int* __restrict__ hop,
-                    const int* __restrict__ maxstart,
-                    const float* __restrict__ len_mask,
-                    const float* __restrict__ mean,
-                    const float* __restrict__ Cf, const float* __restrict__ Sf,
-                    float* __restrict__ spec, int Bg, int C, int T, int Lg,
-                    int W, int Kp) {
-  const int M = Bg * W * C;
-  const int N = 2 * Kp;
-  const int row0 = blockIdx.x * BM;
-  const int col0 = blockIdx.y * BN;
-  const int Lc = (Lg + SPLIT * BK - 1) / (SPLIT * BK) * BK;
-  const int tbeg = blockIdx.z * Lc;
-  const int tend = min(Lg, tbeg + Lc);
-  spec += (size_t)blockIdx.z * M * N;
-  const int t = threadIdx.x;
-  const int tx = t % LANES_PER_ROW;
-  const int ty = t / LANES_PER_ROW;
-
-  __shared__ __align__(16) float As[BK][BM + 4];  // windows chunk, transposed
-  __shared__ __align__(16) float Bs[BK][BN];      // table chunk
-  __shared__ int rBase[BM];   // offset of the row's (g, c) trace in y
-  __shared__ int rStart[BM];  // the window's first sample in that trace
-  __shared__ int rG[BM];      // band row
-  __shared__ float rMean[BM];
-
-  if (t < BM) {
-    const int r = row0 + t;
-    if (r < M) {
-      const int c = r % C, gw = r / C;
-      const int w = gw % W, g = gw / W;
-      const int start = min(w * hop[g], maxstart[g]);
-      rBase[t] = (g * C + c) * T;
-      rStart[t] = start;
-      rG[t] = g;
-      rMean[t] = mean[r];
-    } else {
-      rBase[t] = 0;
-      rStart[t] = 0;
-      rG[t] = -1;
-      rMean[t] = 0.f;
-    }
-  }
-  __syncthreads();
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = tbeg; k0 < tend; k0 += BK) {
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / NT; ++i) {
-      const int e = t + i * NT;
-      const int r = e / BK, k = e % BK;
-      const int ts = k0 + k;
-      float a = 0.f;
-      if (rG[r] >= 0 && ts < tend) {
-        const float lm = len_mask[(size_t)rG[r] * Lg + ts];
-        const int ti = rStart[r] + ts;
-        const float v = (ti >= 0 && ti < T) ? y[(size_t)rBase[r] + ti] : 0.f;
-        a = __fmul_rn(__fsub_rn(__fmul_rn(v, lm), rMean[r]), lm);
-      }
-      As[k][r] = a;
-    }
-#pragma unroll
-    for (int i = 0; i < (BK * BN) / NT; ++i) {
-      const int e = t + i * NT;
-      const int k = e / BN, c = e % BN;
-      const int ts = k0 + k, gc = col0 + c;
-      float b = 0.f;
-      if (ts < tend && gc < N)
-        b = gc < Kp ? Cf[(size_t)ts * Kp + gc] : Sf[(size_t)ts * Kp + gc - Kp];
-      Bs[k][c] = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * TM + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int r = row0 + ty * TM + i;
-    if (r >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = col0 + tx * TN + j;
-      if (col < N) spec[(size_t)r * N + col] = col < Kp ? acc[i][j] : -acc[i][j];
-    }
+// ---- pass 2: the windows, (y * lm - mean) * lm, into M x Lgp planes -------
+__global__ void windows_kernel(const float* __restrict__ y,
+                               const int* __restrict__ hop,
+                               const int* __restrict__ maxstart,
+                               const float* __restrict__ len_mask,
+                               const float* __restrict__ mean,
+                               float* __restrict__ w_hi,
+                               float* __restrict__ w_lo, int row0, int C,
+                               int T, int Lg, int W, int Lgp, int planes) {
+  const int r = blockIdx.x;  // one block a row, its threads along the samples
+  const WindowRow wr(row0 + r, y, hop, maxstart, len_mask, C, T, Lg, W);
+  const float mu = mean[r];
+  for (int t = threadIdx.x; t < Lgp; t += blockDim.x) {
+    const float x =
+        t < Lg ? __fmul_rn(__fsub_rn(wr.masked(t, T), mu), wr.lm[t]) : 0.f;
+    put(x, w_hi, w_lo, (size_t)r * Lgp + t, planes);
   }
 }
 
-// Adds the SPLIT parts of the spectra into part 0, in a fixed order.
-__global__ void spectra_sum_kernel(float* __restrict__ spec, int n) {
+// ---- pass 3 (fp32): part z of the spectra, win @ [Cf | -Sf] over samples
+// [z * kpart, (z + 1) * kpart), into spec + z * M * 2 Kp ---------------------
+__global__ void __launch_bounds__(st::NT, st::MIN_CTAS)
+spectra_simt_kernel(const float* __restrict__ win,
+                    const float* __restrict__ Cf, const float* __restrict__ Sf,
+                    float* __restrict__ spec, int M, int Lg, int Lgp, int Kp,
+                    int kpart) {
+  const int row0 = blockIdx.x * st::BM;
+  const int col0 = blockIdx.y * st::BN;
+  const int k0 = blockIdx.z * kpart;
+  const int nk = (min(Lgp, k0 + kpart) - k0) / BK;
+  const st::RowsA<BK> A(win, row0, M, Lgp);
+  const st::RowsB B{col0 < Kp ? Cf + col0 : Sf + (col0 - Kp), Kp, Lg};
+  __shared__ __align__(16) st::Smem<BK> s;
+  float acc[st::TM][st::TN];
+  st::mainloop<BK>(s, A, B, k0, nk, acc);
+  st::store_tile(acc, row0, col0, M, spec + (size_t)blockIdx.z * M * 2 * Kp,
+                 2 * Kp, Kp);
+}
+
+// Adds the parts of the spectra into part 0, in a fixed order.
+__global__ void spectra_sum_kernel(float* __restrict__ spec, int n, int parts) {
   const int i = blockIdx.x * blockDim.x + threadIdx.x;
   if (i >= n) return;
   float v = spec[i];
-#pragma unroll
-  for (int z = 1; z < SPLIT; ++z) v = __fadd_rn(v, spec[(size_t)z * n + i]);
+  for (int z = 1; z < parts; ++z) v = __fadd_rn(v, spec[(size_t)z * n + i]);
   spec[i] = v;
 }
 
-// Spectra rows (g*W + w)*C + c that the 128 rows of one xcorr block can
-// span: their windows are at most (BM - 1) / P + 2.
-__host__ __device__ inline int staged_rows(int C, int P) {
-  return ((BM - 1) / P + 2) * C;
+// ---- pass 4: [Re CS | -Im CS] of every (g, w, p) row, CS = F_j conj(F_i),
+// unfused as the plain version; one thread a frequency -----------------------
+__global__ void cross_kernel(const float* __restrict__ spec,
+                             const int* __restrict__ pairs,
+                             float* __restrict__ c_hi, float* __restrict__ c_lo,
+                             int R, int C, int P, int Kp, int planes) {
+  const size_t n = (size_t)R * Kp;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e / Kp), k = (int)(e % Kp);
+    const int p = r % P, gw = r / P;
+    const float* si = spec + ((size_t)gw * C + pairs[2 * p]) * 2 * Kp;
+    const float* sj = spec + ((size_t)gw * C + pairs[2 * p + 1]) * 2 * Kp;
+    const float reI = si[k], imI = si[Kp + k], reJ = sj[k], imJ = sj[Kp + k];
+    const float re = __fadd_rn(__fmul_rn(reJ, reI), __fmul_rn(imJ, imI));
+    const float nim = -__fsub_rn(__fmul_rn(imJ, reI), __fmul_rn(reJ, imI));
+    const size_t o = (size_t)r * 2 * Kp + k;
+    put(re, c_hi, c_lo, o, planes);
+    put(nim, c_hi, c_lo, o + Kp, planes);
+  }
 }
 
-// ---- pass 3: cross-spectra + inverse DFT + per-tile masked first-max ------
-__global__ void __launch_bounds__(NT)
-xcorr_tile_kernel(const float* __restrict__ spec, const int* __restrict__ pairs,
-                  const int* __restrict__ lo, const int* __restrict__ hi,
-                  const float* __restrict__ Ec, const float* __restrict__ Es,
-                  float* __restrict__ part_val, int* __restrict__ part_idx,
-                  int Bg, int C, int W, int P, int Kp, int nlag) {
-  const int R = Bg * W * P;
-  const int K2 = 2 * Kp;
-  const int row0 = blockIdx.x * BM;
-  const int lag0 = blockIdx.y * BN;
-  const int t = threadIdx.x;
-  const int tx = t % LANES_PER_ROW;
-  const int ty = t / LANES_PER_ROW;
-  const size_t part0 = (size_t)blockIdx.y * R;
-
-  __shared__ __align__(16) float As[2 * BK][BM + 4];  // [Re CS ; -Im CS] chunk
-  __shared__ __align__(16) float Bs[2 * BK][BN];      // [Ec ; Es] chunk
-  __shared__ int rI[BM];  // staged spectra rows of the pair's channels i, j
-  __shared__ int rJ[BM];
-  __shared__ int rLo[BM];
-  __shared__ int rHi[BM];
-  extern __shared__ float Ss[];  // [staged rows][Re F chunk, Im F chunk]
-
-  // the spectra rows of the windows gw0..gw1 that this block's rows use
-  const int gw0 = row0 / P;
-  const int srow0 = gw0 * C;
-  const int nsrows = (min(R - 1, row0 + BM - 1) / P - gw0 + 1) * C;
-
-  bool needed = false;
-  if (t < BM) {
-    const int r = row0 + t;
-    if (r < R) {
-      const int p = r % P, gw = r / P, g = gw / W;
-      rI[t] = (gw - gw0) * C + pairs[2 * p];
-      rJ[t] = (gw - gw0) * C + pairs[2 * p + 1];
-      rLo[t] = lo[g];
-      rHi[t] = hi[g];
-      needed = rLo[t] <= rHi[t] && rLo[t] <= lag0 + BN - 1 && rHi[t] >= lag0;
-    } else {
-      rI[t] = rJ[t] = 0;
-      rLo[t] = 1;  // empty range for rows past R
-      rHi[t] = 0;
-    }
+// The tile's 128 lags of [Ec ; Es] (2 Kp, nlag): rows below Kp from Ec.
+struct InverseB {
+  const float* ec;
+  const float* es;
+  int ld, Kp;
+  __device__ bool in(int) const { return true; }
+  __device__ const float* src(int k, int n) const {
+    return k < Kp ? ec + (size_t)k * ld + n : es + (size_t)(k - Kp) * ld + n;
   }
-  if (!__syncthreads_or(needed)) {
-    if (t < BM && row0 + t < R) {
-      part_val[part0 + row0 + t] = -CUDART_INF_F;
-      part_idx[part0 + row0 + t] = 0;
-    }
+};
+
+// ---- pass 5 (fp32): inverse DFT of the cross-spectra, masked first-max; the
+// chunk's row 0 is row row_base of rho --------------------------------------
+__global__ void __launch_bounds__(st::NT, st::MIN_CTAS)
+xcorr_simt_kernel(const float* __restrict__ cs, const int* __restrict__ lo,
+                  const int* __restrict__ hi, const float* __restrict__ Ec,
+                  const float* __restrict__ Es, float* __restrict__ part_val,
+                  int* __restrict__ part_idx, int row_base, int R, int WP,
+                  int Kp, int nlag) {
+  const int row0 = blockIdx.x * st::BM;
+  const int lag0 = blockIdx.y * st::BN;
+  float* pv = part_val + (size_t)blockIdx.y * R;
+  int* pi = part_idx + (size_t)blockIdx.y * R;
+  const auto bounds = [&](int r, int& l, int& h) {  // r within the chunk
+    l = lo[(row_base + r) / WP];
+    h = hi[(row_base + r) / WP];
+  };
+  if (!st::tile_needed(row0, lag0, R, bounds)) {
+    st::skip_partials(row0, R, pv, pi);
     return;
   }
-
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < Kp; k0 += BK) {
-    for (int e = t; e < nsrows * 2 * BK; e += NT) {
-      const int sr = e / (2 * BK), q = e % (2 * BK);
-      const int gk = k0 + q % BK;
-      Ss[e] = gk < Kp ? spec[(size_t)(srow0 + sr) * K2 + (q / BK) * Kp + gk] : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < (2 * BK * BN) / NT; ++i) {
-      const int e = t + i * NT;
-      const int k2 = e / BN, c = e % BN;
-      const int gk = k0 + (k2 % BK), gc = lag0 + c;
-      float b = 0.f;
-      if (gk < Kp && gc < nlag)
-        b = (k2 < BK ? Ec : Es)[(size_t)gk * nlag + gc];
-      Bs[k2][c] = b;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int i = 0; i < (BM * BK) / NT; ++i) {
-      const int e = t + i * NT;
-      const int r = e / BK, k = e % BK;
-      float re = 0.f, im = 0.f;
-      if (row0 + r < R) {
-        const float* si = Ss + rI[r] * 2 * BK;
-        const float* sj = Ss + rJ[r] * 2 * BK;
-        const float reI = si[k], imI = si[BK + k], reJ = sj[k], imJ = sj[BK + k];
-        re = __fadd_rn(__fmul_rn(reJ, reI), __fmul_rn(imJ, imI));
-        im = __fsub_rn(__fmul_rn(imJ, reI), __fmul_rn(reJ, imI));
-      }
-      As[k][r] = re;
-      As[BK + k][r] = -im;  // with Es: -Im CS * Es, exactly Im CS * (-Es)
-    }
-    __syncthreads();
-#pragma unroll
-    for (int k = 0; k < 2 * BK; ++k) {
-      const float4 a0 = *reinterpret_cast<const float4*>(&As[k][ty * TM]);
-      const float4 a1 = *reinterpret_cast<const float4*>(&As[k][ty * TM + 4]);
-      const float4 b = *reinterpret_cast<const float4*>(&Bs[k][tx * TN]);
-      const float a[TM] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-      const float bv[TN] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], bv[j], acc[i][j]);
-    }
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const int rl = ty * TM + i;
-    const int r = row0 + rl;
-    const int rlo = rLo[rl], rhi = rHi[rl];
-    float best = -CUDART_INF_F;
-    int bidx = 0;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int col = lag0 + tx * TN + j;
-      if (col >= rlo && col <= rhi && col < nlag && acc[i][j] > best) {
-        best = acc[i][j];
-        bidx = col;
-      }
-    }
-#pragma unroll
-    for (int off = LANES_PER_ROW / 2; off > 0; off >>= 1) {
-      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
-      const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
-      if (ov > best || (ov == best && oi < bidx)) {
-        best = ov;
-        bidx = oi;
-      }
-    }
-    if (tx == 0 && r < R) {
-      part_val[part0 + r] = best;
-      part_idx[part0 + r] = bidx;
-    }
-  }
+  const st::RowsA<BK> A(cs, row0, R, 2 * Kp);
+  const InverseB B{Ec + lag0, Es + lag0, nlag, Kp};
+  __shared__ __align__(16) st::Smem<BK> s;
+  float acc[st::TM][st::TN];
+  st::mainloop<BK>(s, A, B, 0, 2 * Kp / BK, acc);
+  st::first_max_partials(acc, row0, lag0, R, nlag, bounds, pv, pi);
 }
 
-// ---- pass 4: fold the lag tiles in order, rho = peak / sqrt(Ei Ej) --------
+// ---- pass 6: fold the lag tiles in order, rho = peak / sqrt(Ei Ej) --------
 __global__ void merge_kernel(const float* __restrict__ part_val,
                              const int* __restrict__ part_idx,
                              const float* __restrict__ energy,
@@ -417,70 +313,141 @@ __global__ void merge_kernel(const float* __restrict__ part_val,
   idx[r] = bidx;
 }
 
+unsigned grid_for(size_t n) {
+  const size_t blocks = (n + 255) / 256;
+  return (unsigned)(blocks < 132 * 16 ? blocks : 132 * 16);
+}
+
 }  // namespace
 
 extern "C" {
 
-// Lags per xcorr block: the partial buffers hold ceil(nlag / lag_tile) * R.
-int nbls_fused_xcorr_lag_tile(void) { return BN; }
+// Lags per xcorr block: the partial buffers hold nlag / lag_tile * R.
+int nbls_fused_xcorr_lag_tile(void) { return st::BN; }
 
-// Parts of the spectra scratch: it holds split * Bg*W*C * 2*Kp floats.
-int nbls_fused_xcorr_split(void) { return SPLIT; }
+// Samples per tensor-core K block: the windows' scratch and the split
+// forward table have Lg rounded up to a multiple of this.
+int nbls_fused_xcorr_k_block(void) { return TILE_K; }
 
-// 1 if C elements with P pairs fit the xcorr block's shared memory.
-int nbls_fused_xcorr_fits(int C, int P) {
-  return XCORR_STATIC_SMEM + (size_t)staged_rows(C, P) * 2 * BK * 4 <= MAX_SMEM;
+// Parts of the forward DFT's sum over the samples at nprod (0: fp32 tile;
+// 1, 3: tensor cores): the spectra scratch holds parts * gw_chunk*C * 2 Kp.
+int nbls_fused_xcorr_ksplit(int nprod) {
+  return nprod == 0 ? KSPLIT_F32 : KSPLIT_TC;
 }
 
-// Launches the four passes on `stream`; returns the cudaError_t of the
-// launches (0 on success).  Scratch, allocated by the caller:
-//   mean, energy: Bg*W*C floats each; spec: SPLIT*Bg*W*C*2*Kp floats;
-//   part_val, part_idx: ceil(nlag/BN) * Bg*W*P each.
-int nbls_fused_xcorr_f32(const float* y, const int* hop, const int* maxstart,
-                         const int* lo, const int* hi, const float* len_mask,
-                         const float* Cf, const float* Sf, const float* Ec,
-                         const float* Es, const int* pairs, float* rho,
-                         int* idx, float* mean, float* energy, float* spec,
-                         float* part_val, int* part_idx, int Bg, int C, int T,
-                         int Lg, int W, int Kp, int nlag, int P,
-                         cudaStream_t stream) {
+// Launches the passes on `stream`, chunk by chunk; returns 0, or 10000 *
+// pass + the error of the pass that failed (pass 1 window statistics, 2
+// windows, 3 forward DFT, 4 cross-spectra, 5 inverse DFT, 6 merge; error: a
+// cudaError_t, 1001 for no tensor-map encoder in the driver, 1002 for a
+// refused tensor map).
+//   nprod: 0 for IEEE fp32, 3 for 3xTF32, 1 for one tf32 pass;
+//   Cf/Sf (Lg, Kp), Ec/Es (Kp, nlag), Kp and nlag multiples of 128;
+//   fwd_t (planes, 2 Kp, Lgp) = split [Cf | Sf]^T and inv_t (planes, nlag,
+//   2 Kp) = split [Ec ; Es]^T (nprod > 0 only; the lo plane, after hi, is
+//   read at nprod 3);
+//   gw_chunk: windows (g, w) per chunk, at least 1;
+// scratch, allocated by the caller for one chunk (n = gw_chunk):
+//   mean, energy: n*C floats each;
+//   win: (nprod == 3 ? 2 : 1) * n*C * Lgp floats (Lgp: Lg rounded up to
+//   the K block);
+//   spec: ksplit(nprod) * n*C * 2 Kp floats;
+//   cs: (nprod == 3 ? 2 : 1) * n*P * 2 Kp floats;
+//   part_val, part_idx: nlag / lag_tile * n*P each.
+int nbls_fused_xcorr(const float* y, const int* hop, const int* maxstart,
+                     const int* lo, const int* hi, const float* len_mask,
+                     const float* Cf, const float* Sf, const float* Ec,
+                     const float* Es, const int* pairs, const float* fwd_t,
+                     const float* inv_t, float* rho, int* idx, float* mean,
+                     float* energy, float* win, float* spec, float* cs,
+                     float* part_val, int* part_idx, int Bg, int C, int T,
+                     int Lg, int W, int Kp, int nlag, int P, int nprod,
+                     int gw_chunk, cudaStream_t stream) {
   if (Bg <= 0 || C <= 0 || T <= 0 || Lg <= 0 || W <= 0 || Kp <= 0 ||
-      nlag <= 0 || P <= 0 || !nbls_fused_xcorr_fits(C, P))
+      nlag <= 0 || P <= 0 || gw_chunk <= 0 || Kp % st::BN != 0 ||
+      nlag % st::BN != 0 || (nprod != 0 && nprod != 1 && nprod != 3))
     return (int)cudaErrorInvalidValue;
-  const int rowsC = Bg * W * C;
-  const int R = Bg * W * P;
-  const int ntiles = (nlag + BN - 1) / BN;
+  const int ngw = Bg * W;
+  const int ntiles = nlag / st::BN;
+  const int Lgp = (Lg + TILE_K - 1) / TILE_K * TILE_K;
+  const bool tc = nprod != 0;
+  const int planes = nprod == 3 ? 2 : tc ? 1 : 0;  // as put() takes them
+  const int ksplit = nbls_fused_xcorr_ksplit(nprod);
+  // samples per part: whole K chunks (fp32) or K blocks (tensor cores)
+  const int kq = tc ? TILE_K : BK;
+  const int kpart = (Lgp / kq + ksplit - 1) / ksplit * kq;
+  const auto failed = [](int pass, int e) {
+    return 10000 * pass + (e < 0 ? 1000 - e : e);
+  };
+  int err;
 
-  window_stats_kernel<<<(rowsC + 7) / 8, 256, 0, stream>>>(
-      y, hop, maxstart, len_mask, mean, energy, Bg, C, T, Lg, W);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+  for (int gw0 = 0; gw0 < ngw; gw0 += gw_chunk) {
+    const int n = min(gw_chunk, ngw - gw0);
+    const int M = n * C;  // spectra rows of the chunk
+    const int R = n * P;  // correlation rows of the chunk
 
-  const dim3 sgrid((rowsC + BM - 1) / BM, (2 * Kp + BN - 1) / BN, SPLIT);
-  spectra_tile_kernel<<<sgrid, NT, 0, stream>>>(
-      y, hop, maxstart, len_mask, mean, Cf, Sf, spec, Bg, C, T, Lg, W, Kp);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-  const int nspec = rowsC * 2 * Kp;
-  spectra_sum_kernel<<<(nspec + 255) / 256, 256, 0, stream>>>(spec, nspec);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
+    window_stats_kernel<<<(M + 7) / 8, 256, 0, stream>>>(
+        y, hop, maxstart, len_mask, mean, energy, gw0 * C, M, C, T, Lg, W);
+    if ((err = (int)cudaGetLastError()) != 0) return failed(1, err);
 
-  const int smem = staged_rows(C, P) * 2 * BK * 4;
-  if (smem + XCORR_STATIC_SMEM > 48 * 1024) {
-    err = cudaFuncSetAttribute(xcorr_tile_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
-    if (err != cudaSuccess) return (int)err;
+    float* w_lo = nprod == 3 ? win + (size_t)M * Lgp : win;
+    windows_kernel<<<M, 256, 0, stream>>>(y, hop, maxstart, len_mask, mean,
+                                          win, w_lo, gw0 * C, C, T, Lg, W, Lgp,
+                                          planes);
+    if ((err = (int)cudaGetLastError()) != 0) return failed(2, err);
+
+    CUtensorMap maps[4];
+    if (!tc) {
+      const dim3 grid((M + st::BM - 1) / st::BM, 2 * Kp / st::BN,
+                      (Lgp + kpart - 1) / kpart);
+      spectra_simt_kernel<<<grid, st::NT, 0, stream>>>(win, Cf, Sf, spec, M,
+                                                       Lg, Lgp, Kp, kpart);
+      err = (int)cudaGetLastError();
+    } else {
+      const float* f_lo = nprod == 3 ? fwd_t + (size_t)2 * Kp * Lgp : fwd_t;
+      err = encode_operands(maps, win, w_lo, M, fwd_t, f_lo, 2 * Kp, Lgp);
+      const TcOut fo{nullptr, nullptr, 1, 0, nullptr, nullptr, spec, 2 * Kp, Kp};
+      if (err == 0)
+        err = nprod == 3 ? launch_tc_tiles<3, EPI_STORE>(maps, fo, M, Lgp,
+                                                         kpart, 2 * Kp, stream)
+                         : launch_tc_tiles<1, EPI_STORE>(maps, fo, M, Lgp,
+                                                         kpart, 2 * Kp, stream);
+    }
+    if (err == 0) {
+      const int ns = M * 2 * Kp;
+      spectra_sum_kernel<<<(ns + 255) / 256, 256, 0, stream>>>(
+          spec, ns, (Lgp + kpart - 1) / kpart);
+      err = (int)cudaGetLastError();
+    }
+    if (err != 0) return failed(3, err);
+
+    float* c_lo = nprod == 3 ? cs + (size_t)R * 2 * Kp : cs;
+    cross_kernel<<<grid_for((size_t)R * Kp), 256, 0, stream>>>(
+        spec, pairs, cs, c_lo, R, C, P, Kp, planes);
+    if ((err = (int)cudaGetLastError()) != 0) return failed(4, err);
+
+    if (!tc) {
+      const dim3 grid((R + st::BM - 1) / st::BM, ntiles);
+      xcorr_simt_kernel<<<grid, st::NT, 0, stream>>>(
+          cs, lo, hi, Ec, Es, part_val, part_idx, gw0 * P, R, W * P, Kp, nlag);
+      err = (int)cudaGetLastError();
+    } else {
+      const float* i_lo = nprod == 3 ? inv_t + (size_t)nlag * 2 * Kp : inv_t;
+      err = encode_operands(maps, cs, c_lo, R, inv_t, i_lo, nlag, 2 * Kp);
+      const TcOut xo{lo, hi, W * P, gw0 * P, part_val, part_idx, nullptr, 0, 0};
+      if (err == 0)
+        err = nprod == 3 ? launch_tc_tiles<3, EPI_PEAK>(maps, xo, R, 2 * Kp,
+                                                        2 * Kp, nlag, stream)
+                         : launch_tc_tiles<1, EPI_PEAK>(maps, xo, R, 2 * Kp,
+                                                        2 * Kp, nlag, stream);
+    }
+    if (err != 0) return failed(5, err);
+
+    merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
+        part_val, part_idx, energy, pairs, rho + (size_t)gw0 * P,
+        idx + (size_t)gw0 * P, R, C, P, ntiles);
+    if ((err = (int)cudaGetLastError()) != 0) return failed(6, err);
   }
-  const dim3 xgrid((R + BM - 1) / BM, ntiles);
-  xcorr_tile_kernel<<<xgrid, NT, smem, stream>>>(
-      spec, pairs, lo, hi, Ec, Es, part_val, part_idx, Bg, C, W, P, Kp, nlag);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return (int)err;
-
-  merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
-      part_val, part_idx, energy, pairs, rho, idx, R, C, P, ntiles);
-  return (int)cudaGetLastError();
+  return 0;
 }
 
 }  // extern "C"

@@ -8,7 +8,12 @@
 //     operands K-major in shared memory (the only layout wgmma takes for
 //     tf32);
 //   - the masked first-max epilogue on the accumulator fragment, and the
-//     in-order fold of per-lag-tile partials.
+//     in-order fold of per-lag-tile partials;
+//   - the warp-specialised tile kernel built from them (tc_tile_kernel: a
+//     TMA producer, three wgmma consumer warpgroups, a first-max or a store
+//     epilogue) and its host-side launch helpers, used by icorr_peak
+//     (xcorr_peak_tc.cu) and by both products of fused_xcorr_bucket
+//     (fused_xcorr.cu).
 //
 // A tf32 product fed raw fp32 truncates the low 13 mantissa bits, so a
 // caller that wants more than one tf32 pass splits explicitly:
@@ -191,8 +196,9 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32(float (&d)[ACC],
 
 // One 32-wide K block of a 64 x 128 tile into d (added to d if
 // `accumulate`, else overwriting it): 4 k-steps of 8, each with the NPROD
-// products of the split (3: lo.hi + hi.lo + hi.hi; 1: hi.hi), the small
-// terms first.  a_hi/a_lo/b_hi/b_lo point at 1024-aligned tiles.
+// products of the split (3: lo.hi + hi.lo + hi.hi, the small terms first;
+// 1: hi.hi).
+// a_hi/a_lo/b_hi/b_lo point at 1024-aligned tiles.
 //
 // The tensor cores add into their fp32 accumulator without rounding to
 // nearest (measured on the H100: 3xTF32 summed over 2432 K in one
@@ -293,6 +299,324 @@ __global__ void peak_merge_kernel(const float* __restrict__ part_val,
   }
   peak[r] = best;
   idx[r] = bidx;
+}
+
+
+// ---- the warp-specialised tile kernel ---------------------------------------
+//
+// One CTA per (192-row, 128-column) tile of A (R, K) . Bt (ncols, K)^T, both
+// K-major fp32 matrices read by TMA as tf32 (their hi planes, and their lo
+// planes at NPROD 3): one producer thread keeps loads of 32-wide K blocks in
+// flight through a ring of shared-memory stages (2 at NPROD 3, 4 at 1);
+// three consumer warpgroups of 64 rows run m64n128k8 wgmma on the stage that
+// arrived and release it.  The tensor cores' own fp32 accumulation does not
+// round to nearest, so the products of each K block (each 4 blocks at
+// NPROD 1) go to a fresh fragment that the warpgroup adds into its running
+// sum in registers; the other warpgroups' products keep the tensor cores
+// busy meanwhile.  The producer warpgroup hands most of its registers to
+// the consumers (setmaxnreg).  No split-K: every (row, column) value is the
+// same K-ordered sum whatever R or the grid.  Rows past R arrive from TMA
+// as zeros.
+//
+// Epilogues:
+//   EPI_PEAK: per row, the first maximum over columns in [lo, hi] below
+//     ncols (row r's bounds are lo[(row_base + r) / bdiv], and hi alike:
+//     row_base places the launch's rows in a larger problem), written as the
+//     tile's partial at part_val/part_idx[blockIdx.y * R + r]; a tile whose
+//     rows all search outside its 128 columns is skipped.
+//   EPI_STORE: out[r * ldo + col] = the sum, negated in columns >= neg_from;
+//     ncols must be a multiple of 128.  blockIdx.z = z sums only K part
+//     [z * kpart, (z + 1) * kpart) and writes to out + z * R * ldo, so that
+//     a caller can add the parts in a fixed order (kpart a multiple of 32).
+
+constexpr int CONSUMERS = 3;                            // consumer warpgroups
+constexpr int TC_BM = CONSUMERS * TILE_M;               // 192 rows per CTA
+constexpr int TC_THREADS = (CONSUMERS + 1) * WG_THREADS;  // + the producer's
+// Registers a thread after setmaxnreg: the producer warpgroup gives up most
+// of its own to the consumers, which hold two 64-float fragments each
+// (24 x 128 + 160 x 384 <= 65,536).
+constexpr int PRODUCER_REGS = 24;
+constexpr int CONSUMER_REGS = 160;
+constexpr int A_TILE = TC_BM * TILE_K * 4;              // 24 KB
+constexpr int B_TILE = TILE_N * TILE_K * 4;             // 16 KB
+
+template <int NPROD>
+struct TcCfg {
+  static_assert(NPROD == 1 || NPROD == 3, "1xTF32 or 3xTF32");
+  static constexpr int PLANES = NPROD == 3 ? 2 : 1;  // hi (and lo) of A and B
+  static constexpr int STAGE = PLANES * (A_TILE + B_TILE);
+  // 160 KB at NPROD 3 and 1
+  static constexpr int STAGES = NPROD == 3 ? 2 : 4;
+  // K blocks whose products the tensor cores sum before the fp32 fold: 12
+  // truncating additions between folds at NPROD 3 (3 x 4 k-steps), 16 at
+  // 1, where a fold per block would drain the pipe every 4 products
+  static constexpr int FOLD = NPROD == 3 ? 1 : 4;
+  static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
+};
+
+enum : int { EPI_PEAK = 0, EPI_STORE = 1 };
+
+struct TcOut {
+  const int* lo;    // EPI_PEAK: lag bounds, one per bdiv rows
+  const int* hi;
+  int bdiv;
+  int row_base;     // EPI_PEAK: the launch's row 0 in the rows of lo / hi
+  float* part_val;  // EPI_PEAK: partials, (ncols / 128) x R
+  int* part_idx;
+  float* out;       // EPI_STORE: R x ldo
+  int ldo;
+  int neg_from;
+};
+
+template <int NPROD, int EPI>
+__global__ void __launch_bounds__(TC_THREADS, 1)
+    tc_tile_kernel(const __grid_constant__ CUtensorMap a_hi_map,
+                   const __grid_constant__ CUtensorMap a_lo_map,
+                   const __grid_constant__ CUtensorMap b_hi_map,
+                   const __grid_constant__ CUtensorMap b_lo_map,
+                   const TcOut o, int R, int K, int kpart, int ncols) {
+  using C = TcCfg<NPROD>;
+  const int row0 = blockIdx.x * TC_BM;
+  const int lag0 = blockIdx.y * TILE_N;
+  const int t = threadIdx.x;
+  const size_t part0 = (size_t)blockIdx.y * R;
+
+  if (EPI == EPI_PEAK) {
+    bool needed = false;
+    if (t < TC_BM && row0 + t < R) {
+      const int b = (o.row_base + row0 + t) / o.bdiv;
+      const int l = o.lo[b], h = o.hi[b];
+      needed = l <= h && l <= lag0 + TILE_N - 1 && h >= lag0;
+    }
+    if (!__syncthreads_or(needed)) {
+      if (t < TC_BM && row0 + t < R) {
+        o.part_val[part0 + row0 + t] = -CUDART_INF_F;
+        o.part_idx[part0 + row0 + t] = 0;
+      }
+      return;
+    }
+  }
+
+  extern __shared__ __align__(1024) uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + C::STAGES * C::STAGE);
+  uint64_t* empty = full + C::STAGES;
+  if (t == 0) {
+    for (int s = 0; s < C::STAGES; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int kb0 = blockIdx.z * kpart / TILE_K;
+  const int nk = min(K, (int)(blockIdx.z + 1) * kpart) / TILE_K - kb0;
+  const int wg = t / WG_THREADS;
+
+  if (wg == CONSUMERS) {  // producer warpgroup: one thread issues every load
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;" ::"n"(PRODUCER_REGS));
+    if (t == CONSUMERS * WG_THREADS) {
+      int s = 0;
+      uint32_t phase = 0;
+      for (int kb = 0; kb < nk; ++kb) {
+        mbar_wait(&empty[s], phase ^ 1);
+        uint8_t* st = smem + s * C::STAGE;
+        uint8_t* sb = st + C::PLANES * A_TILE;
+        const int k0 = (kb0 + kb) * TILE_K;
+        mbar_expect_tx(&full[s], C::STAGE);
+        tma_load_2d(st, &a_hi_map, &full[s], k0, row0);
+        tma_load_2d(sb, &b_hi_map, &full[s], k0, lag0);
+        if (C::PLANES == 2) {
+          tma_load_2d(st + A_TILE, &a_lo_map, &full[s], k0, row0);
+          tma_load_2d(sb + B_TILE, &b_lo_map, &full[s], k0, lag0);
+        }
+        if (++s == C::STAGES) {
+          s = 0;
+          phase ^= 1;
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg: rows row0 + 64 wg .. + 63 of the A tiles; each
+  // K block's products land in `part`, summed into `acc` in K order with
+  // fp32 adds (round to nearest)
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;" ::"n"(CONSUMER_REGS));
+  float acc[ACC], part[ACC];
+#pragma unroll
+  for (int i = 0; i < ACC; ++i) acc[i] = 0.f;
+  const int a_off = wg * TILE_M * TILE_K * 4;
+  const bool lead = t % WG_THREADS == 0;
+  int s = 0, pending = -1;  // pending: a stage whose products may be in flight
+  uint32_t phase = 0;
+  for (int kb = 0; kb < nk; ++kb) {
+    mbar_wait(&full[s], phase);
+    const uint8_t* st = smem + s * C::STAGE;
+    const uint8_t* sb = st + C::PLANES * A_TILE;
+    // `part` is touched outside the tensor cores only between a fold and
+    // the next group's first products: a fence anywhere else would make
+    // the compiler drain the products in flight
+    if (kb % C::FOLD == 0) fence_acc(part);
+    wgmma_fence();
+    tile_kblock<NPROD>(part, st + a_off,
+                       st + (C::PLANES == 2 ? A_TILE : 0) + a_off, sb,
+                       sb + (C::PLANES == 2 ? B_TILE : 0), kb % C::FOLD != 0);
+    wgmma_commit();
+    const bool fold = kb % C::FOLD == C::FOLD - 1 || kb == nk - 1;
+    if (fold) {
+      wgmma_wait<0>();
+      fence_acc(part);
+    } else {
+      wgmma_wait<1>();  // the previous block's products are done
+    }
+    if (lead && pending >= 0) mbar_arrive(&empty[pending]);
+    if (lead && fold) mbar_arrive(&empty[s]);
+    pending = fold ? -1 : s;
+    if (fold) {
+#pragma unroll
+      for (int i = 0; i < ACC; ++i) acc[i] += part[i];
+    }
+    if (++s == C::STAGES) {
+      s = 0;
+      phase ^= 1;
+    }
+  }
+
+  const int lane = t & 31, warp = (t % WG_THREADS) / 32;
+  const int ra = row0 + wg * TILE_M + warp * 16 + (lane >> 2);
+  const int rb = ra + 8;
+  if (EPI == EPI_STORE) {
+    // register 4j + e (+2 for row b) holds column 8j + 2(lane % 4) + e
+    const int q = lane & 3;
+    float* out = o.out + (size_t)blockIdx.z * R * o.ldo;
+#pragma unroll
+    for (int j = 0; j < TILE_N / 8; ++j) {
+      const int col = lag0 + 8 * j + 2 * q;
+      const float sg = col >= o.neg_from ? -1.f : 1.f;
+      if (ra < R)
+        *reinterpret_cast<float2*>(out + (size_t)ra * o.ldo + col) =
+            make_float2(sg * acc[4 * j], sg * acc[4 * j + 1]);
+      if (rb < R)
+        *reinterpret_cast<float2*>(out + (size_t)rb * o.ldo + col) =
+            make_float2(sg * acc[4 * j + 2], sg * acc[4 * j + 3]);
+    }
+    return;
+  }
+  int lo_a = 1, hi_a = 0, lo_b = 1, hi_b = 0;  // empty ranges past R
+  if (ra < R) {
+    lo_a = o.lo[(o.row_base + ra) / o.bdiv];
+    hi_a = o.hi[(o.row_base + ra) / o.bdiv];
+  }
+  if (rb < R) {
+    lo_b = o.lo[(o.row_base + rb) / o.bdiv];
+    hi_b = o.hi[(o.row_base + rb) / o.bdiv];
+  }
+  const TileBest b = tile_first_max(acc, lag0, ncols, lo_a, hi_a, lo_b, hi_b);
+  if ((lane & 3) == 0) {
+    if (ra < R) {
+      o.part_val[part0 + ra] = b.va;
+      o.part_idx[part0 + ra] = b.ia;
+    }
+    if (rb < R) {
+      o.part_val[part0 + rb] = b.vb;
+      o.part_idx[part0 + rb] = b.ib;
+    }
+  }
+}
+
+// ---- host side: tensor maps and launches ------------------------------------
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, fetched from the driver at run time
+// (cudaGetDriverEntryPoint), so that nothing links against libcuda.
+inline EncodeTiled encoder() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A row-major (rows, K) fp32 matrix, read in boxes of 32 x box_rows.
+inline bool encode(EncodeTiled fn, CUtensorMap* map, const float* base,
+                   int rows, int K, int box_rows) {
+  const cuuint64_t dims[2] = {(cuuint64_t)K, (cuuint64_t)rows};
+  const cuuint64_t strides[1] = {(cuuint64_t)K * sizeof(float)};
+  const cuuint32_t box[2] = {(cuuint32_t)TILE_K, (cuuint32_t)box_rows};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<float*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The four tensor maps of A (R, K) and Bt (ncols_p, K), hi and lo planes
+// (a plane the products do not read may repeat hi).  Returns 0, -1 (no
+// tensor-map encoder) or -2 (a map was refused).
+inline int encode_operands(CUtensorMap (&maps)[4], const float* a_hi,
+                           const float* a_lo, int R, const float* b_hi,
+                           const float* b_lo, int ncols_p, int K) {
+  const EncodeTiled fn = encoder();
+  if (fn == nullptr) return -1;
+  if (!encode(fn, &maps[0], a_hi, R, K, TC_BM) ||
+      !encode(fn, &maps[1], a_lo, R, K, TC_BM) ||
+      !encode(fn, &maps[2], b_hi, ncols_p, K, TILE_N) ||
+      !encode(fn, &maps[3], b_lo, ncols_p, K, TILE_N))
+    return -2;
+  return 0;
+}
+
+// The tile at NPROD tf32 products a term; K in parts of kpart (EPI_STORE
+// only; EPI_PEAK takes kpart = K).
+template <int NPROD, int EPI>
+int launch_tc_tiles(const CUtensorMap (&maps)[4], const TcOut& o, int R,
+                    int K, int kpart, int ncols, cudaStream_t stream) {
+  using C = TcCfg<NPROD>;
+  // set on every launch: a flag kept in a static of this template would be
+  // one object in every library that includes the header (a template's
+  // static locals are unique process-wide), while the attribute belongs to
+  // each library's own copy of the kernel
+  const cudaError_t err = cudaFuncSetAttribute(
+      tc_tile_kernel<NPROD, EPI>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      C::SMEM);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid((R + TC_BM - 1) / TC_BM, (ncols + TILE_N - 1) / TILE_N,
+                  (K + kpart - 1) / kpart);
+  tc_tile_kernel<NPROD, EPI><<<grid, TC_THREADS, C::SMEM, stream>>>(
+      maps[0], maps[1], maps[2], maps[3], o, R, K, kpart, ncols);
+  return (int)cudaGetLastError();
+}
+
+// The tf32 split of n fp32 values (n a multiple of 4): hi, and lo unless
+// it is null.  Returns the cudaError_t of the launch.
+inline int launch_split(const float* x, float* hi, float* lo, long long n,
+                        cudaStream_t stream) {
+  const long long n4 = n / 4;
+  const long long blocks = (n4 + 255) / 256 < 132 * 16 ? (n4 + 255) / 256
+                                                         : 132 * 16;
+  tf32_split_kernel<<<(unsigned)blocks, 256, 0, stream>>>(
+      reinterpret_cast<const float4*>(x), reinterpret_cast<float4*>(hi),
+      reinterpret_cast<float4*>(lo), n4);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace nbls

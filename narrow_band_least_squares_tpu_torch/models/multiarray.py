@@ -41,9 +41,10 @@ class MultiArrayPipeline:
             CUDA.
         base_kwargs: forwarded to the base `NarrowBandPipeline`
             (xcorr_method, window_method, max_lag_s, bucket_bands,
-            matmul_precision, ...).  The merged lag search runs at the
-            base's ``matmul_precision``, on the same kernel route as a
-            single array (3xTF32 tensor cores at the default 'high').
+            matmul_precision, ...).  The merged delay search ('mxu',
+            'pallas' or 'fused') runs at the base's ``matmul_precision``, on
+            the same kernel route as a single array (3xTF32 tensor cores at
+            the default 'high').
     """
 
     def __init__(

@@ -150,12 +150,13 @@ class NarrowBandPipeline:
       ``icorr_peak`` kernel, on the bucket's dense tables or its stacked
       ones; 'fused' runs each bucket in one ``fused_xcorr_bucket`` launch
       and always buckets the bands;
-    - ``matmul_precision`` sets the lag search (`icorr_peak`) on the card:
-      'highest' is IEEE fp32 on the CUDA cores, 'high' (the default; bf16x3
-      on the TPU) is 3xTF32 and 'default' (one bf16 pass) is 1xTF32 on the
-      tensor cores.  On the CPU every precision computes IEEE fp32, as the
-      JAX package does there.  The forward-DFT matmuls and
-      ``fused_xcorr_bucket`` are IEEE fp32 at every precision;
+    - ``matmul_precision`` sets the lag search (`icorr_peak`) and both
+      products of ``fused_xcorr_bucket`` on the card: 'highest' is IEEE
+      fp32 on the CUDA cores, 'high' (the default; bf16x3 on the TPU) is
+      3xTF32 and 'default' (one bf16 pass) is 1xTF32 on the tensor cores.
+      On the CPU every precision computes IEEE fp32, as the JAX package
+      does there.  The forward-DFT matmuls of 'mxu' and 'pallas' are IEEE
+      fp32 at every precision;
     - ``xcorr_chunk_mb`` and ``xcorr_lag_tile`` are accepted and change
       nothing: they bound the (B, W, P, nlag) correlation on the TPU, and
       the kernel never forms it.
@@ -396,21 +397,26 @@ class NarrowBandPipeline:
         self._state = {k: v.to(self.device) for k, v in state.items()}
         self._fused_rows = {}   # per (bucket, arrays), see _fused_inputs
         # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu'),
-        # and for the tensor-core route its transposed tf32 split
-        self._e2, self._e2t = {}, {}
+        # and per table prefix, on the card only, what the kernel of the
+        # precision's route reads (its module's `prepare`)
+        self._e2, self._prepared = {}, {}
+        card = self.device.type == "cuda"
+        prec = self.matmul_precision
         if self.xcorr_method == "fused":
+            for pre in ([b["prefix"] for b in self._buckets] if card else []):
+                self._prepared[pre] = FX.prepare(
+                    *(self._state[pre + k] for k in ("Cf", "Sf", "Ec", "Es")), prec)
             return
-        split = self.matmul_precision != "highest" and self.device.type == "cuda"
         for pre in ([b["prefix"] for b in self._buckets]
                     if self.bucket_bands else ["tables."]):
             if self.xcorr_method == "mxu":
                 self._e2[pre] = XC.stack_inverse_table(
                     self._state[pre + "Ec"], self._state[pre + "Es"]
                 )
-            if split:
+            if card:
                 e2 = self._e2.get(pre)
-                self._e2t[pre] = XP.transpose_split_table(
-                    self._state[pre + "e2"] if e2 is None else e2)
+                self._prepared[pre] = XP.prepare(
+                    self._state[pre + "e2"] if e2 is None else e2, prec)
 
     # ------------------------------------------------------------------
     def _xcorr(self, win: torch.Tensor, pre: str, lag_min: int):
@@ -421,8 +427,7 @@ class NarrowBandPipeline:
         else:
             tab = {"Cf": s[pre + "Cf"], "Sf": s[pre + "Sf"], "e2": self._e2[pre]}
         tab["lag_min"] = lag_min
-        if pre in self._e2t:
-            tab["e2t"] = self._e2t[pre]
+        tab["prepared"] = self._prepared.get(pre)
         if self.xcorr_method == "pallas":
             return XC.cross_correlate_pallas(win, self._pairs, tab, self.plan.fs,
                                              precision=prec)
@@ -518,8 +523,9 @@ class NarrowBandPipeline:
         """Fused delays: (A*B, C, T) band rows of A arrays -> (tau, rho,
         mdccm) of shape (A, B, Wmax, P) / (A, B, Wmax).
 
-        One `fused_xcorr_bucket` launch per window-length bucket covers the
-        bucket's bands of every array (rows a*B + band)."""
+        One `fused_xcorr_bucket` launch per window-length bucket, at the
+        pipeline's ``matmul_precision``, covers the bucket's bands of every
+        array (rows a*B + band)."""
         plan, s, A = self.plan, self._state, arrays
         outs = []
         for i, bk in enumerate(self._buckets):
@@ -528,7 +534,8 @@ class NarrowBandPipeline:
             rho, idx = FX.fused_xcorr_bucket(
                 y[rows], hop, maxstart, lo, hi, len_mask,
                 s[pre + "Cf"], s[pre + "Sf"], s[pre + "Ec"], s[pre + "Es"],
-                self._pairs32, g.Wmax,
+                self._pairs32, g.Wmax, precision=self.matmul_precision,
+                prepared=self._prepared.get(pre),
             )
             tau = (idx.to(y.dtype) + bk["lag_min"]) / plan.fs
             md = XC.median_last(rho)

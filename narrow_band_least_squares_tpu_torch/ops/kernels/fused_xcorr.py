@@ -13,11 +13,28 @@ window w and element pair p = (i, j)::
     idx     = the first lag in [lo[g], hi[g]] reaching max cc
     rho     = max cc / sqrt(E_i * E_j)
 
-The windows, cross-spectra and correlation never reach device memory on the
-card.  A CUDA tensor always goes to the kernel; a CPU tensor goes to
-``fused_xcorr_bucket_reference``, the plain PyTorch version, which the tests
-hold against the JAX kernel and the card holds the CUDA kernel against.
-The kernel computes in fp32 whatever matmul precision the caller names.
+The two products run at the caller's ``precision``, mapped from the TPU's
+as in `xcorr_peak` (the TPU kernel's ``_kdot``: bf16x3 at 'high'):
+
+- ``'highest'``: IEEE fp32 on the CUDA cores (the tile of
+  ``csrc/simt_tile.cuh``);
+- ``'high'``: 3xTF32 and ``'default'``: one tf32 pass in both products, on
+  the tensor cores (the tile of ``csrc/peak_tile.cuh``), against the
+  transposed split tables of `prepare`, built once per bucket with the
+  pipeline.  At 'default' the cross-spectra, themselves products of long
+  sums, are rounded to tf32 once, so an implementation that sums in another
+  order agrees with the kernel only to that rounding.
+
+At every precision the windows, the spectra and the cross-spectra pass
+through L2-resident scratch, one chunk of windows at a time (the chunk
+chosen so that no scratch buffer exceeds ``SCRATCH_FLOATS``); the
+correlation never reaches device memory.  A CUDA tensor always goes to
+the kernel of its route, and each route counts its launches (``launches``:
+fp32; ``launches_tc``: tensor cores).  A CPU tensor goes to
+``fused_xcorr_bucket_reference`` in IEEE fp32 whatever the precision, as XLA
+on the CPU ignores the hint; the tests hold it against the JAX kernel.
+``fused_xcorr_bucket_reference(..., precision=)`` emulates the tf32 split on
+any device; the card holds each route against it.
 
 Where the TPU kernel selects the pairs' spectra with block-diagonal one-hot
 matmuls (``sbi``/``sbj``, a Mosaic workaround), the port reads them by
@@ -27,15 +44,29 @@ index from ``pairs``, so its tables are only Cf/Sf/Ec/Es.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 
+from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
 
-# Launches of the CUDA kernel since the count was last set to 0.
-launches = 0
+# Launches of each CUDA route since the count was last set to 0.
+launches = 0      # 'highest': the fp32 CUDA-core tiles
+launches_tc = 0   # 'high' / 'default': the tensor-core tiles
+
+# Kp and the lag columns of the tables: multiples of the kernels' tiles
+TILE = 128
+# parts of the forward DFT's sum over the samples: fp32 tile, tensor cores
+KSPLIT_F32, KSPLIT_TC = 4, 3
+# the most floats one scratch buffer of the card route holds: the launch
+# runs over chunks of windows that fit (the canonical and 50-band buckets
+# fit one chunk)
+SCRATCH_FLOATS = 2**26
+# the kernel's passes, as its error codes number them
+_PASSES = {1: "window statistics", 2: "windows", 3: "forward DFT",
+           4: "cross-spectra", 5: "inverse DFT", 6: "merge"}
 
 _bound = None
 
@@ -89,12 +120,18 @@ def fused_correlation(
     Es: torch.Tensor,
     pairs: torch.Tensor,      # (P, 2) int
     Wmax: int,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The plain version's correlation, step by step in the inputs' dtype.
+    """The plain version's correlation, step by step in the inputs' dtype,
+    the two products at ``precision`` (the tf32 split emulated bit for bit
+    in fp32 matmuls, as `xcorr_peak.icorr_peak_reference` does; off
+    'highest' the inverse as one product of ``[Re CS | -Im CS]`` with
+    ``[Ec ; Es]``, as the tensor-core route takes it).
 
     Returns ``cc (Bg, Wmax, P, nlagp)`` and ``denom = sqrt(E_i * E_j)
     (Bg, Wmax, P)``.
     """
+    XP.check_precision(precision)
     Bg, C, T = y.shape
     Lg = len_mask.shape[1]
     dev = y.device
@@ -112,27 +149,32 @@ def fused_correlation(
     mean = raw.sum(-1, keepdim=True) / len_mask.sum(-1)[:, None, None, None]
     win = (raw - mean) * lm                                            # (Bg, W, C, Lg)
     energy = (win * win).sum(-1)                                       # (Bg, W, C)
-    with fp32_matmul():
-        ReF = win @ Cf
-        ImF = -(win @ Sf)
+    ReF = XP._product(win, Cf, precision)
+    ImF = -XP._product(win, Sf, precision)
     i, j = pairs[:, 0].long(), pairs[:, 1].long()
     ReI, ImI, ReJ, ImJ = ReF[:, :, i], ImF[:, :, i], ReF[:, :, j], ImF[:, :, j]
     ReCS = ReJ * ReI + ImJ * ImI
     ImCS = ImJ * ReI - ReJ * ImI
-    with fp32_matmul():
-        cc = ReCS @ Ec - ImCS @ Es                                     # (Bg, W, P, nlagp)
+    if precision == "highest":
+        with fp32_matmul():
+            cc = ReCS @ Ec - ImCS @ Es                                 # (Bg, W, P, nlagp)
+    else:
+        cc = XP._product(torch.cat([ReCS, -ImCS], dim=-1),
+                         torch.cat([Ec, Es], dim=0), precision)
     denom = torch.sqrt(energy[:, :, i] * energy[:, :, j])
     return cc, denom
 
 
 def fused_xcorr_bucket_reference(
     y, hop, maxstart, lo, hi, len_mask, Cf, Sf, Ec, Es, pairs, Wmax: int,
+    precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Plain version: `fused_correlation`, then the masked first maximum
-    over each band's [lo, hi] and ``rho = where(denom > 0, peak/denom, 0)``.
-    Returns ``(rho (Bg, Wmax, P), idx (Bg, Wmax, P) int32)``."""
+    """Plain version: `fused_correlation` at ``precision``, then the masked
+    first maximum over each band's [lo, hi] and ``rho = where(denom > 0,
+    peak/denom, 0)``.  Returns ``(rho (Bg, Wmax, P), idx (Bg, Wmax, P)
+    int32)``."""
     cc, denom = fused_correlation(y, hop, maxstart, len_mask, Cf, Sf, Ec, Es,
-                                  pairs, Wmax)
+                                  pairs, Wmax, precision)
     col = torch.arange(cc.shape[-1], device=cc.device, dtype=torch.int32)
     valid = (col >= lo[:, :, None, None]) & (col <= hi[:, :, None, None])
     ccm = torch.where(valid, cc, torch.tensor(-torch.inf, dtype=cc.dtype,
@@ -184,6 +226,23 @@ def _check(y, hop, maxstart, lo, hi, len_mask, Cf, Sf, Ec, Es, pairs, Wmax):
         raise ValueError(f"fused_xcorr_bucket inputs lie on several devices: {devs}")
 
 
+def prepare(Cf: torch.Tensor, Sf: torch.Tensor, Ec: torch.Tensor,
+            Es: torch.Tensor, precision: str) -> Optional[Dict[str, torch.Tensor]]:
+    """What the card route of ``precision`` reads besides the four tables,
+    passed to `fused_xcorr_bucket` as ``prepared``.  On the tensor cores
+    ('high', 'default') the B operands, transposed K-major and split as
+    `xcorr_peak.transpose_split_table` does: ``"fwd"`` = split ``[Cf |
+    Sf]ᵀ`` ``(2, 2 Kp, Lgp)`` (``Lg`` zero-padded to a multiple of 32) and
+    ``"inv"`` = split ``[Ec ; Es]ᵀ`` ``(2, nlagp, 2 Kp)``, on the tables'
+    device.  None on the fp32 route, which reads the tables as they are.
+    Constants of a bucket, built once with the pipeline on the card."""
+    XP.check_precision(precision)
+    if precision == "highest":
+        return None
+    return {"fwd": XP.transpose_split_table(torch.cat([Cf, Sf], dim=1)),
+            "inv": XP.transpose_split_table(torch.cat([Ec, Es], dim=0))}
+
+
 def _lib():
     global _bound
     if _bound is None:
@@ -191,14 +250,68 @@ def _lib():
 
         lib = load_library("fused_xcorr")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nbls_fused_xcorr_f32.argtypes = [p] * 18 + [i] * 8 + [p]
-        lib.nbls_fused_xcorr_f32.restype = ctypes.c_int
-        for fn, args in ((lib.nbls_fused_xcorr_lag_tile, []),
-                         (lib.nbls_fused_xcorr_split, []),
-                         (lib.nbls_fused_xcorr_fits, [i, i])):
-            fn.argtypes, fn.restype = args, ctypes.c_int
+        lib.nbls_fused_xcorr.argtypes = [p] * 22 + [i] * 10 + [p]
+        lib.nbls_fused_xcorr.restype = ctypes.c_int
+        for fn, want in ((lib.nbls_fused_xcorr_lag_tile, TILE),
+                         (lib.nbls_fused_xcorr_k_block, XP.K_BLOCK_TC)):
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            if fn() != want:
+                raise RuntimeError(f"fused_xcorr's {fn.__name__} is {fn()}, the "
+                                   f"tables assume {want}")
+        lib.nbls_fused_xcorr_ksplit.argtypes = [i]
+        lib.nbls_fused_xcorr_ksplit.restype = ctypes.c_int
+        for nprod, want in ((0, KSPLIT_F32), (1, KSPLIT_TC), (3, KSPLIT_TC)):
+            if lib.nbls_fused_xcorr_ksplit(nprod) != want:
+                raise RuntimeError(f"fused_xcorr splits the forward DFT in "
+                                   f"{lib.nbls_fused_xcorr_ksplit(nprod)} parts at "
+                                   f"nprod {nprod}, the scratch assumes {want}")
         _bound = lib
     return _bound
+
+
+def _check_prepared(prepared, precision, Lg, Kp, nlag, dev):
+    want = {"fwd": (2, 2 * Kp, XP._round_up(Lg, XP.K_BLOCK_TC)),
+            "inv": (2, nlag, 2 * Kp)}
+    for k, shape in want.items():
+        t = None if prepared is None else prepared.get(k)
+        if (t is None or tuple(t.shape) != shape or t.dtype != torch.float32
+                or t.device != dev or not t.is_contiguous()):
+            got = None if t is None else (tuple(t.shape), t.dtype, t.device)
+            raise ValueError(f"fused_xcorr_bucket at {precision!r} on the card "
+                             f"needs prepared[{k!r}] of shape {shape}, float32 "
+                             f"contiguous on {dev} (prepare); got {got}")
+
+
+def plan_chunks(Bg: int, C: int, T: int, Lg: int, W: int, Kp: int, nlag: int,
+                P: int, precision: str,
+                budget: Optional[int] = None) -> Tuple[int, Dict[str, tuple]]:
+    """The card route's windows per chunk and its scratch shapes for one
+    chunk: the most (g, w) windows, at least one, whose largest scratch
+    buffer holds at most ``budget`` floats (``SCRATCH_FLOATS``).  Raises a
+    ValueError that names the shape where a flat offset would need more
+    than 32 bits: the band rows, the rows of rho, or one window's
+    scratch."""
+    XP.check_precision(precision)
+    budget = SCRATCH_FLOATS if budget is None else budget
+    planes = 2 if precision == "high" else 1
+    ksplit = KSPLIT_F32 if precision == "highest" else KSPLIT_TC
+    Lgp = XP._round_up(Lg, XP.K_BLOCK_TC)
+    ntiles = nlag // TILE
+    per_window = {"mean": (C,), "energy": (C,), "win": (planes, C, Lgp),
+                  "spec": (ksplit, C, 2 * Kp), "cs": (planes, P, 2 * Kp),
+                  "part_val": (ntiles, P), "part_idx": (ntiles, P)}
+    size = lambda shape: int(np.prod(shape, dtype=np.int64))
+    for what, n in (("Bg*C*T", Bg * C * T), ("Bg*Wmax*C", Bg * W * C),
+                    ("Bg*Wmax*P", Bg * W * P),
+                    ("the scratch of one window", max(map(size, per_window.values())))):
+        if n >= 2**31:
+            raise ValueError(f"fused_xcorr_bucket: {what} = {n} needs 64-bit offsets "
+                             f"(y ({Bg}, {C}, {T}), Wmax {W}, Kp {Kp}, nlag {nlag}, "
+                             f"P {P})")
+    chunk = max(1, min(Bg * W, budget // max(map(size, per_window.values()))))
+    shapes = {k: (v[0] * chunk,) if len(v) == 1 else (v[0], chunk * v[1], *v[2:])
+              for k, v in per_window.items()}
+    return chunk, shapes
 
 
 def fused_xcorr_bucket(
@@ -214,11 +327,20 @@ def fused_xcorr_bucket(
     Es: torch.Tensor,         # (Kp, nlag) float32 inverse sin table
     pairs: torch.Tensor,      # (P, 2) int32 element pairs (i, j)
     Wmax: int,                # windows per band row
+    *,
+    precision: str = "highest",
+    prepared: Optional[Dict[str, torch.Tensor]] = None,  # prepare(..., precision)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Delays of one window-length bucket.  Returns ``(rho (Bg, Wmax, P)
     float32, idx (Bg, Wmax, P) int32)``; ``idx`` indexes the lag columns of
-    Ec/Es (``tau = (idx + lag_min) / fs``)."""
-    global launches
+    Ec/Es (``tau = (idx + lag_min) / fs``).
+
+    ``precision`` picks the CUDA route (module docstring); on the CPU the
+    products are IEEE fp32 whatever it says.  On the card ``prepared`` must
+    be the bucket's ``prepare(Cf, Sf, Ec, Es, precision)``, and Kp and nlag
+    multiples of 128, as `precompute_fused_tables` pads them."""
+    global launches, launches_tc
+    XP.check_precision(precision)
     _check(y, hop, maxstart, lo, hi, len_mask, Cf, Sf, Ec, Es, pairs, Wmax)
     dev = y.device
     if dev.type == "cpu":
@@ -234,35 +356,45 @@ def fused_xcorr_bucket(
             raise ValueError(f"fused_xcorr_bucket needs a contiguous {name}")
     Bg, C, T = y.shape
     Lg, (Kp, nlag), P, W = len_mask.shape[1], Ec.shape, pairs.shape[0], int(Wmax)
+    if Kp % TILE or nlag % TILE:
+        raise ValueError(f"fused_xcorr_bucket on the card needs Kp and the lag "
+                         f"columns padded to multiples of {TILE} "
+                         f"(precompute_fused_tables); got Kp {Kp}, nlag {nlag}")
+    nprod = 0 if precision == "highest" else XP.TF32_PRODUCTS[precision]
     lib = _lib()
-    ntiles = -(-nlag // lib.nbls_fused_xcorr_lag_tile())
-    split = lib.nbls_fused_xcorr_split()
-    for what, n in (("Bg*C*T", Bg * C * T),
-                    ("split*Bg*Wmax*C*2*Kp", split * Bg * W * C * 2 * Kp),
-                    ("lag tiles*Bg*Wmax*P", ntiles * Bg * W * P)):
-        if n >= 2**31:
-            raise ValueError(f"fused_xcorr_bucket: {what} = {n} needs 64-bit offsets "
-                             f"(y {tuple(y.shape)}, Wmax {W}, Kp {Kp}, nlag {nlag}, P {P})")
-    if not lib.nbls_fused_xcorr_fits(C, P):
-        raise ValueError(f"fused_xcorr_bucket: the spectra of {C} elements ({P} pairs) "
-                         f"do not fit a block's shared memory")
+    chunk, shapes = plan_chunks(Bg, C, T, Lg, W, Kp, nlag, P, precision)
+    for name, t in zip(names, args):
+        if t.data_ptr() % 16:
+            raise ValueError(f"fused_xcorr_bucket needs a 16-byte aligned {name}")
+    fwd_t = inv_t = None
+    if nprod:
+        _check_prepared(prepared, precision, Lg, Kp, nlag, dev)
+        fwd_t, inv_t = prepared["fwd"], prepared["inv"]
     f32 = dict(dtype=torch.float32, device=dev)
+    ptr = lambda t: None if t is None else t.data_ptr()
     rho = torch.empty((Bg, W, P), **f32)
     idx = torch.empty((Bg, W, P), dtype=torch.int32, device=dev)
-    mean = torch.empty((Bg * W * C,), **f32)
-    energy = torch.empty((Bg * W * C,), **f32)
-    spec = torch.empty((split, Bg * W * C, 2 * Kp), **f32)
-    part_val = torch.empty((ntiles, Bg * W * P), **f32)
-    part_idx = torch.empty((ntiles, Bg * W * P), dtype=torch.int32, device=dev)
+    scratch = [torch.empty(shapes[k], **f32)
+               for k in ("mean", "energy", "win", "spec", "cs", "part_val")]
+    part_idx = torch.empty(shapes["part_idx"], dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
-        err = lib.nbls_fused_xcorr_f32(
-            *(t.data_ptr() for t in args),
-            rho.data_ptr(), idx.data_ptr(), mean.data_ptr(), energy.data_ptr(),
-            spec.data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
-            Bg, C, T, Lg, W, Kp, nlag, P, stream,
+        err = lib.nbls_fused_xcorr(
+            *(t.data_ptr() for t in args), ptr(fwd_t), ptr(inv_t),
+            rho.data_ptr(), idx.data_ptr(), *(t.data_ptr() for t in scratch),
+            part_idx.data_ptr(), Bg, C, T, Lg, W, Kp, nlag, P, nprod, chunk,
+            stream,
         )
     if err != 0:
-        raise RuntimeError(f"fused_xcorr_bucket kernel launch failed: CUDA error {err}")
-    launches += 1
+        stage, code = divmod(err, 10000)
+        raise RuntimeError(
+            f"fused_xcorr_bucket ({precision}) kernel launch failed in the "
+            f"{_PASSES.get(stage, 'launch')} pass: "
+            + {1001: "the driver has no cuTensorMapEncodeTiled",
+               1002: "a TMA tensor map was refused"}.get(code, f"CUDA error {code}")
+        )
+    if nprod:
+        launches_tc += 1
+    else:
+        launches += 1
     return rho, idx

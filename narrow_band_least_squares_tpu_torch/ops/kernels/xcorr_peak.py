@@ -9,14 +9,18 @@ Port of ``narrow_band_least_squares_tpu/ops/kernels/xcorr_peak.py::icorr_peak``
 The (R, nlag) correlation never reaches device memory.  The product runs
 at the caller's ``precision``, mapped from the TPU's as follows:
 
-- ``'highest'``: IEEE fp32 on the CUDA cores, ``csrc/xcorr_peak.cu``;
+- ``'highest'``: IEEE fp32 on the CUDA cores, ``csrc/xcorr_peak.cu`` (the
+  tile of ``csrc/simt_tile.cuh``), against ``e2`` with its lag axis padded
+  to the 128-lag tile (`pad_lag_table`);
 - ``'high'`` (bf16x3 on the TPU): 3xTF32 on the tensor cores, each operand
   split as ``hi = rna_tf32(x)``, ``lo = rna_tf32(x - hi)`` and the product
   taken as ``lo.hi + hi.lo + hi.hi`` in fp32, ``csrc/xcorr_peak_tc.cu``;
 - ``'default'`` (one bf16 pass): 1xTF32, ``hi.hi``, the same kernel.
 
 A CUDA tensor always goes to a kernel, and each route counts its launches
-(``launches``: fp32; ``launches_tc``: tensor cores).  A CPU tensor goes to
+(``launches``: fp32; ``launches_tc``: tensor cores).  Each route reads e2
+in its own layout, built once by `prepare` when the pipeline is built and
+passed to every call as ``prepared``.  A CPU tensor goes to
 ``icorr_peak_reference`` in IEEE fp32 whatever the precision, as XLA on the
 CPU ignores the hint: the port equals the JAX package there.
 ``icorr_peak_reference(..., precision=)`` emulates the split on any device;
@@ -40,6 +44,10 @@ TF32_PRODUCTS = {"high": 3, "default": 1}
 # table's row and column padding
 LAG_TILE_TC = 128
 K_BLOCK_TC = 32
+# lags per tile and K per chunk of the fp32 kernel: the padded e2 table's
+# column and row padding
+LAG_TILE_F32 = 128
+K_CHUNK_F32 = 16
 
 # Launches of each CUDA route since the count was last set to 0.
 launches = 0      # 'highest': the fp32 CUDA-core kernel
@@ -86,6 +94,26 @@ def transpose_split_table(e2: torch.Tensor) -> torch.Tensor:
     et = Fnn.pad(e2.t(), (0, _round_up(K2, K_BLOCK_TC) - K2,
                           0, _round_up(nlag, LAG_TILE_TC) - nlag))
     return torch.stack(tf32_split(et)).contiguous()
+
+
+def pad_lag_table(e2: torch.Tensor) -> torch.Tensor:
+    """``e2 (K2, nlag)`` -> ``(K2_p, nlag_p)``, zero-padded to ``nlag_p``
+    columns (``nlag`` rounded up to ``LAG_TILE_F32``) and ``K2_p`` rows
+    (``K2`` rounded up to ``K_CHUNK_F32``; the pipeline's K2 is already a
+    multiple of 128): the operand of the fp32 route, whose tiles then load
+    only aligned float4.  A constant of the pipeline, built once with it."""
+    K2, nlag = e2.shape
+    return Fnn.pad(e2, (0, _round_up(nlag, LAG_TILE_F32) - nlag,
+                        0, _round_up(K2, K_CHUNK_F32) - K2)).contiguous()
+
+
+def prepare(e2: torch.Tensor, precision: str) -> torch.Tensor:
+    """The operand of ``e2`` that the card route of ``precision`` reads:
+    `pad_lag_table` for the fp32 route, `transpose_split_table` for the
+    tensor cores, on ``e2``'s device.  A constant of the pipeline, built
+    once with it on the card and passed to `icorr_peak` as ``prepared``."""
+    check_precision(precision)
+    return pad_lag_table(e2) if precision == "highest" else transpose_split_table(e2)
 
 
 def _product(cs2, e2, precision):
@@ -152,10 +180,14 @@ def _lib():
 
         lib = load_library("xcorr_peak")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nbls_icorr_peak_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, p]
+        lib.nbls_icorr_peak_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.nbls_icorr_peak_f32.restype = ctypes.c_int
-        lib.nbls_icorr_peak_lag_tile.argtypes = []
-        lib.nbls_icorr_peak_lag_tile.restype = ctypes.c_int
+        for fn, want in ((lib.nbls_icorr_peak_lag_tile, LAG_TILE_F32),
+                         (lib.nbls_icorr_peak_k_chunk, K_CHUNK_F32)):
+            fn.argtypes, fn.restype = [], ctypes.c_int
+            if fn() != want:
+                raise RuntimeError(f"xcorr_peak's {fn.__name__} is {fn()}, the "
+                                   f"padded e2 tables assume {want}")
         _bound = lib
     return _bound
 
@@ -183,27 +215,43 @@ def _lib_tc():
     return _bound_tc
 
 
-def _launch_f32(cs2, e2, lo, hi, peak, idx):
-    R, K2 = cs2.shape
+def _check_aligned(name, t):
+    if t.data_ptr() % 16:
+        raise ValueError(f"icorr_peak needs a 16-byte aligned {name}")
+
+
+def _launch_f32(cs2, e2, e2p, lo, hi, peak, idx):
     nlag = e2.shape[1]
-    lib = _lib()
-    ntiles = -(-nlag // lib.nbls_icorr_peak_lag_tile())
+    K2 = _round_up(cs2.shape[1], K_CHUNK_F32)
+    if K2 != cs2.shape[1]:   # whole K chunks; zero columns add nothing
+        cs2 = Fnn.pad(cs2, (0, K2 - cs2.shape[1]))
+    R = cs2.shape[0]
+    nlag_p = _round_up(nlag, LAG_TILE_F32)
+    if (e2p.shape != (K2, nlag_p) or e2p.dtype != torch.float32
+            or e2p.device != cs2.device or not e2p.is_contiguous()):
+        raise ValueError(
+            f"icorr_peak needs e2 padded to ({K2}, {nlag_p}) float32 "
+            f"contiguous on {cs2.device} (prepare(e2, 'highest')); got "
+            f"{tuple(e2p.shape)} {e2p.dtype} on {e2p.device}"
+        )
+    _check_aligned("cs2", cs2)
+    _check_aligned("e2p", e2p)
+    ntiles = nlag_p // LAG_TILE_F32
     if ntiles * R >= 2**31 or R * K2 >= 2**40:
         raise ValueError(f"icorr_peak shape out of range: R={R}, K2={K2}, nlag={nlag}")
+    lib = _lib()
     part_val = torch.empty((ntiles, R), dtype=torch.float32, device=cs2.device)
     part_idx = torch.empty((ntiles, R), dtype=torch.int32, device=cs2.device)
     stream = torch.cuda.current_stream(cs2.device).cuda_stream
     return lib.nbls_icorr_peak_f32(
-        cs2.data_ptr(), e2.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+        cs2.data_ptr(), e2p.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         peak.data_ptr(), idx.data_ptr(), part_val.data_ptr(),
-        part_idx.data_ptr(), R, K2, nlag, stream,
+        part_idx.data_ptr(), R, K2, nlag, nlag_p, stream,
     )
 
 
 def _launch_tc(cs2, e2, e2t, lo, hi, peak, idx, nprod):
     nlag = e2.shape[1]
-    if e2t is None:
-        e2t = transpose_split_table(e2)
     K2 = _round_up(cs2.shape[1], K_BLOCK_TC)
     if K2 != cs2.shape[1]:   # whole K blocks; zero columns add nothing
         cs2 = Fnn.pad(cs2, (0, K2 - cs2.shape[1]))
@@ -213,7 +261,7 @@ def _launch_tc(cs2, e2, e2t, lo, hi, peak, idx, nprod):
             or e2t.device != cs2.device or not e2t.is_contiguous()):
         raise ValueError(
             f"icorr_peak needs the split table of e2, (2, {nlag_p}, {K2}) "
-            f"float32 contiguous on {cs2.device} (transpose_split_table); got "
+            f"float32 contiguous on {cs2.device} (prepare(e2, precision)); got "
             f"{tuple(e2t.shape)} {e2t.dtype} on {e2t.device}"
         )
     ntiles = nlag_p // LAG_TILE_TC
@@ -240,15 +288,15 @@ def icorr_peak(
     hi: torch.Tensor,        # (R,) int32 last valid lag index per row
     *,
     precision: str = "highest",
-    e2t: Optional[torch.Tensor] = None,   # transpose_split_table(e2)
+    prepared: Optional[torch.Tensor] = None,   # prepare(e2, precision)
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Fused ``argmax_l (cs2 @ e2)[:, lo:hi]``.  Returns (peak (R,) f32, idx (R,) i32).
 
     Rows are masked by [lo, hi] only; zero-padded K2 columns are harmless.
     A row with no valid lag gives (-inf, 0).  ``precision`` picks the CUDA
     route (module docstring); on the CPU the product is IEEE fp32 whatever
-    it says.  ``e2t``, the split table of ``e2``, saves building it per call
-    on the tensor-core route; it is ignored elsewhere.
+    it says.  On the card ``prepared`` must be ``prepare(e2, precision)``;
+    off it, it is ignored.
     """
     global launches, launches_tc
     check_precision(precision)
@@ -268,11 +316,14 @@ def icorr_peak(
         return peak, idx
     if e2.shape[1] == 0:
         raise ValueError("icorr_peak needs at least one lag column")
+    if prepared is None:
+        raise ValueError("icorr_peak on the card needs prepared=prepare(e2, "
+                         f"{precision!r}), built once with the tables")
     with torch.cuda.device(dev):
         if precision == "highest":
-            err = _launch_f32(cs2, e2, lo, hi, peak, idx)
+            err = _launch_f32(cs2, e2, prepared, lo, hi, peak, idx)
         else:
-            err = _launch_tc(cs2, e2, e2t, lo, hi, peak, idx,
+            err = _launch_tc(cs2, e2, prepared, lo, hi, peak, idx,
                              TF32_PRODUCTS[precision])
     if err != 0:
         raise RuntimeError(

@@ -171,16 +171,17 @@ def _cross_spectra(win, pairs, Cf, Sf):
 
 
 def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
-                 precision="highest", e2t=None):
+                 precision="highest", prepared=None):
     """``icorr_peak`` over every (band, window, pair) row at ``precision``
-    (``e2t``: e2's split table, `transpose_split_table`), then
+    (``prepared``: e2's operand for the card, `xcorr_peak.prepare`), then
     tau/rho/MdCCM."""
     B, W = win.shape[:2]
     P = pairs.shape[0]
     cs2 = Fnn.pad(cs2, (0, e2.shape[0] - cs2.shape[1])).contiguous()
     lo = lo_b[:, None].expand(B, W * P).reshape(-1).contiguous()
     hi = hi_b[:, None].expand(B, W * P).reshape(-1).contiguous()
-    peak, idx = icorr_peak(cs2, e2, lo, hi, precision=precision, e2t=e2t)
+    peak, idx = icorr_peak(cs2, e2, lo, hi, precision=precision,
+                           prepared=prepared)
     peak = peak.reshape(B, W, P)
     tau = (idx.reshape(B, W, P).to(win.dtype) + lag_min) / fs
     Ei = energy[:, :, pairs[:, 0]]
@@ -206,7 +207,8 @@ def cross_correlate_mxu(
     ``lag_mask`` is the contiguous range ``[half - bh, half + bh]``, which
     becomes the kernel's ``[lo, hi]``.  ``tables["e2"]``
     (`stack_inverse_table`) is used when present and built from Ec/Es
-    otherwise; ``tables["e2t"]``, its split table, when present.
+    otherwise; ``tables["prepared"]``, its operand for the card
+    (`xcorr_peak.prepare` at ``precision``), is needed on the card.
     ``lag_tile`` is accepted for signature parity and changes nothing: the
     kernel never forms the (rows, lags) correlation that the JAX path tiles.
     """
@@ -226,7 +228,7 @@ def cross_correlate_mxu(
     energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
     lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
     return _peak_search(win, pairs, energy, cs2, e2, lo, hi, lag_min, fs,
-                        precision, tables.get("e2t"))
+                        precision, tables.get("prepared"))
 
 
 def cross_correlate_pallas(
@@ -242,4 +244,4 @@ def cross_correlate_pallas(
     lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
     return _peak_search(win, pairs, energy, cs2, tables["e2"],
                         tables["lo"], tables["hi"], lag_min, fs,
-                        precision, tables.get("e2t"))
+                        precision, tables.get("prepared"))

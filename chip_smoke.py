@@ -34,6 +34,15 @@ Phases, in order (``--phases`` picks a subset for a quick check):
 - ``multiarray``: ``MultiArrayPipeline`` on four canonical arrays, 'fused'
   at every precision (bit for bit) and 'mxu', against single-array runs,
   and ``BroadbandPipeline``;
+- ``lts``: exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
+  with one incoherent element, through the API on the card and on the CPU,
+  exhaustive and with ``PRODUCTION_DEFAULTS``: flags equal on every window
+  whose delays are bit-identical (at least 99% of them), ground truth, the
+  outlier most flagged; the sweep's rank against its pairwise definition;
+  four merged arrays ('fused') against single-array
+  runs bit for bit; a 16-element array (7,140 candidates, chunked) against
+  a smaller chunk bit for bit; the LTS step, the sweep and peak memory on
+  the canonical and dense50 plans beside the OLS step;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
   times, profiles.
 """
@@ -75,7 +84,11 @@ PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
-          "multiarray", "timing")
+          "multiarray", "lts", "timing")
+LTS_ALPHA = 0.75
+LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
+LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
+CANONICAL_BUCKETS = 8  # window-length buckets of the canonical plan: one lag search each
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -109,13 +122,14 @@ def gpu_label() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def canonical_inputs():
+def canonical_inputs(outlier_channels=()):
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.utils import get_freqlist, get_winlenlist
 
     st = synthetic_plane_wave(
         nchans=NCHANS, duration_s=DURATION_S, fs=FS, baz_deg=BAZ_TRUE,
         trace_vel_kms=VEL_TRUE, f0=0.8, bandwidth=1.2, snr=8.0, seed=SEED,
+        outlier_channels=outlier_channels,
     )
     freqlist, nbands, _ = get_freqlist(FMIN, FMAX, "log", NBANDS)
     winlens = get_winlenlist("adaptive", nbands, WINLEN, WINLEN_1, WINLEN_X)
@@ -298,12 +312,12 @@ def phase_kernel():
 # the main path
 # --------------------------------------------------------------------------
 
-def run_api(st, freqlist, winlens, device):
+def run_api(st, freqlist, winlens, device, alpha=1.0):
     from narrow_band_least_squares_tpu_torch import api
 
     fr = np.logspace(-2, np.log10(FS / 2), 100)
     return api.narrow_band_least_squares(
-        winlens, WINOVER, 1.0, st, st.latitudes, st.longitudes, NBANDS,
+        winlens, WINOVER, alpha, st, st.latitudes, st.longitudes, NBANDS,
         None, None, freqlist, "log", fr, "cheby1", 2, 0.01, device=device,
     )
 
@@ -698,6 +712,16 @@ def multiarray_inputs():
     return plan, rijs, np.stack([s.data for s in streams])
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, NaNs in the same places."""
+    import torch
+
+    if not a.is_floating_point():
+        return torch.equal(a, b)
+    return torch.equal(torch.isnan(a), torch.isnan(b)) and \
+        torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
+
+
 def phase_multiarray():
     import torch
     from narrow_band_least_squares_tpu_torch.models import (
@@ -718,9 +742,7 @@ def phase_multiarray():
             for name, v in one.items():
                 a, b = out[name][k], v
                 if method == "fused":
-                    same = torch.equal(torch.isnan(a), torch.isnan(b)) and \
-                        torch.equal(torch.nan_to_num(a), torch.nan_to_num(b))
-                    if not same:
+                    if not same_bits(a, b):
                         fail(f"multiarray fused {prec}: array {k} {name} is not "
                              f"bit for bit the single-array run")
                     continue
@@ -748,6 +770,364 @@ def phase_multiarray():
     check_shapes(runs["cuda"], bncl, 1)
     compare_outputs(runs["cuda"], runs["cpu"], bncl)
     ground_truth(runs["cuda"], bncl, label="broadband ")
+
+
+# --------------------------------------------------------------------------
+# LTS
+# --------------------------------------------------------------------------
+
+class LtsRecorder:
+    """While installed (``with``), records the delays (B, Wmax, P) every LTS
+    solve of the port receives, as NumPy arrays.  It wraps
+    ``ops.lts.lts_solve`` and launches nothing of its own."""
+
+    def __enter__(self):
+        from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+
+        self.taus, self._mod, self._real = [], LTS, LTS.lts_solve
+
+        def rec(tau, *args, **kw):
+            self.taus.append(tau.detach().cpu().numpy().copy())
+            return self._real(tau, *args, **kw)
+
+        LTS.lts_solve = rec
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.lts_solve = self._real
+
+
+def lag_search_launches():
+    """(icorr_peak fp32, icorr_peak tensor-core, fused_xcorr_bucket fp32,
+    fused_xcorr_bucket tensor-core) launch counts."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    return XP.launches, XP.launches_tc, FX.launches, FX.launches_tc
+
+
+def zero_launches():
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    XP.launches = XP.launches_tc = FX.launches = FX.launches_tc = 0
+
+
+def run_api_lts(st, freqlist, winlens, device, production):
+    """The canonical API run at ALPHA = LTS_ALPHA on ``device``, exhaustive
+    or with ``PRODUCTION_DEFAULTS``; returns (outputs, delays, seconds of
+    the first call, host set-up included).  On the card the run must
+    launch icorr_peak's tensor-core route once per bucket and nothing else
+    of the lag search ('mxu' at 'high')."""
+    import torch
+    from narrow_band_least_squares_tpu_torch import api
+
+    prev = api.set_performance_defaults(**(api.PRODUCTION_DEFAULTS if production else {}))
+    try:
+        with LtsRecorder() as rec:
+            zero_launches()
+            t0 = time.perf_counter()
+            out = run_api(st, freqlist, winlens, device, alpha=LTS_ALPHA)
+            if device == "cuda":
+                torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            counts = lag_search_launches()
+    finally:
+        api.set_performance_defaults(**{k: None for k in api.PRODUCTION_DEFAULTS})
+        api.set_performance_defaults(**prev)
+    if len(rec.taus) != 1:
+        fail(f"the LTS API run solved {len(rec.taus)} times, not once")
+    if device == "cuda":
+        log(f"LTS API run ({'production' if production else 'exhaustive'}): "
+            f"icorr_peak launches fp32 route {counts[0]}, tensor-core route "
+            f"{counts[1]}; fused_xcorr_bucket {counts[2] + counts[3]}")
+        if counts != (0, CANONICAL_BUCKETS, 0, 0):
+            fail(f"the LTS API run on the card must launch only icorr_peak's "
+                 f"tensor-core route, once per bucket ({CANONICAL_BUCKETS}); "
+                 f"launches {counts}")
+    return out, rec.taus[0], secs
+
+
+def compare_lts(gpu, cpu, tau_g, tau_c, ncl, label):
+    """The card's stdict equal to the CPU's, and vel/baz/sig_tau within TOL,
+    on every valid window whose P delays are bit-identical between the two
+    runs; those windows are at least LTS_SAME_MIN of the valid ones."""
+    keys = [k for k in cpu[4] if k != "size"]
+    if [k for k in gpu[4] if k != "size"] != keys or gpu[4]["size"] != cpu[4]["size"]:
+        fail(f"{label}: the card's stdict keys differ from the CPU's")
+    same = (tau_g == tau_c).all(-1)
+    i = n_same = 0
+    worst = 0.0
+    for b, n in enumerate(ncl):
+        for w in range(n):
+            key, i = keys[i], i + 1
+            if not same[b, w]:
+                continue
+            n_same += 1
+            g_el, c_el = np.asarray(gpu[4][key]), np.asarray(cpu[4][key])
+            if not np.array_equal(g_el, c_el):
+                fail(f"{label}: band {b} window {w} has bit-identical delays but "
+                     f"the card flags elements {g_el.tolist()}, the CPU "
+                     f"{c_el.tolist()}")
+            for col, nm in ((0, "vel"), (1, "baz"), (5, "sig_tau")):
+                g, c = gpu[col][b, w], cpu[col][b, w]
+                d = abs((g - c + 180.0) % 360.0 - 180.0) if nm == "baz" else abs(g - c)
+                if np.isnan(g) and np.isnan(c):
+                    continue
+                worst = max(worst, d / (TOL + TOL * abs(c)))
+                if not d <= TOL + TOL * abs(c):
+                    fail(f"{label}: band {b} window {w} {nm} differs beyond {TOL} "
+                         f"(cuda {g}, cpu {c})")
+    share = n_same / len(keys)
+    log(f"{label} cuda vs cpu: {n_same}/{len(keys)} = {share:.4f} valid windows "
+        f"with bit-identical delays; on all of them equal flags and "
+        f"vel/baz/sig_tau within {TOL} (worst |d|/tol {worst:.3f})")
+    if share < LTS_SAME_MIN:
+        fail(f"{label}: fewer than {LTS_SAME_MIN:.0%} of the valid windows have "
+             f"bit-identical delays on the card and the CPU")
+
+
+def check_outlier(stdict, nchans, outlier, label):
+    counts = np.zeros(nchans + 1, dtype=np.int64)
+    for k, v in stdict.items():
+        if k != "size":
+            np.add.at(counts, np.asarray(v, dtype=np.int64), 1)
+    log(f"{label}: stdict flags per element (1-based) {counts[1:].tolist()}")
+    if counts.argmax() != outlier + 1:
+        fail(f"{label}: element {counts.argmax()} is the most flagged, not the "
+             f"outlier {outlier + 1}")
+
+
+def lts_multiarray():
+    """Four merged arrays with 'fused' at 'high' equal their single-array
+    runs bit for bit, flags included."""
+    from narrow_band_least_squares_tpu_torch.models import (
+        MultiArrayPipeline, NarrowBandPipeline,
+    )
+
+    import torch
+
+    plan, rijs, data = multiarray_inputs()
+    kw = dict(alpha=LTS_ALPHA, xcorr_method="fused", matmul_precision="high",
+              device="cuda")
+    multi = MultiArrayPipeline(plan, rijs, **kw)
+    zero_launches()
+    out = multi.run_raw(data)
+    torch.cuda.synchronize()
+    counts = lag_search_launches()
+    batches = -(-len(rijs) // multi.merge_chunk_arrays)
+    log(f"lts multiarray fused high: fused_xcorr_bucket launches fp32 route "
+        f"{counts[2]}, tensor-core route {counts[3]} ({batches} merged batches x "
+        f"{CANONICAL_BUCKETS} buckets); icorr_peak {counts[0] + counts[1]}")
+    if counts[:3] != (0, 0, 0) or counts[3] < batches * CANONICAL_BUCKETS:
+        fail(f"the merged LTS run must launch only fused_xcorr_bucket's "
+             f"tensor-core route, at least once per bucket of each merged batch; "
+             f"launches {counts}")
+    for k, rij in enumerate(rijs):
+        one = NarrowBandPipeline(plan, rij, **kw).run_raw(data[k])
+        for name, v in one.items():
+            if not same_bits(out[name][k], v):
+                fail(f"lts multiarray: array {k} {name} is not bit for bit the "
+                     f"single-array run")
+        res = tuple(out[n][k].cpu().numpy() for n in ("vel", "baz", "mdccm"))
+        ground_truth(res, plan.num_compute_list, baz_true=MULTI_BAZ[k],
+                     label=f"lts multiarray array {k} ")
+    log(f"lts multiarray fused high: A={len(rijs)} equals the single-array runs "
+        f"bit for bit, flags included ({int(out['flags'].sum())} flagged pairs)")
+
+
+def lts_large_array():
+    """tests/test_large_array.py:27-38 at 16 elements (P = 120, 7,140
+    candidates): the automatic chunk of 4096 equals a chunk of 1024 bit for
+    bit, and the outlier element is the most flagged on confident windows."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    outlier = 11
+    st = synthetic_plane_wave(nchans=16, duration_s=160.0, fs=10.0, baz_deg=285.0,
+                              trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=12.0,
+                              aperture_km=3.0, seed=5, outlier_channels=(outlier,))
+    freqlist, nbands, _ = get_freqlist(0.3, 1.2, "log", 2)
+    winlens = get_winlenlist("constant", nbands, 30, 0, 0)
+    plan = make_plan(freqlist, "log", winlens, 0.5, st.npts, st.fs)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    auto = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, device="cuda")
+    Q = auto.state_dict()["cand"].shape[0]
+    if Q != 7140 or auto.lts_candidate_chunk != 4096:
+        fail(f"lts large array: {Q} candidates in chunks of "
+             f"{auto.lts_candidate_chunk}, not 7140 in chunks of 4096")
+    zero_launches()
+    t0 = time.perf_counter()
+    a = auto.run_raw(st.data)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = lag_search_launches()
+    if counts[0] or counts[2:] != (0, 0) or not counts[1]:
+        fail(f"lts large array: the run must launch only icorr_peak's tensor-core "
+             f"route; launches {counts}")
+    b = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, lts_candidate_chunk=1024,
+                           device="cuda").run_raw(st.data)
+    for name, v in a.items():
+        if not same_bits(v, b[name]):
+            fail(f"lts large array: {name} with chunks of 4096 differs from "
+                 f"chunks of 1024")
+    good = (a["mdccm"] > 0.4).cpu().numpy()
+    flags = a["flags"].cpu().numpy()[good]
+    counts = np.zeros(16, dtype=np.int64)
+    for p, (i, j) in enumerate(auto.pairs_np):
+        counts[i] += flags[:, p].sum()
+        counts[j] += flags[:, p].sum()
+    log(f"lts large array: P=120, Q={Q}, {plan.nbands} x {plan.max_windows} "
+        f"windows, first step {secs:.3f} s; chunks of 4096 and 1024 equal bit for "
+        f"bit; flags per element on {int(good.sum())} confident windows "
+        f"{counts.tolist()}")
+    if counts.argmax() != outlier:
+        fail(f"lts large array: element {counts.argmax()} is the most flagged, not "
+             f"{outlier}")
+
+
+def rank_reference(x, rows=50_000):
+    """The rank's definition, pair by pair, in chunks of ``rows`` rows:
+    x_j counts against x_i when x_j < x_i, or x_j == x_i and j < i (NaN as
+    +inf)."""
+    import torch
+
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x)
+    P = x.shape[-1]
+    flat = x.reshape(-1, P)
+    idx = torch.arange(P, device=x.device)
+    before = idx[None, :] < idx[:, None]
+    out = torch.empty(flat.shape, dtype=torch.int64, device=x.device)
+    for r0 in range(0, flat.shape[0], rows):
+        xi, xj = flat[r0:r0 + rows, :, None], flat[r0:r0 + rows, None, :]
+        out[r0:r0 + rows] = torch.where(before, xj <= xi, xj < xi).sum(-1)
+    return out.reshape(x.shape)
+
+
+def lts_rank_check(label, st, freqlist, winlens):
+    """The sweep's rank (`ops.lts._rank_along_last`) equals its pairwise
+    definition on the card, exactly, on the canonical sweep's squared
+    residuals after one C-step (632 windows x 378 candidates x 28) and on
+    values with many exact ties, NaN, infs and signed zeros; both timed."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+
+    plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
+    pipe = NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
+                              alpha=LTS_ALPHA, device="cuda")
+    g = pipe._geometry
+    tau = pipe._delays(pipe._filter(pipe._to_device(st.data)))[0]
+    _, s = LTS._candidate_sweep(tau, g["X"], g["cand"], g["Ainv"], g["cand_ok"],
+                                pipe.h, 1)
+    r2 = LTS._residuals2(tau, g["X"], s)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    ties = torch.randint(-3, 6, r2.shape, generator=gen, device="cuda").float() * 0.25
+    u = torch.rand(r2.shape, generator=gen, device="cuda")
+    ties[u < 0.05] = float("nan")
+    ties[(u >= 0.05) & (u < 0.08)] = float("inf")
+    ties[(u >= 0.08) & (u < 0.1)] = float("-inf")
+    ties[(ties == 0) & (u < 0.5)] = -0.0
+    for name, x in (("canonical residuals", r2), ("ties", ties)):
+        got, want = LTS._rank_along_last(x), rank_reference(x)
+        if not torch.equal(got.long(), want):
+            fail(f"lts rank on {name}: {int((got.long() != want).sum())} ranks differ "
+                 f"from the pairwise definition")
+        ms = device_ms(lambda: LTS._rank_along_last(x), reps=5)
+        ref_ms = device_ms(lambda: rank_reference(x), reps=5)
+        log(f"[{label}] lts rank on {name} {tuple(x.shape)}: equal to its pairwise "
+            f"definition; {ms:.4f} ms (the pairwise reference, rank_reference: "
+            f"{ref_ms:.4f} ms)")
+
+
+def profile_once(fn):
+    """Device ms of one call of ``fn`` (sum of every kernel and copy
+    torch.profiler saw) and its largest rows."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = device_rows(prof)
+    return sum(r[0] for r in rows) * 1e-3, rows
+
+
+def lts_timing(label, st):
+    """Canonical and dense50 (the LTS input): per pipeline (OLS, LTS
+    exhaustive, LTS with lts_funnel_k='auto') the step by CUDA events over 20
+    steps after warm-up, its peak memory, and for LTS the sweep's device
+    time in one profiled solve."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    _, freqlist, winlens = canonical_inputs()
+    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
+    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
+    plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
+             "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+    for name, plan in plans.items():
+        rows = plan.nbands * plan.max_windows
+        for tag, kw in (("OLS", dict(alpha=1.0)),
+                        ("LTS exhaustive", dict(alpha=LTS_ALPHA)),
+                        ("LTS auto", dict(alpha=LTS_ALPHA, lts_funnel_k="auto"))):
+            pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda", **kw)
+            ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+            torch.cuda.synchronize()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            pipe.run_raw(st.data)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated()
+            line = (f"[{label}] {name} {tag}: {ms:.4f} ms per run_raw step (CUDA "
+                    f"events, 20 steps), peak memory {peak / 2**20:.1f} MiB "
+                    f"({(peak - base) / 2**20:.1f} MiB above the "
+                    f"{base / 2**20:.1f} MiB held before the step)")
+            if tag != "OLS":
+                Q = pipe.state_dict()["cand"].shape[0]
+                tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
+                pipe._solve_masked(tau, md)
+                sweep, top = profile_once(lambda: pipe._solve_masked(tau, md))
+                line += (f"; sweep ({rows} windows x {Q} candidates, funnel "
+                         f"{pipe.lts_funnel_k}) {sweep:.4f} ms of device time in one "
+                         f"profiled solve, {sum(r[2] for r in top)} kernels; largest: "
+                         + "; ".join(f"{us / 1e3:.4f} ms x{c} {k[:60]}"
+                                     for us, k, c in top[:4]))
+            log(line)
+            del pipe
+            torch.cuda.empty_cache()
+
+
+def phase_lts(label):
+    """Canonical LTS with one incoherent element through the API, card
+    against CPU, exhaustive and with PRODUCTION_DEFAULTS; multi-array and
+    large-array LTS; the LTS timings."""
+    st, freqlist, winlens = canonical_inputs(outlier_channels=(LTS_OUTLIER,))
+    for production in (False, True):
+        tag = "lts production" if production else "lts exhaustive"
+        gpu, tau_g, secs = run_api_lts(st, freqlist, winlens, "cuda", production)
+        cpu, tau_c, secs_cpu = run_api_lts(st, freqlist, winlens, "cpu", production)
+        log(f"{tag}: first API call {secs:.3f} s on the card, {secs_cpu:.3f} s on "
+            f"the CPU (host set-up included)")
+        ncl = gpu[6]
+        check_shapes(gpu, ncl, NBANDS)
+        compare_lts(gpu, cpu, tau_g, tau_c, ncl, tag)
+        ground_truth(gpu, ncl, label=f"{tag} ")
+        check_outlier(gpu[4], NCHANS, LTS_OUTLIER, tag)
+    lts_rank_check(label, st, freqlist, winlens)
+    lts_multiarray()
+    lts_large_array()
+    lts_timing(label, st)
 
 
 # --------------------------------------------------------------------------
@@ -813,20 +1193,11 @@ def route_bound_ms(flops, nbytes, precision):
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
-def profile_step(label, pipe, data, steps=5):
-    """Device time by kernel name over a few steps (torch.profiler), and the
-    device's busy share of the wall time."""
-    import torch
+def device_rows(prof):
+    """(device us, kernel name, calls) of every kernel and copy a
+    torch.profiler run saw, largest first."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
 
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            pipe.run_raw(data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
     rows = []
     for e in prof.key_averages():
         if e.device_type != DeviceType.CUDA:   # kernels and copies only
@@ -836,7 +1207,23 @@ def profile_step(label, pipe, data, steps=5):
             dev_us = getattr(e, "self_cuda_time_total", 0.0)
         if dev_us > 0:
             rows.append((dev_us, e.key, e.count))
-    rows.sort(reverse=True)
+    return sorted(rows, reverse=True)
+
+
+def profile_step(label, pipe, data, steps=5):
+    """Device time by kernel name over a few steps (torch.profiler), and the
+    device's busy share of the wall time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            pipe.run_raw(data)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    rows = device_rows(prof)
     busy = sum(r[0] for r in rows) * 1e-6
     log(f"[{label}] profile, canonical, {steps} steps: wall "
         f"{wall / steps * 1e3:.4f} ms/step, device busy "
@@ -1165,6 +1552,9 @@ def main() -> int:
     if "multiarray" in phases:
         phase_multiarray()
         phase_done("multiarray")
+    if "lts" in phases:
+        phase_lts(label)
+        phase_done("lts")
     if "timing" in phases:
         recs, plans, st = phase_timing(label, launches)
         phase_done("timing (icorr_peak)")

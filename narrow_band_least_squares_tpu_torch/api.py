@@ -4,10 +4,9 @@ Port of ``narrow_band_least_squares_tpu/api.py``: the reference's functions
 with the reference's call signatures and tuple contracts, as a thin host
 shim over `models.NarrowBandPipeline`.  Every function that computes takes a
 keyword-only ``device``: ``None`` means ``"cuda"`` and raises where CUDA is
-absent; ``"cpu"`` runs the kernels' plain PyTorch versions.
-
-Only OLS (``ALPHA = 1``) is ported; ``ALPHA < 1`` raises
-``NotImplementedError``.
+absent; ``"cpu"`` runs the kernels' plain PyTorch versions.  ``ALPHA = 1``
+is OLS; ``ALPHA < 1`` is exact-enumeration LTS and returns the reference's
+``stdict`` of flagged elements.
 """
 
 from __future__ import annotations
@@ -19,9 +18,15 @@ import numpy as np
 import torch
 
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
-from narrow_band_least_squares_tpu_torch.models.narrowband import NarrowBandPipeline
+from narrow_band_least_squares_tpu_torch.models.narrowband import (
+    NarrowBandPipeline,
+    flags_to_stdict,
+)
 from narrow_band_least_squares_tpu_torch.ops import filters as _filters
-from narrow_band_least_squares_tpu_torch.ops.solve import chi2_ellipse_uncertainties
+from narrow_band_least_squares_tpu_torch.ops.solve import (
+    chi2_ellipse_uncertainties,
+    subset_normal_inverses,
+)
 from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
 from narrow_band_least_squares_tpu_torch.utils.geometry import get_rij
 from narrow_band_least_squares_tpu_torch.utils.plan import (
@@ -48,8 +53,9 @@ __all__ = [
 # Pipeline overrides applied to every pipeline this surface constructs.
 _PERF_DEFAULTS: dict = {}
 
-# The JAX package's production profile.  ``lts_funnel_k`` is accepted and
-# has no effect until LTS is ported.
+# The JAX package's production profile: passband-only cross-correlation
+# bins at a BT-aware threshold, and with ``ALPHA < 1`` the FAST-LTS funnel
+# (max(16, ceil(Q/24)) survivors after one C-step).
 PRODUCTION_DEFAULTS = {
     "band_limit_db": "auto",
     "lts_funnel_k": "auto",
@@ -154,7 +160,10 @@ def ltsva(
     ``(vel, baz, t, mdccm, stdict, sig_tau, vel_uncert, baz_uncert)``.
     ``conf=None`` returns the 1-sigma linearized vel/baz uncertainties; a
     confidence level (e.g. ``0.90``) returns the Szuberla & Olson (2004)
-    chi-square-ellipse intervals (`ops.solve.chi2_ellipse_uncertainties`).
+    chi-square-ellipse intervals (`ops.solve.chi2_ellipse_uncertainties`),
+    with ``ALPHA < 1`` built per window on the retained co-array rows
+    (`ops.solve.subset_normal_inverses`).  ``stdict`` is None for OLS and
+    the flagged elements per window (no band prefix) for LTS.
     """
     rij = get_rij(list(lat_list), list(lon_list), st.nchans)
     plan = make_plan([0.0, st.fs / 2], "linear", [WINLEN], WINOVER, st.npts, st.fs)
@@ -170,10 +179,18 @@ def ltsva(
     vel_uncert = res.vel_uncert_array[0, :n]
     baz_uncert = res.baz_uncert_array[0, :n]
     if conf is not None:
+        xtx_inv = pipe.XtX_inv64
+        if res.flags is not None:
+            xtx_inv = subset_normal_inverses(pipe.X64, ~res.flags[0, :n, :])
         vel_uncert, baz_uncert = chi2_ellipse_uncertainties(
-            vel, baz, sig_tau, pipe.XtX_inv64, conf=conf,
+            vel, baz, sig_tau, xtx_inv, conf=conf,
         )
     stdict = None   # OLS flags no element
+    if ALPHA < 1.0:
+        stdict = flags_to_stdict(
+            res.flags, res.t_array, res.num_compute_list, res.pairs,
+            st.nchans, band_prefix=False,
+        )
     if plot_array_coordinates:  # parity convenience plot
         import matplotlib.pyplot as plt
 
@@ -224,9 +241,10 @@ def narrow_band_least_squares(
         filter_ripple=FILTER_RIPPLE, alpha=ALPHA, device=device,
     )
     res = pipe.run(st, freq_resp_list=np.asarray(freq_resp_list))
+    stdict_all = res.stdict(band_prefix=True) if ALPHA < 1.0 else None
     return (
         res.vel_array, res.baz_array, res.mdccm_array, res.t_array,
-        res.stdict(band_prefix=True), res.sig_tau_array, res.num_compute_list,
+        stdict_all, res.sig_tau_array, res.num_compute_list,
         res.w_array, res.h_array,
     )
 
@@ -254,7 +272,8 @@ def narrow_band_loop(
     Returns the 10-tuple ``(vel, baz, mdccm, t, stdict_times,
     stdict_elements, sig_tau, num_compute, w, h)`` of reference
     ``narrow_band_least_squares.py:134-218``, every vector padded to
-    ``vector_len``.
+    ``vector_len``; with ``ALPHA < 1`` the band's stdict flattened into two
+    parallel object arrays (keys, values), None for OLS.
     """
     from scipy import signal as _signal
 
@@ -283,9 +302,12 @@ def narrow_band_loop(
     mdccm_f = np.pad(make_float(mdccm), pad)
     t_f = np.pad(make_float(t), pad)
     sig_f = np.pad(make_float(sig_tau), pad)
-    # OLS has no flags (ALPHA < 1 raised in the pipeline)
+    stdict_times = stdict_elements = None
+    if ALPHA != 1.0:
+        arr = np.array(list(stdict.items()), dtype=object)
+        stdict_times, stdict_elements = arr[:, 0], arr[:, 1]
     return (
-        vel_f, baz_f, mdccm_f, t_f, None, None,
+        vel_f, baz_f, mdccm_f, t_f, stdict_times, stdict_elements,
         sig_f, num_compute, w_temp, h_temp,
     )
 

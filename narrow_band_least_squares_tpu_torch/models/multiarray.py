@@ -1,12 +1,13 @@
 """Multi-array batch processing: many infrasound arrays per device step.
 
-Port of ``narrow_band_least_squares_tpu/models/multiarray.py`` for OLS on
-one device.  The arrays share the band/window plan and element count; each
-has its own geometry.  Each array is filtered on its own, the delay search
+Port of ``narrow_band_least_squares_tpu/models/multiarray.py`` on one
+device.  The arrays share the band/window plan and element count; each has
+its own geometry.  Each array is filtered on its own, the delay search
 runs with the arrays merged into one batch (`NarrowBandPipeline.
 _delays_batched`: the window axis for 'mxu', the band rows of one fused
 launch per bucket for 'fused'), and each array is solved with its own
-co-array.
+co-array (OLS, or LTS with its own candidates and the base pipeline's
+``h``, ``c_steps``, ``lts_candidate_chunk`` and ``lts_funnel_k``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,7 @@ from narrow_band_least_squares_tpu_torch.models.narrowband import (
     NarrowBandPipeline,
     _not_ported,
 )
-from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
+from narrow_band_least_squares_tpu_torch.state import state_from_numpy
 from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
 from narrow_band_least_squares_tpu_torch.utils.plan import NarrowBandPlan
 
@@ -68,8 +69,6 @@ class MultiArrayPipeline:
             raise ValueError(
                 f"all arrays must have the same element count, got {nchans}"
             )
-        if float(alpha) < 1.0:
-            raise _not_ported("alpha < 1 (LTS)", "Queue 1 item 6")
         if mesh is not None:
             raise _not_ported("MultiArrayPipeline(mesh=...)", "Queue 1 item 9")
         self.nchans = nchans.pop()
@@ -84,16 +83,18 @@ class MultiArrayPipeline:
         self.plan = plan
         self.device = self.base.device
 
-        geo = [SOLVE.precompute_lstsq(coarray(np.asarray(r, dtype=np.float64))[0])
-               for r in rij_list]
-        self._geometry = tuple(
-            torch.as_tensor(np.stack([g[k] for g in geo]), dtype=dtype,
-                            device=self.device)
-            for k in ("X", "pinv", "XtX_inv")
-        )
+        # per array, its solve constants under the base pipeline's policy:
+        # its co-array and, with LTS, its own candidates
+        self._geometry = []
+        for rij in rij_list:
+            X = coarray(np.asarray(rij, dtype=np.float64))[0]
+            g = state_from_numpy(self.base._host_solve_constants(X))
+            self._geometry.append(self.base._solve_constants(
+                {k: v.to(self.device) for k, v in g.items()}))
 
     def run_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
-        """data: (A, C, T) -> dict of (A, B, Wmax) device tensors."""
+        """data: (A, C, T) -> dict of (A, B, Wmax) device tensors (``flags``
+        (A, B, Wmax, P) with LTS)."""
         base = self.base
         x = base._to_device(data)
         if x.shape[0] != self.A:
@@ -102,7 +103,6 @@ class MultiArrayPipeline:
         ca = self.merge_chunk_arrays
         outs = [base._delays_batched(y[i:i + ca]) for i in range(0, self.A, ca)]
         tau, _, mdccm = (torch.cat(v) for v in zip(*outs))
-        res = [base._solve_masked(tau[a], mdccm[a],
-                                  tuple(g[a] for g in self._geometry))
+        res = [base._solve_masked(tau[a], mdccm[a], self._geometry[a])
                for a in range(self.A)]
         return {k: torch.stack([r[k] for r in res]) for k in res[0]}

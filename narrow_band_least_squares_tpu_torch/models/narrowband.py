@@ -1,12 +1,15 @@
 """The narrow-band least-squares pipeline on the device.
 
-Port of ``narrow_band_least_squares_tpu/models/narrowband.py`` for OLS
-(``alpha = 1``).  The whole run is dense batched tensor work over the
-``(band, window, element-pair)`` grid:
+Port of ``narrow_band_least_squares_tpu/models/narrowband.py``.  The whole
+run is dense batched tensor work over the ``(band, window, element-pair)``
+grid:
 
     raw (C, T) --rfft--> filter bank (B, C, T) --unfold--> (Bg, Wg, C, Lg)
       --DFT matmul + icorr_peak--> delays+MdCCM (B, W, P) --2x2 solve-->
       vel/baz/sigma_tau (B, W)
+
+The solve is OLS (``alpha = 1``) or exact-enumeration LTS (``alpha < 1``,
+`ops.lts.lts_solve`), which also flags the dropped pairs (B, W, P).
 
 With ``xcorr_method='fused'`` the middle arrow is one ``fused_xcorr_bucket``
 launch per bucket, from the band rows straight to (rho, lag index).
@@ -14,7 +17,8 @@ launch per bucket, from the band rows straight to (rho, lag index).
 Ragged per-band window counts live in masks (the reference's dense-prefix +
 ``num_compute_list`` contract).  The host builds every constant once, in
 float64, and keeps it on the device in float32: the filter bank, the solve
-matrices, and per window-length bucket the DFT tables and lag bounds.  They
+matrices (with LTS its candidate pairs and their inverses), and per
+window-length bucket the DFT tables and lag bounds.  They
 are the pipeline's state (`state_dict` / `load_state`).
 """
 
@@ -31,6 +35,7 @@ import torch.nn.functional as Fnn
 
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
 from narrow_band_least_squares_tpu_torch.ops import filters as F
+from narrow_band_least_squares_tpu_torch.ops import lts as LTS
 from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
 from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
 from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
@@ -136,14 +141,18 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
 
 
 class NarrowBandPipeline:
-    """Narrow-band (OLS) least-squares pipeline on one device.
+    """Narrow-band least-squares pipeline (OLS or LTS) on one device.
 
     The constructor designs the filter bank, window grids and DFT tables on
     the host and moves them to ``device``; `run` / `run_raw` execute the step
     there.  The arguments are the JAX pipeline's.  In this port:
 
-    - ``alpha < 1`` (LTS), ``xcorr_method='fft'``, ``window_method=
-      'patches'`` and ``subsample_delays=True`` with 'mxu' raise
+    - ``alpha < 1`` runs exact-enumeration LTS on the same device, with
+      ``c_steps``, ``max_lts_candidates``, ``lts_candidate_chunk`` (set to
+      4096 when there are more candidates) and ``lts_funnel_k`` (``'auto'``:
+      ``max(16, ceil(Q/24))`` for Q candidates) as in the JAX package;
+    - ``xcorr_method='fft'``, ``window_method='patches'`` and
+      ``subsample_delays=True`` with 'mxu' raise
       ``NotImplementedError``; with 'pallas' and 'fused' the JAX package
       ignores ``subsample_delays`` with a warning, and so does the port;
     - ``xcorr_method`` 'mxu' and 'pallas' both search lags with the
@@ -194,8 +203,6 @@ class NarrowBandPipeline:
         *,
         device=None,
     ):
-        if float(alpha) < 1.0:
-            raise _not_ported("alpha < 1 (LTS)", "Queue 1 item 6")
         if xcorr_method == "fft":
             raise _not_ported("xcorr_method='fft'", "Queue 1 item 11")
         if xcorr_method not in ("mxu", "pallas", "fused"):
@@ -215,13 +222,16 @@ class NarrowBandPipeline:
         if dtype != torch.float32:
             raise _not_ported(f"dtype={dtype}", "Queue 1 item 11")
         XP.check_precision(matmul_precision)
-        del c_steps, max_lts_candidates, lts_candidate_chunk, lts_funnel_k
         del bucket_ratio, xcorr_chunk_mb, xcorr_lag_tile
 
         self.device = resolve_device(device)
         self.plan = plan
         self.rij = np.asarray(rij, dtype=np.float64)
-        self.alpha = 1.0
+        self.alpha = float(alpha)
+        self.c_steps = int(c_steps)
+        self.max_lts_candidates = int(max_lts_candidates)
+        self.lts_candidate_chunk = int(lts_candidate_chunk)
+        self.lts_funnel_k = "auto" if lts_funnel_k == "auto" else int(lts_funnel_k)
         self.apply_filter = apply_filter
         self.filter_type = filter_type
         self.filter_order = filter_order
@@ -241,9 +251,19 @@ class NarrowBandPipeline:
         X, pairs = coarray(self.rij)
         self.X64 = X
         self.pairs_np = pairs
-        lsq = SOLVE.precompute_lstsq(X)
-        self.XtX_inv64 = lsq["XtX_inv"]
-        st["X"], st["pinv"], st["XtX_inv"] = X, lsq["pinv"], lsq["XtX_inv"]
+        st.update(self._host_solve_constants(X))
+        self.XtX_inv64 = st["XtX_inv"]
+        if self.alpha < 1.0:
+            self.h = LTS.lts_h(self.alpha, X.shape[0])
+            Q = len(st["cand"])
+            if self.lts_funnel_k == "auto":
+                self.lts_funnel_k = max(16, -(-Q // 24))
+            # bound the (B, W, Q, P) sweep by chunking the candidates
+            # (identical results without the funnel), never by dropping them
+            if not self.lts_candidate_chunk and Q > 4096:
+                self.lts_candidate_chunk = 4096
+        elif self.lts_funnel_k == "auto":
+            self.lts_funnel_k = 0      # OLS: no LTS sweep to funnel
 
         # ---- filter bank ----
         self.zerophase = filter_type == "butter"
@@ -369,7 +389,9 @@ class NarrowBandPipeline:
     def state_dict(self) -> Dict[str, torch.Tensor]:
         """The pipeline's host-built constants, by name (tensors on its device).
 
-        ``h_bank``, ``taper``, ``X``, ``pinv``, ``XtX_inv``, ``win_mask``; with
+        ``h_bank``, ``taper``, ``X``, ``pinv``, ``XtX_inv``, ``win_mask``;
+        with ``alpha < 1`` the LTS candidates ``cand`` (Q, 2) int32, their
+        2x2 inverses ``Ainv`` (Q, 2, 2) and ``cand_ok`` (Q,) bool; with
         bucketing, per bucket ``bucket{i}.`` + ``Cf``/``Sf`` and ``Ec``/``Es``
         ('mxu') or ``e2``/``lo``/``hi`` ('pallas'), ``len_mask``, ``lengths``,
         ``lag_mask`` ('mxu'), ``idx`` ('gather'), and ``bucket_inv_perm``;
@@ -395,6 +417,7 @@ class NarrowBandPipeline:
                         f"expected {tuple(self._state[k].shape)}"
                     )
         self._state = {k: v.to(self.device) for k, v in state.items()}
+        self._geometry = self._solve_constants(self._state)
         self._fused_rows = {}   # per (bucket, arrays), see _fused_inputs
         # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu'),
         # and per table prefix, on the card only, what the kernel of the
@@ -537,7 +560,7 @@ class NarrowBandPipeline:
                 self._pairs32, g.Wmax, precision=self.matmul_precision,
                 prepared=self._prepared.get(pre),
             )
-            tau = (idx.to(y.dtype) + bk["lag_min"]) / plan.fs
+            tau = XC.lag_seconds(idx.to(y.dtype) + bk["lag_min"], plan.fs)
             md = XC.median_last(rho)
             pad = plan.max_windows - g.Wmax
             if pad:
@@ -548,16 +571,46 @@ class NarrowBandPipeline:
                          for v in (tau, rho, md)])
         return self._bucket_order(outs)
 
+    def _host_solve_constants(self, X: np.ndarray) -> Dict[str, np.ndarray]:
+        """One co-array's solve constants on the host, by state name: X,
+        pinv, XtX_inv and, with LTS, its candidates under this pipeline's
+        ``max_lts_candidates`` (cand, Ainv, cand_ok)."""
+        lsq = SOLVE.precompute_lstsq(X)
+        out = {k: lsq[k] for k in ("X", "pinv", "XtX_inv")}
+        if self.alpha < 1.0:
+            ci = LTS.precompute_candidates(X, max_candidates=self.max_lts_candidates)
+            out.update(cand=ci["cand"], Ainv=ci["Ainv"], cand_ok=ci["ok"])
+        return out
+
+    def _solve_constants(self, s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """One array's solve constants from state-named tensors ``s``:
+        X, pinv, XtX_inv and, with LTS, cand (int64 for indexing), Ainv,
+        cand_ok."""
+        g = {k: s[k] for k in ("X", "pinv", "XtX_inv")}
+        if self.alpha < 1.0:
+            g.update(cand=s["cand"].long(), Ainv=s["Ainv"], cand_ok=s["cand_ok"])
+        return g
+
     def _solve_masked(self, tau, mdccm, geometry=None):
         """Slowness solve + window-validity masking; ``geometry`` is an
-        array's (X, pinv, XtX_inv), the pipeline's own by default."""
-        s = self._state
-        X, pinv, XtX_inv = geometry or (s["X"], s["pinv"], s["XtX_inv"])
-        out = SOLVE.ols_solve(tau, X, pinv, XtX_inv)
-        wm = s["win_mask"]
+        array's `_solve_constants`, the pipeline's own by default.  With LTS
+        the result also holds ``flags`` (B, Wmax, P): the dropped pairs of
+        valid windows."""
+        g = geometry or self._geometry
+        if self.alpha < 1.0:
+            out = LTS.lts_solve(
+                tau, g["X"], g["cand"], g["Ainv"], g["cand_ok"], self.h,
+                self.c_steps, candidate_chunk=self.lts_candidate_chunk,
+                funnel_k=self.lts_funnel_k,
+            )
+        else:
+            out = SOLVE.ols_solve(tau, g["X"], g["pinv"], g["XtX_inv"])
+        wm = self._state["win_mask"]
         zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
         res = {k: torch.where(wm, out[k], zero) for k in _OUTPUTS}
         res["mdccm"] = torch.where(wm, mdccm, zero)
+        if self.alpha < 1.0:
+            res["flags"] = ~out["retained"] & wm[..., None]
         return res
 
     def _filter(self, x: torch.Tensor) -> torch.Tensor:
@@ -616,6 +669,7 @@ class NarrowBandPipeline:
         t_array = epoch_to_datenum(
             np.where(self._t_epoch_rel > 0, self._t_epoch_rel + start_epoch, 0.0)
         )
+        flags = dev["flags"].cpu().numpy() if "flags" in dev else None
         w_array = h_array = None
         if self.sos_list is not None and freq_resp_list is not None:
             w_array, h_array = F.sosfreqz_bank(
@@ -630,7 +684,7 @@ class NarrowBandPipeline:
             vel_uncert_array=dense("vel_uncert"),
             baz_uncert_array=dense("baz_uncert"),
             num_compute_list=list(plan.num_compute_list),
-            flags=None,
+            flags=flags,
             pairs=self.pairs_np,
             nchans=self.nchans,
             plan=plan,

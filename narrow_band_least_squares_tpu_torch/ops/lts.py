@@ -1,0 +1,270 @@
+"""Vectorized exact LTS (least trimmed squares) slowness estimation.
+
+Port of ``narrow_band_least_squares_tpu/ops/lts.py``.  The reference's
+robust mode runs FAST-LTS per window: elemental subsets plus concentration
+C-steps over the n(n-1)/2 delay equations.  The slowness has two
+components, so elemental subsets are *pairs of equations*: every C(P,2)
+candidate is enumerated and solved as a closed-form 2x2 system, and the
+C-steps become batched masked normal-equation refits over every (band,
+window, candidate) at once.
+
+Retained-set size: ``h = clamp(floor(ALPHA * P), 3, P)`` equations.  The
+equations outside the optimal subset are the flagged pairs of the
+reference's stdict.
+
+The flags must not depend on the device or the batch shape, so the sweep
+computes the same bits on the card and on the CPU: every two-term product
+sum is written out as multiplies and adds in the JAX package's order
+(never ``einsum``/``matmul``, which may reorder, use TF32 or fuse into a
+multiply-add on the card), every compared sum is a fixed tree
+(`ops.solve.tree_sum_last`), ranks are comparison counts and ties resolve
+by index.
+"""
+
+from __future__ import annotations
+
+from itertools import combinations
+from typing import Dict
+
+import numpy as np
+import torch
+
+from narrow_band_least_squares_tpu_torch.ops.solve import (
+    SIGMA_TAU_DOF_SHIFT,
+    masked_refit,
+    tree_sum_last,
+    vel_baz_from_slowness,
+)
+# Byte budget of the (rows, P, P) boolean temporary of one
+# `_rank_along_last` chunk: the canonical plan's sweep (632 windows x 378
+# candidates, P = 28) takes one chunk, a 50-band plan two.
+RANK_CHUNK_BYTES = 1 << 30
+
+
+def lts_h(alpha: float, P: int) -> int:
+    return max(3, min(int(np.floor(alpha * P)), P))
+
+
+def precompute_candidates(
+    X: np.ndarray, max_candidates: int = 0, seed: int = 0
+) -> Dict[str, np.ndarray]:
+    """Host-side elemental 2-subset enumeration and 2x2 inverses.
+
+    ``max_candidates = 0`` (the default) enumerates all C(P,2) elemental
+    2-subsets: exhaustive LTS; callers bound memory with
+    ``candidate_chunk``.  ``> 0`` subsamples to that many with
+    ``default_rng(seed)``, the JAX package's draw, so both pick the same
+    candidates.
+    """
+    P = X.shape[0]
+    cand = np.array(list(combinations(range(P), 2)), dtype=np.int32)
+    if max_candidates and len(cand) > max_candidates:
+        rng = np.random.default_rng(seed)
+        keep = rng.choice(len(cand), size=max_candidates, replace=False)
+        keep.sort()
+        cand = cand[keep]
+    A = X[cand]                       # (Q, 2, 2)
+    det = A[:, 0, 0] * A[:, 1, 1] - A[:, 0, 1] * A[:, 1, 0]
+    ok = np.abs(det) > 1e-12
+    safe = np.where(ok, det, 1.0)
+    Ainv = np.empty_like(A)
+    Ainv[:, 0, 0] = A[:, 1, 1] / safe
+    Ainv[:, 0, 1] = -A[:, 0, 1] / safe
+    Ainv[:, 1, 0] = -A[:, 1, 0] / safe
+    Ainv[:, 1, 1] = A[:, 0, 0] / safe
+    return {"cand": cand, "Ainv": Ainv, "ok": ok}
+
+
+def _rank_keys(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys (..., P), all distinct, whose order is that of (value,
+    index): x_j before x_i when x_j < x_i, or x_j == x_i and j < i.  NaN
+    counts as +inf and -0.0 as +0.0; the bits of float32 ``x`` map to a
+    monotone int32 (negative values flip their magnitude bits), times P,
+    plus the index."""
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x) + 0.0
+    b = x.contiguous().view(torch.int32)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    P = x.shape[-1]
+    return b.to(torch.int64) * P + torch.arange(P, device=x.device)
+
+
+def _rank_along_last(x: torch.Tensor) -> torch.Tensor:
+    """Stable rank of each element along the last axis (0 = smallest).
+
+    Pairwise comparison counts: NaNs rank last (as +inf), exact ties break
+    by index (element j counts against i when x_j < x_i, or x_j == x_i and
+    j < i), as a stable sort would.  One comparison a pair, of the
+    distinct keys of `_rank_keys`, counted over the middle axis of a
+    (rows, j, i) boolean; the rows are taken in chunks whose temporaries
+    fit `RANK_CHUNK_BYTES`.  Rows are independent and counts are integers,
+    so the chunking changes no result.  Counts are uint8 where P <= 255: no
+    wider copy of the booleans is made to sum them.
+    """
+    P = x.shape[-1]
+    k = _rank_keys(x).reshape(-1, P)
+    cdt = torch.uint8 if P <= 255 else torch.int32
+    step = max(1, RANK_CHUNK_BYTES // (P * P))
+    out = torch.empty(k.shape, dtype=cdt, device=x.device)
+    for r0 in range(0, k.shape[0], step):
+        kc = k[r0:r0 + step]
+        lt = kc[:, :, None] < kc[:, None, :]          # [r, j, i]: key_j < key_i
+        out[r0:r0 + step] = (lt.view(torch.uint8) if cdt == torch.uint8 else lt).sum(
+            1, dtype=cdt)
+    return out.reshape(x.shape)
+
+
+def _xs(X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """X s for s (..., 2) -> (..., P), as ``X[p,0] s0 + X[p,1] s1``."""
+    return X[:, 0] * s[..., 0, None] + X[:, 1] * s[..., 1, None]
+
+
+def _residuals2(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Squared residuals (..., Q, P) of the candidate fits s (..., Q, 2)."""
+    r = tau[..., None, :] - _xs(X, s)
+    return r * r
+
+
+def _c_steps(tau, X, s, h, n_steps):
+    """``n_steps`` concentration steps on a candidate block s (..., Q, 2)."""
+    for _ in range(n_steps):
+        r2 = _residuals2(tau, X, s)
+        weight = (_rank_along_last(r2) < h).to(tau.dtype)
+        s = masked_refit(tau[..., None, :], X, weight)
+    return s
+
+
+def _trimmed_objective(tau, X, s, h):
+    """Sum of the h smallest squared residuals of each candidate fit (a
+    fixed tree), NaN -> inf."""
+    r2 = _residuals2(tau, X, s)
+    sel = (_rank_along_last(r2) < h).to(tau.dtype)
+    obj = tree_sum_last(sel * r2)                     # (..., Q)
+    return torch.where(torch.isnan(obj), torch.full_like(obj, float("inf")), obj)
+
+
+def _take(s: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
+    """s (..., Q, 2) at candidate indices i (..., K) -> (..., K, 2)."""
+    return s.gather(-2, i[..., None].expand(i.shape + (2,)))
+
+
+def _survivors(obj: torch.Tensor, k: int) -> torch.Tensor:
+    """Indices (..., k) of the k smallest objectives, in ascending order and
+    among equal ones lower index first: the order of the JAX package's
+    ``lax.top_k(-obj, k)``, which ``torch.topk`` does not promise on CUDA."""
+    return torch.sort(obj, dim=-1, stable=True).indices[..., :k]
+
+
+def _candidate_sweep(tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k=0):
+    """Elemental solves + C-steps for one candidate block.
+
+    ``funnel_k > 0`` applies the FAST-LTS funnel: one C-step on every
+    candidate, then the remaining ``c_steps - 1`` only on the ``funnel_k``
+    best by trimmed objective (`_survivors`).  Returns (obj (..., K),
+    s (..., K, 2)).
+    """
+    tp = tau[..., cand]                               # (..., Q, 2)
+    t0, t1 = tp[..., 0], tp[..., 1]
+    s = torch.stack([Ainv[:, 0, 0] * t0 + Ainv[:, 0, 1] * t1,
+                     Ainv[:, 1, 0] * t0 + Ainv[:, 1, 1] * t1], dim=-1)
+    inf = torch.full((), float("inf"), dtype=tau.dtype, device=tau.device)
+
+    if funnel_k and funnel_k < cand.shape[0] and c_steps > 1:
+        s = _c_steps(tau, X, s, h, 1)
+        obj = torch.where(cand_ok, _trimmed_objective(tau, X, s, h), inf)
+        s = _c_steps(tau, X, _take(s, _survivors(obj, funnel_k)), h, c_steps - 1)
+        return _trimmed_objective(tau, X, s, h), s   # survivors not re-masked
+
+    s = _c_steps(tau, X, s, h, c_steps)
+    return torch.where(cand_ok, _trimmed_objective(tau, X, s, h), inf), s
+
+
+def _best(obj, s):
+    """First minimum of obj (..., K) and its s (..., 2)."""
+    i = torch.argmin(obj, dim=-1)
+    return torch.amin(obj, dim=-1), _take(s, i[..., None])[..., 0, :]
+
+
+def lts_solve(
+    tau: torch.Tensor,       # (..., P)
+    X: torch.Tensor,         # (P, 2)
+    cand: torch.Tensor,      # (Q, 2) integer
+    Ainv: torch.Tensor,      # (Q, 2, 2)
+    cand_ok: torch.Tensor,   # (Q,) bool
+    h: int,
+    c_steps: int = 4,
+    candidate_chunk: int = 0,
+    funnel_k: int = 0,
+) -> Dict[str, torch.Tensor]:
+    """Batched exact-enumeration LTS.
+
+    ``candidate_chunk > 0`` sweeps the candidates in blocks of that many
+    (the last padded with ``(0, 0)`` pairs, zero ``Ainv`` and ``ok =
+    False``) to bound memory; each block keeps its first minimum and the
+    first block holding the overall minimum wins, as in the JAX package.
+    Without the funnel that equals the unchunked sweep; with it the funnel
+    runs inside each block.
+
+    Returns vel, baz, sig_tau, vel_uncert, baz_uncert, s, retained (..., P
+    bool; True = equation kept) and objective.
+    """
+    Q = cand.shape[0]
+    dof = max(h - SIGMA_TAU_DOF_SHIFT, 1)
+    cand = cand.long()
+
+    if candidate_chunk and candidate_chunk < Q:
+        nchunk = -(-Q // candidate_chunk)
+        pad = nchunk * candidate_chunk - Q
+        cand = torch.cat([cand, cand.new_zeros((pad, 2))])
+        Ainv = torch.cat([Ainv, Ainv.new_zeros((pad, 2, 2))])
+        cand_ok = torch.cat([cand_ok, cand_ok.new_zeros((pad,))])
+        blocks = [
+            _best(*_candidate_sweep(tau, X, cand[sl], Ainv[sl], cand_ok[sl],
+                                    h, c_steps, funnel_k))
+            for sl in (slice(k * candidate_chunk, (k + 1) * candidate_chunk)
+                       for k in range(nchunk))
+        ]
+        obj_blocks = torch.stack([b[0] for b in blocks], dim=-1)   # (..., n)
+        s_blocks = torch.stack([b[1] for b in blocks], dim=-2)     # (..., n, 2)
+        obj_best, s_best = _best(obj_blocks, s_blocks)
+    else:
+        obj_best, s_best = _best(*_candidate_sweep(
+            tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k))
+
+    # final subset + refit (idempotent when converged, like the oracle)
+    r_best = tau - _xs(X, s_best)
+    retained = _rank_along_last(r_best * r_best) < h   # (..., P) bool
+    weight = retained.to(tau.dtype)
+    s_fin = masked_refit(tau, X, weight)
+
+    r_fin = tau - _xs(X, s_fin)
+    sigma2 = torch.sum(weight * r_fin * r_fin, dim=-1) / dof
+    sig_tau = torch.sqrt(sigma2)
+
+    # per-cell (Xs^T Xs)^-1 for the uncertainty ellipse
+    Xw = weight[..., None] * X
+    m00 = torch.sum(Xw[..., 0] * X[..., 0], dim=-1)
+    m01 = torch.sum(Xw[..., 0] * X[..., 1], dim=-1)
+    m11 = torch.sum(Xw[..., 1] * X[..., 1], dim=-1)
+    det = m00 * m11 - m01 * m01
+    safe = torch.where(torch.abs(det) > 1e-12, det, torch.ones_like(det))
+    i00, i01, i11 = m11 / safe, -m01 / safe, m00 / safe
+
+    sx, sy = s_fin[..., 0], s_fin[..., 1]
+    smag2 = torch.clamp(sx * sx + sy * sy, min=1e-30)
+    smag = torch.sqrt(smag2)
+    gvx, gvy = -sx / (smag2 * smag), -sy / (smag2 * smag)
+    var_v = sigma2 * (i00 * gvx * gvx + 2 * i01 * gvx * gvy + i11 * gvy * gvy)
+    gtx, gty = -sy / smag2, sx / smag2
+    var_t = sigma2 * (i00 * gtx * gtx + 2 * i01 * gtx * gty + i11 * gty * gty)
+
+    vel, baz = vel_baz_from_slowness(s_fin)
+    return {
+        "vel": vel,
+        "baz": baz,
+        "sig_tau": sig_tau,
+        "vel_uncert": torch.sqrt(torch.clamp(var_v, min=0.0)),
+        "baz_uncert": torch.rad2deg(torch.sqrt(torch.clamp(var_t, min=0.0))),
+        "s": s_fin,
+        "retained": retained,
+        "objective": obj_best,
+    }

@@ -1,10 +1,12 @@
 """Batched slowness inversion: closed-form 2-parameter least squares.
 
-Port of ``narrow_band_least_squares_tpu/ops/solve.py`` (OLS half).  The
-co-array system ``tau = X s`` has two unknowns, so the per-window ``lstsq``
-of the reference's solver is one product with a precomputed pseudo-inverse,
+Port of ``narrow_band_least_squares_tpu/ops/solve.py``.  The co-array
+system ``tau = X s`` has two unknowns, so the per-window ``lstsq`` of the
+reference's solver is one product with a precomputed pseudo-inverse,
 batched over every (band, window) cell.  sigma_tau and the 1-sigma
-velocity/back-azimuth uncertainties come from the same residuals.
+velocity/back-azimuth uncertainties come from the same residuals.  The LTS
+primitives (`tree_sum_last`, `masked_refit`) and the retained-subset
+normal inverses of its confidence ellipses live here too.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as Fnn
 
 SIGMA_TAU_DOF_SHIFT = 2  # matches oracle.ltsva.SIGMA_TAU_DOF_SHIFT
 
@@ -100,7 +103,8 @@ def chi2_ellipse_uncertainties(
     (chi2_ppf(q, 2) = -2 ln(1 - q)).  The velocity interval comes from the
     ellipse's radial extent, the back-azimuth interval from its angular
     extent seen from the origin.  Host-side NumPy: the intervals are an
-    API-boundary product.
+    API-boundary product.  ``XtX_inv`` is the full co-array's (OLS) or, per
+    window, the retained subset's (LTS, `subset_normal_inverses`).
     """
     vel = np.asarray(vel, dtype=np.float64)
     baz = np.asarray(baz, dtype=np.float64)
@@ -130,3 +134,83 @@ def chi2_ellipse_uncertainties(
         baz_ci = np.degrees(np.arcsin(np.clip(d_t / smag, 0.0, 1.0)))
     baz_ci = np.where(d_t >= smag, 180.0, baz_ci)  # ellipse encloses origin
     return vel_ci, baz_ci
+
+
+def subset_normal_inverses(
+    X: np.ndarray,           # (P, 2) co-array
+    keep: np.ndarray,        # (..., P) bool: rows retained per window
+) -> np.ndarray:
+    """Per-window ``inv(X_kept^T X_kept)`` for the LTS confidence ellipses.
+
+    The vendored ``lts_array`` builds the Szuberla & Olson ellipse from the
+    normal matrix of the RETAINED co-array rows, so windows with flagged
+    elements get the wider ellipse their reduced geometry implies.
+    Degenerate subsets (rank < 2, or fewer than 3 rows) fall back to the
+    full-geometry inverse, as in the JAX package.  Host-side NumPy,
+    vectorized over windows.
+    """
+    X = np.asarray(X, dtype=np.float64)
+    keep = np.asarray(keep, dtype=bool)
+    w = keep.astype(np.float64)                          # (..., P)
+    m00 = np.einsum("...p,p->...", w, X[:, 0] * X[:, 0])
+    m01 = np.einsum("...p,p->...", w, X[:, 0] * X[:, 1])
+    m11 = np.einsum("...p,p->...", w, X[:, 1] * X[:, 1])
+    det = m00 * m11 - m01 * m01
+    full_inv = np.linalg.inv(X.T @ X)
+    ok = (np.abs(det) > 1e-12) & (keep.sum(axis=-1) >= 3)
+    safe = np.where(ok, det, 1.0)
+    out = np.empty(keep.shape[:-1] + (2, 2), dtype=np.float64)
+    out[..., 0, 0] = np.where(ok, m11 / safe, full_inv[0, 0])
+    out[..., 0, 1] = np.where(ok, -m01 / safe, full_inv[0, 1])
+    out[..., 1, 0] = out[..., 0, 1]
+    out[..., 1, 1] = np.where(ok, m00 / safe, full_inv[1, 1])
+    return out
+
+
+def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a fixed halving tree of binary adds.
+
+    Every reduction whose result the LTS sweep compares (rank selection,
+    funnel and argmin objectives) goes through this, so that the card and
+    the CPU, and every batch shape, add in one order and pick the same
+    candidates.  Zero-padding to a power of two is exact.
+    """
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = Fnn.pad(x, (0, p - n))
+    while p > 1:
+        p //= 2
+        x = x[..., :p] + x[..., p:2 * p]
+    return x[..., 0]
+
+
+def masked_refit(
+    tau: torch.Tensor,       # (..., P)
+    X: torch.Tensor,         # (P, 2)
+    weight: torch.Tensor,    # (..., P) 0/1 subset weights
+    eps: float = 1e-12,
+) -> torch.Tensor:
+    """Weighted 2x2 normal-equation solve, the LTS C-step refit.
+
+    Returns s (..., 2).  Degenerate subsets (``|det| <= eps`` on the
+    float32 determinant) return zeros; callers mask them out through the
+    objective.  The products keep the JAX package's order, one multiply or
+    add per operation (no fused multiply-add), and the sums are fixed
+    trees (`tree_sum_last`).
+    """
+    Xw = weight[..., None] * X                          # (..., P, 2)
+    m00 = tree_sum_last(Xw[..., 0] * X[..., 0])
+    m01 = tree_sum_last(Xw[..., 0] * X[..., 1])
+    m11 = tree_sum_last(Xw[..., 1] * X[..., 1])
+    b0 = tree_sum_last(weight * tau * X[..., 0])
+    b1 = tree_sum_last(weight * tau * X[..., 1])
+    det = m00 * m11 - m01 * m01
+    ok = torch.abs(det) > eps
+    one = torch.ones((), dtype=det.dtype, device=det.device)
+    zero = torch.zeros((), dtype=det.dtype, device=det.device)
+    safe = torch.where(ok, det, one)
+    s0 = (b0 * m11 - b1 * m01) / safe
+    s1 = (b1 * m00 - b0 * m01) / safe
+    return torch.stack([torch.where(ok, s0, zero), torch.where(ok, s1, zero)],
+                       dim=-1)

@@ -6,7 +6,7 @@ Port of ``narrow_band_least_squares_tpu/ops/xcorr.py``.  Every
     spectra:      F  = win @ [Cf | Sf]                 (torch.matmul, fp32)
     cross-spec:   CS = F_j * conj(F_i)
     correlation:  cc = [Re CS | Im CS] @ [Ec ; -Es]    (icorr_peak)
-    delay:        tau = (first argmax over the band's lags + lag_min) / fs
+    delay:        tau = (first argmax over the band's lags + lag_min) * (1/fs)
     rho = peak / sqrt(E_i * E_j),  MdCCM = median over pairs of rho
 
 The last two lines of the chain run in the ``icorr_peak`` kernel, which
@@ -170,6 +170,18 @@ def _cross_spectra(win, pairs, Cf, Sf):
     return energy, cs2
 
 
+def lag_seconds(lag: torch.Tensor, fs: float) -> torch.Tensor:
+    """Integer lags (float tensor, samples) -> delays in seconds, as
+    ``lag * (1/fs)`` with the reciprocal rounded to the tensor's dtype.
+
+    PyTorch on CUDA divides by a host scalar by multiplying with its
+    reciprocal and on the CPU divides, so ``lag / fs`` differs in the last
+    bit between the two; the jitted JAX step multiplies too.  The LTS flags
+    depend on those bits, so every device computes this product.
+    """
+    return lag * (1.0 / fs)
+
+
 def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
                  precision="highest", prepared=None):
     """``icorr_peak`` over every (band, window, pair) row at ``precision``
@@ -183,7 +195,7 @@ def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
     peak, idx = icorr_peak(cs2, e2, lo, hi, precision=precision,
                            prepared=prepared)
     peak = peak.reshape(B, W, P)
-    tau = (idx.reshape(B, W, P).to(win.dtype) + lag_min) / fs
+    tau = lag_seconds(idx.reshape(B, W, P).to(win.dtype) + lag_min, fs)
     Ei = energy[:, :, pairs[:, 0]]
     Ej = energy[:, :, pairs[:, 1]]
     denom = torch.sqrt(Ei * Ej)

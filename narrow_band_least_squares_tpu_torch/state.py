@@ -3,7 +3,9 @@
 The system has no weights.  What a `NarrowBandPipeline` carries from its
 construction to every run is the set of constants the host designs once:
 the filter bank ``h_bank`` and ``taper``; the solve matrices ``X``, ``pinv``
-and ``XtX_inv``; per window-length bucket the DFT tables (``Cf``/``Sf`` with
+and ``XtX_inv``; with LTS (``alpha < 1``) the candidate pairs ``cand``
+(int32), their 2x2 inverses ``Ainv`` and the mask ``cand_ok`` (bool) of
+the non-degenerate ones; per window-length bucket the DFT tables (``Cf``/``Sf`` with
 ``Ec``/``Es``, or the stacked ``e2`` with the lag bounds ``lo``/``hi``), the
 masks ``len_mask``/``lag_mask`` and the window ``lengths`` (with
 ``xcorr_method='fused'``: the padded Cf/Sf/Ec/Es, ``len_mask`` and per band

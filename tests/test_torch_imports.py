@@ -43,6 +43,7 @@ def test_import_builds_nothing():
     code = (
         "import sys, narrow_band_least_squares_tpu_torch as p\n"
         "from narrow_band_least_squares_tpu_torch import api, models, ops, state\n"
+        "from narrow_band_least_squares_tpu_torch.ops import lts, solve\n"
         "from narrow_band_least_squares_tpu_torch.ops.kernels import _build, xcorr_peak\n"
         "from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr\n"
         "from narrow_band_least_squares_tpu_torch.models import (\n"

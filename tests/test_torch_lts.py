@@ -1,0 +1,264 @@
+"""PyTorch port: the LTS sweep (ops/lts.py) and its solve primitives
+(ops/solve.py) against the JAX package, on the CPU.
+
+The same seeded numpy inputs go through the JAX function and its port.
+Ranks, retained sets and candidate choices must be identical; floats agree
+within 1e-5 (rtol and atol), the JAX xcorr-level tolerance.  Within the
+port, chunking (of the rank rows or of the candidates) must change no bit.
+"""
+
+import math
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from narrow_band_least_squares_tpu.ops import lts as JL
+from narrow_band_least_squares_tpu.ops import solve as JS
+from narrow_band_least_squares_tpu.utils.geometry import coarray as jcoarray
+from narrow_band_least_squares_tpu.utils.geometry import get_rij
+from narrow_band_least_squares_tpu_torch.ops import lts as TL
+from narrow_band_least_squares_tpu_torch.ops import solve as TS
+from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
+
+TOL = 1e-5
+
+
+def _close(got, want, tol=TOL, msg=""):
+    np.testing.assert_allclose(got.numpy() if isinstance(got, torch.Tensor) else got,
+                               np.asarray(want), rtol=tol, atol=tol, err_msg=msg)
+
+
+@pytest.fixture(scope="module")
+def geom(outlier_stream):
+    """The 6-element outlier array's co-array (P = 15, Q = 105), its
+    candidates, and random delays (3 bands x 7 windows)."""
+    st = outlier_stream
+    X, _ = coarray(get_rij(st.latitudes, st.longitudes, st.nchans))
+    ci = TL.precompute_candidates(X)
+    tau = (np.random.default_rng(2).standard_normal((3, 7, X.shape[0])) * 0.5
+           ).astype(np.float32)
+    return X, ci, tau
+
+
+def _args(X, ci, lib):
+    if lib == "jax":
+        return (jnp.asarray(X, jnp.float32), jnp.asarray(ci["cand"]),
+                jnp.asarray(ci["Ainv"], jnp.float32), jnp.asarray(ci["ok"]))
+    return (torch.as_tensor(X, dtype=torch.float32), torch.as_tensor(ci["cand"]),
+            torch.as_tensor(ci["Ainv"], dtype=torch.float32),
+            torch.as_tensor(ci["ok"]))
+
+
+# --------------------------------------------------------------------------
+# host constants
+# --------------------------------------------------------------------------
+
+@pytest.mark.parametrize("alpha,P", [(0.75, 28), (0.5, 3), (0.1, 15), (1.0, 6), (0.7, 66)])
+def test_lts_h_matches_jax(alpha, P):
+    assert TL.lts_h(alpha, P) == JL.lts_h(alpha, P)
+
+
+@pytest.mark.parametrize("nchans,max_candidates", [(6, 0), (12, 0), (16, 2048)])
+def test_precompute_candidates_identical(nchans, max_candidates):
+    """Enumeration, the seeded subsample and the float64 inverses are the
+    JAX package's, value for value."""
+    theta = np.linspace(0, 2 * np.pi, nchans, endpoint=False)
+    rij = np.stack([np.cos(theta), np.sin(3 * theta) + 0.1 * theta])
+    X, _ = coarray(rij)
+    Xj, _ = jcoarray(rij)
+    np.testing.assert_array_equal(X, Xj)
+    a = TL.precompute_candidates(X, max_candidates=max_candidates)
+    b = JL.precompute_candidates(Xj, max_candidates=max_candidates)
+    Q = max_candidates or math.comb(X.shape[0], 2)
+    assert a["cand"].shape == (Q, 2) and a["cand"].dtype == np.int32
+    for k in ("cand", "Ainv", "ok"):
+        np.testing.assert_array_equal(a[k], b[k], err_msg=k)
+
+
+def test_subset_normal_inverses_identical(geom):
+    """Same float64 host code: keep-all, dropped rows and the degenerate
+    fallback to the full geometry (reproduced as-is) agree exactly."""
+    X = geom[0]
+    P = X.shape[0]
+    keep = np.ones((4, P), dtype=bool)
+    keep[1, :4] = False
+    keep[2, :] = False
+    keep[2, 0] = True              # one row: falls back to the full inverse
+    keep[3, 2:] = False            # two rows: < 3 rows, falls back too
+    got = TS.subset_normal_inverses(X, keep)
+    np.testing.assert_array_equal(got, JS.subset_normal_inverses(X, keep))
+    full = np.linalg.inv(X.T @ X)
+    np.testing.assert_allclose(got[0], full, rtol=1e-12)
+    np.testing.assert_array_equal(got[2], full)
+    np.testing.assert_array_equal(got[3], full)
+    assert got[1, 0, 0] > full[0, 0] and got[1, 1, 1] > full[1, 1]
+
+
+# --------------------------------------------------------------------------
+# ranks and reductions
+# --------------------------------------------------------------------------
+
+def _rank_input(shape, seed):
+    """Values on a coarse grid (many exact ties), with NaNs, infs, -inf
+    and signed zeros (-0.0 ties with +0.0)."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(-2, 5, size=shape).astype(np.float32) * 0.25
+    x[rng.random(shape) < 0.1] = np.nan
+    x[rng.random(shape) < 0.05] = np.inf
+    x[rng.random(shape) < 0.03] = -np.inf
+    x[(x == 0) & (rng.random(shape) < 0.5)] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("shape", [(7,), (4, 28), (2, 3, 15), (5, 1), (3, 66), (2, 300)])
+def test_rank_along_last_matches_jax(shape):
+    x = _rank_input(shape, seed=len(shape) * 10 + shape[-1])
+    got = TL._rank_along_last(torch.as_tensor(x))
+    want = np.asarray(JL._rank_along_last(jnp.asarray(x)))
+    np.testing.assert_array_equal(got.numpy(), want)
+    # every row is a permutation of 0..P-1, equal to a stable argsort's ranks
+    order = np.argsort(np.where(np.isnan(x), np.inf, x), axis=-1, kind="stable")
+    ranks = np.empty_like(order)
+    np.put_along_axis(ranks, order, np.arange(x.shape[-1]), axis=-1)
+    np.testing.assert_array_equal(got.numpy(), ranks)
+
+
+def test_rank_chunking_is_bitwise(monkeypatch):
+    """A byte budget of one row a chunk gives one chunk's ranks exactly."""
+    x = torch.as_tensor(_rank_input((3, 11, 28), seed=5))
+    whole = TL._rank_along_last(x)
+    monkeypatch.setattr(TL, "RANK_CHUNK_BYTES", 1)
+    np.testing.assert_array_equal(TL._rank_along_last(x).numpy(), whole.numpy())
+    monkeypatch.setattr(TL, "RANK_CHUNK_BYTES", 28 * 28 * 4)   # 4-row chunks
+    np.testing.assert_array_equal(TL._rank_along_last(x).numpy(), whole.numpy())
+
+
+@pytest.mark.parametrize("P", [1, 5, 15, 28, 66, 120])
+def test_tree_sum_last_matches_jax(P):
+    """Non-power-of-two lengths: the same halving tree, bit for bit."""
+    x = np.random.default_rng(P).standard_normal((9, P)).astype(np.float32)
+    got = TS.tree_sum_last(torch.as_tensor(x))
+    np.testing.assert_array_equal(got.numpy(), np.asarray(JS.tree_sum_last(jnp.asarray(x))))
+    _close(got, x.astype(np.float64).sum(-1), tol=1e-5)
+
+
+def test_masked_refit_matches_jax_with_singular_subsets(geom):
+    """Random subsets within 1e-5 of JAX.  Singular normal matrices (no
+    row kept; only collinear rows kept, whose float32 determinant is
+    exactly 0) refit to exact zeros in both; all rows kept is OLS."""
+    X, _, tau = geom
+    w = (np.random.default_rng(3).random(tau.shape) < 0.7).astype(np.float32)
+    w[0, 0] = 0.0
+    got = TS.masked_refit(torch.as_tensor(tau), torch.as_tensor(X, dtype=torch.float32),
+                          torch.as_tensor(w))
+    want = JS.masked_refit(jnp.asarray(tau), jnp.asarray(X, jnp.float32), jnp.asarray(w))
+    _close(got, want)
+    assert (got[0, 0] == 0).all()
+    Xc = np.array([[1.0, 2.0], [2.0, 4.0], [3.0, -1.0], [0.5, 1.0]], np.float32)
+    wc = np.array([[1, 1, 0, 1], [1, 1, 1, 1]], np.float32)
+    tc = np.array([[0.3, -0.2, 0.7, 0.1], [0.3, -0.2, 0.7, 0.1]], np.float32)
+    got = TS.masked_refit(torch.as_tensor(tc), torch.as_tensor(Xc), torch.as_tensor(wc))
+    want = JS.masked_refit(jnp.asarray(tc), jnp.asarray(Xc), jnp.asarray(wc))
+    assert (got[0] == 0).all() and (np.asarray(want)[0] == 0).all()
+    _close(got, want)
+    full = TS.masked_refit(torch.as_tensor(tau[1]), torch.as_tensor(X, dtype=torch.float32),
+                           torch.ones(tau.shape[1:]))
+    pinv = np.linalg.inv(X.T @ X) @ X.T
+    _close(full, tau[1].astype(np.float64) @ pinv.T)
+
+
+# --------------------------------------------------------------------------
+# the sweep
+# --------------------------------------------------------------------------
+
+def test_funnel_survivors_on_tied_objectives():
+    """Stable ascending order = ``lax.top_k(-obj)``'s: among equal
+    objectives (and among infs) the lower index survives first."""
+    rng = np.random.default_rng(0)
+    obj = rng.integers(0, 4, size=(6, 40)).astype(np.float32)
+    obj[:, ::7] = np.inf
+    obj[3] = 1.0                                      # one row all tied
+    for k in (1, 5, 16, 40):
+        got = TL._survivors(torch.as_tensor(obj), k).numpy()
+        _, want = jax.lax.top_k(-jnp.asarray(obj), k)
+        np.testing.assert_array_equal(got, np.asarray(want), err_msg=f"k={k}")
+    np.testing.assert_array_equal(TL._survivors(torch.as_tensor(obj[3]), 5).numpy(),
+                                  np.arange(5))
+
+
+@pytest.mark.parametrize("funnel_k", [0, 8])
+def test_candidate_sweep_matches_jax(geom, funnel_k):
+    X, ci, tau = geom
+    h = TL.lts_h(0.75, X.shape[0])
+    obj_t, s_t = TL._candidate_sweep(torch.as_tensor(tau), *_args(X, ci, "torch"),
+                                     h, 4, funnel_k)
+    obj_j, s_j = JL._candidate_sweep(jnp.asarray(tau), *_args(X, ci, "jax"),
+                                     h, 4, funnel_k)
+    K = funnel_k or len(ci["cand"])
+    assert tuple(obj_t.shape) == tau.shape[:-1] + (K,)
+    _close(obj_t, obj_j, msg="objective")
+    _close(s_t, s_j, msg="s")
+    np.testing.assert_array_equal(torch.argmin(obj_t, -1).numpy(),
+                                  np.asarray(jnp.argmin(obj_j, -1)))
+
+
+def test_candidate_sweep_masks_degenerate_candidates(geom):
+    """A candidate whose 2x2 system is singular (ok = False) never wins."""
+    X, ci, tau = geom
+    ok = ci["ok"].copy()
+    ok[::3] = False
+    ci2 = dict(ci, ok=ok)
+    h = TL.lts_h(0.75, X.shape[0])
+    obj, _ = TL._candidate_sweep(torch.as_tensor(tau), *_args(X, ci2, "torch"), h, 4)
+    assert torch.isinf(obj[..., ::3]).all()
+    obj_j, _ = JL._candidate_sweep(jnp.asarray(tau), *_args(X, ci2, "jax"), h, 4)
+    _close(obj, obj_j)
+
+
+LTS_CASES = [
+    ("exhaustive", {}),
+    ("chunk17", {"candidate_chunk": 17}),
+    ("funnel16", {"funnel_k": 16}),
+    ("funnel16-chunk40", {"funnel_k": 16, "candidate_chunk": 40}),
+]
+
+
+@pytest.mark.parametrize("kw", [c[1] for c in LTS_CASES], ids=[c[0] for c in LTS_CASES])
+def test_lts_solve_matches_jax(geom, kw):
+    X, ci, tau = geom
+    h = TL.lts_h(0.75, X.shape[0])
+    got = TL.lts_solve(torch.as_tensor(tau), *_args(X, ci, "torch"), h, c_steps=4, **kw)
+    want = JL.lts_solve(jnp.asarray(tau), *_args(X, ci, "jax"), h, c_steps=4, **kw)
+    np.testing.assert_array_equal(got["retained"].numpy(), np.asarray(want["retained"]))
+    assert (got["retained"].sum(-1) == h).all()
+    for k in ("vel", "baz", "sig_tau", "vel_uncert", "baz_uncert", "s", "objective"):
+        _close(got[k], want[k], msg=k)
+
+
+def test_lts_solve_chunked_equals_unchunked(geom):
+    """Without the funnel, candidate blocks (ragged last block included)
+    equal one block bit for bit."""
+    X, ci, tau = geom
+    h = TL.lts_h(0.75, X.shape[0])
+    args = (torch.as_tensor(tau),) + _args(X, ci, "torch")
+    full = TL.lts_solve(*args, h)
+    for chunk in (17, 50, 104):
+        got = TL.lts_solve(*args, h, candidate_chunk=chunk)
+        for k, v in full.items():
+            torch.testing.assert_close(got[k], v, rtol=0, atol=0, equal_nan=True,
+                                       msg=f"{k} chunk {chunk}")
+
+
+def test_lts_solve_batch_shape_is_bitwise(geom):
+    """One window solved alone equals the same window inside the batch:
+    nothing in the sweep depends on the batch shape."""
+    X, ci, tau = geom
+    h = TL.lts_h(0.75, X.shape[0])
+    args = _args(X, ci, "torch")
+    full = TL.lts_solve(torch.as_tensor(tau), *args, h, funnel_k=16)
+    one = TL.lts_solve(torch.as_tensor(tau[2, 5]), *args, h, funnel_k=16)
+    for k, v in one.items():
+        torch.testing.assert_close(v, full[k][2, 5], rtol=0, atol=0, msg=k)

@@ -102,15 +102,12 @@ def test_batch_recovers_distinct_baz(arrays, method):
         assert np.median(d) < 6.0, f"array {k}"
 
 
-@pytest.mark.parametrize("case", ["nchans", "alpha", "mesh", "pallas-bucketed", "count"])
+@pytest.mark.parametrize("case", ["nchans", "mesh", "pallas-bucketed", "count"])
 def test_what_is_refused_raises(arrays, case):
     data, _, tp, rijs = arrays
     if case == "nchans":
         with pytest.raises(ValueError, match="same element count"):
             MultiArrayPipeline(tp, rijs[:2] + [np.zeros((2, 6))], device="cpu")
-    elif case == "alpha":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            MultiArrayPipeline(tp, rijs, alpha=0.75, device="cpu")
     elif case == "mesh":
         with pytest.raises(NotImplementedError, match="Queue 1 item 9"):
             MultiArrayPipeline(tp, rijs, mesh=object(), device="cpu")

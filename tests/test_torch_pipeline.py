@@ -90,6 +90,8 @@ def _jax_state(p, method="mxu"):
     d = {"h_bank": p._h_bank, "taper": p._taper, "X": p._X, "pinv": p._pinv,
          "XtX_inv": p._XtX_inv, "win_mask": p._win_mask,
          "bucket_inv_perm": p._bucket_inv_perm}
+    if p.alpha < 1.0:
+        d.update(cand=p._cand, Ainv=p._Ainv, cand_ok=p._cand_ok)
     if method == "fused":
         # the one-hot pair selections sbi/sbj have no port counterpart
         for i, bk in enumerate(p._fused_buckets):
@@ -211,7 +213,6 @@ def test_performance_defaults_reach_the_pipeline(small_stream):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"alpha": 0.75}, "Queue 1 item 6"),
     ({"xcorr_method": "fft"}, "Queue 1 item 11"),
     ({"subsample_delays": True}, "Queue 1 item 11"),
     ({"window_method": "patches"}, "Queue 1 item 11"),

@@ -1,16 +1,19 @@
 """PyTorch port: cross-correlation against the JAX package.
 
 The same windows go through the JAX ``cross_correlate_mxu`` and
-``cross_correlate_pallas`` (interpreted) and through the port's two
-functions on the CPU.  ``tau`` must be exact; rho and MdCCM within 1e-5
-(float32 sums in another order, and the port's single stacked inverse-DFT
-product against JAX's two).
+``cross_correlate_pallas`` (interpreted), jitted as the JAX pipeline runs
+them, and through the port's two functions on the CPU.  ``tau`` must be
+exact: both compute ``lag * (1/fs)`` (a jitted division by a constant
+multiplies by its reciprocal, and so does the port, on every device); rho
+and MdCCM within 1e-5 (float32 sums in another order, and the port's single
+stacked inverse-DFT product against JAX's two).
 """
 
 import numpy as np
 import pytest
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from narrow_band_least_squares_tpu.ops import xcorr as JXC
@@ -43,6 +46,11 @@ def _torch_tables(tab):
             for k, v in tab.items()}
 
 
+def _jit(fn, win, *args, **kw):
+    """``fn(win, *args, **kw)`` jitted over the windows, the rest constants."""
+    return jax.jit(lambda w: fn(w, *args, **kw))(jnp.asarray(win))
+
+
 def _check(got, want):
     tau, rho, md = (t.numpy() for t in got)
     np.testing.assert_array_equal(tau, np.asarray(want[0]))
@@ -56,8 +64,8 @@ def _check(got, want):
 def test_mxu_matches_jax(C):
     win, pairs, lag_mask, lengths, Lmax = _batch(C)
     tab = JXC.precompute_dft_tables(Lmax, np.float32)
-    want = JXC.cross_correlate_mxu(jnp.asarray(win), jnp.asarray(pairs),
-                                   jnp.asarray(lag_mask), _jax_tables(tab), 10.0)
+    want = _jit(JXC.cross_correlate_mxu, win, jnp.asarray(pairs),
+                jnp.asarray(lag_mask), _jax_tables(tab), 10.0)
     got = TXC.cross_correlate_mxu(
         torch.from_numpy(win), torch.from_numpy(pairs).long(),
         torch.from_numpy(lag_mask), _torch_tables(tab), 10.0,
@@ -69,11 +77,11 @@ def test_mxu_matches_jax(C):
 def test_pallas_matches_jax_mxu_and_pallas(C):
     win, pairs, lag_mask, lengths, Lmax = _batch(C, seed=C)
     tm = JXC.precompute_dft_tables(Lmax, np.float32)
-    want_m = JXC.cross_correlate_mxu(jnp.asarray(win), jnp.asarray(pairs),
-                                     jnp.asarray(lag_mask), _jax_tables(tm), 10.0)
+    want_m = _jit(JXC.cross_correlate_mxu, win, jnp.asarray(pairs),
+                  jnp.asarray(lag_mask), _jax_tables(tm), 10.0)
     tp = JXC.precompute_pallas_tables(Lmax, lengths)
-    want_p = JXC.cross_correlate_pallas(jnp.asarray(win), jnp.asarray(pairs),
-                                        _jax_tables(tp), 10.0, interpret=True)
+    want_p = _jit(JXC.cross_correlate_pallas, win, jnp.asarray(pairs),
+                  _jax_tables(tp), 10.0, interpret=True)
     got = TXC.cross_correlate_pallas(
         torch.from_numpy(win), torch.from_numpy(pairs).long(),
         _torch_tables(TXC.precompute_pallas_tables(Lmax, lengths)), 10.0,
@@ -88,8 +96,8 @@ def test_mxu_with_lag_cap_matches_jax():
     c = Lmax - 1
     capped = lag_mask[:, c - half: c + half + 1]
     tab = JXC.precompute_dft_tables(Lmax, np.float32, max_lag=half)
-    want = JXC.cross_correlate_mxu(jnp.asarray(win), jnp.asarray(pairs),
-                                   jnp.asarray(capped), _jax_tables(tab), 10.0)
+    want = _jit(JXC.cross_correlate_mxu, win, jnp.asarray(pairs),
+                jnp.asarray(capped), _jax_tables(tab), 10.0)
     got = TXC.cross_correlate_mxu(
         torch.from_numpy(win), torch.from_numpy(pairs).long(),
         torch.from_numpy(capped), _torch_tables(tab), 10.0,

@@ -43,6 +43,12 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   runs bit for bit; a 16-element array (7,140 candidates, chunked) against
   a smaller chunk bit for bit; the LTS step, the sweep and peak memory on
   the canonical and dense50 plans beside the OLS step;
+- ``monitor``: ``examples/example_monitoring.py``'s workload (6 h in 1200 s
+  segments, batches of 4) through ``StreamingMonitor(..., device="cuda")``
+  with 'mxu' and 'fused' at 'high': the persisted segments against the
+  CPU and against ``pipe.run``, the truth, resume, launches per route, no
+  retry; a bfloat16 wire; an LTS monitor on 2 h against the CPU's flags;
+  segments and windows per second and the device time per batch;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
   times, profiles.
 """
@@ -84,11 +90,19 @@ PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
-          "multiarray", "lts", "timing")
+          "multiarray", "lts", "monitor", "timing")
 LTS_ALPHA = 0.75
 LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
 LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
 CANONICAL_BUCKETS = 8  # window-length buckets of the canonical plan: one lag search each
+# the streaming monitor (examples/example_monitoring.py): 6 h in 1200 s segments,
+# dispatched 4 at a time; the LTS monitor on 2 h
+MONITOR_HOURS, MONITOR_LTS_HOURS = 6.0, 2.0
+MONITOR_SEGMENT_S = 1200.0
+MONITOR_DISPATCH = 4
+# 'mxu' monitor results against pipe.run of all segments in one batch: the
+# forward-DFT SGEMM sees another row count (as MULTI_TOL)
+MONITOR_RUN_TOL = 1e-5
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -322,7 +336,7 @@ def run_api(st, freqlist, winlens, device, alpha=1.0):
     )
 
 
-def compare_outputs(gpu, cpu, ncl):
+def compare_outputs(gpu, cpu, ncl, label="main path"):
     """vel/baz/MdCCM/sig_tau within TOL on confident windows (MdCCM > 0.6),
     and at least 99% of all valid windows within TOL."""
     names = ("vel", "baz", "mdccm", None, None, "sig_tau")
@@ -344,16 +358,16 @@ def compare_outputs(gpu, cpu, ncl):
             if conf.any():
                 worst = max(worst, float(np.max((d / lim)[conf])))
         if not close[conf].all():
-            fail(f"band {b}: {int((~close[conf]).sum())} confident windows "
+            fail(f"{label} band {b}: {int((~close[conf]).sum())} confident windows "
                  f"differ between cuda and cpu beyond {TOL}")
         ok_all += int(close.sum())
         n_all += n
     share = ok_all / n_all
-    log(f"main path cuda vs cpu: confident windows within {TOL} "
+    log(f"{label} cuda vs cpu: confident windows within {TOL} "
         f"(worst |d|/tol {worst:.3f}); all valid windows within {TOL}: "
         f"{ok_all}/{n_all} = {share:.4f}")
     if share < 0.99:
-        fail("fewer than 99% of valid windows agree between cuda and cpu")
+        fail(f"{label}: fewer than 99% of valid windows agree between cuda and cpu")
 
 
 def ground_truth(out, ncl, baz_true=BAZ_TRUE, vel_true=VEL_TRUE, label=""):
@@ -1131,6 +1145,381 @@ def phase_lts(label):
 
 
 # --------------------------------------------------------------------------
+# the streaming monitor
+# --------------------------------------------------------------------------
+
+def monitor_inputs(hours, outlier_channels=()):
+    """examples/example_monitoring.py's workload: 8 elements at 20 Hz for
+    ``hours``, the canonical 8-band plan on 1200 s segments."""
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    st = synthetic_plane_wave(
+        nchans=NCHANS, duration_s=hours * 3600.0, fs=FS, baz_deg=BAZ_TRUE,
+        trace_vel_kms=VEL_TRUE, f0=0.8, bandwidth=1.4, snr=6.0, seed=SEED,
+        outlier_channels=outlier_channels,
+    )
+    freqlist, nbands, _ = get_freqlist(FMIN, FMAX, "log", NBANDS)
+    winlens = get_winlenlist("adaptive", nbands, WINLEN, WINLEN_1, WINLEN_X)
+    plan = make_plan(freqlist, "log", winlens, WINOVER, int(MONITOR_SEGMENT_S * FS), FS)
+    return st, plan, get_rij(st.latitudes, st.longitudes, st.nchans), freqlist
+
+
+class RetryCounter:
+    """While installed (``with``), counts the warnings the monitor logs: a
+    failed dispatch, a retry, a failed attempt."""
+
+    def __enter__(self):
+        import logging
+
+        self.n = 0
+        self.logger = logging.getLogger("nbls_torch.streaming")
+        counter = self
+
+        class Handler(logging.Handler):
+            def emit(self, record):
+                if record.levelno >= logging.WARNING:
+                    counter.n += 1
+
+        self.handler = Handler()
+        self.logger.addHandler(self.handler)
+        return self
+
+    def __exit__(self, *exc):
+        self.logger.removeHandler(self.handler)
+
+
+def segment_npz(path):
+    with np.load(path) as z:
+        return {k: z[k] for k in ("vel", "baz", "mdccm", "sig_tau", "flags")}
+
+
+def guarded(out, keys=("vel", "baz", "mdccm", "sig_tau")):
+    """Outputs as the monitor persists them: float64, non-finite as 0."""
+    return {k: np.where(np.isfinite(out[k]), out[k], 0.0).astype(np.float64)
+            for k in keys}
+
+
+def monitor_run(label, st, plan, rij, freqlist, workdir, name, warm=True, **kw):
+    """One monitor over ``st`` on the card in a fresh directory, after a
+    warm-up monitor on its first batch (another directory).  Checks that no
+    retry was logged.  Returns (monitor, records, seconds of process(),
+    launches by route)."""
+    import shutil
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
+
+    def make(d):
+        shutil.rmtree(d, ignore_errors=True)
+        return StreamingMonitor(plan, rij, d, freqlist, dispatch_segments=MONITOR_DISPATCH,
+                                device="cuda", **kw)
+
+    if warm:
+        make(os.path.join(workdir, name + "-warm")).process(
+            st.slice_samples(0, MONITOR_DISPATCH * plan.npts))
+    mon = make(os.path.join(workdir, name))
+    torch.cuda.synchronize()
+    with RetryCounter() as retries:
+        zero_launches()
+        t0 = time.perf_counter()
+        recs = mon.process(st)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        counts = lag_search_launches()
+        mon.close()
+    if retries.n:
+        fail(f"monitor {name}: {retries.n} failed dispatches or retries were logged")
+    nseg = len(mon.segment_starts(st))
+    if len(recs) != nseg:
+        fail(f"monitor {name}: {len(recs)} segments persisted, not {nseg}")
+    nwin = nseg * sum(plan.num_compute_list)
+    log(f"[{label}] monitor {name}: process() of {nseg} segments of "
+        f"{plan.npts} samples in batches of {mon.batch}: {secs:.4f} s, "
+        f"{nseg / secs:.2f} segments/s, {nwin / secs:.1f} windows solved/s; "
+        f"launches icorr_peak fp32 {counts[0]} / tensor-core {counts[1]}, "
+        f"fused_xcorr_bucket fp32 {counts[2]} / tensor-core {counts[3]}; no retry")
+    return mon, recs, secs, counts
+
+
+def check_monitor_launches(name, counts, method, nbatches):
+    """(e): the method's tensor-core route once per bucket of each batch,
+    nothing else (the prediction in PERF.md)."""
+    want = nbatches * CANONICAL_BUCKETS
+    expect = (0, want, 0, 0) if method == "mxu" else (0, 0, 0, want)
+    if counts != expect:
+        fail(f"monitor {name}: launches {counts}, predicted {expect} ({nbatches} "
+             f"batches x {CANONICAL_BUCKETS} buckets)")
+
+
+def check_monitor_cpu(name, st, plan, rij, recs, method, segs=(0, 1, -1)):
+    """(a): the card's persisted segments (cold, first warm, last) against
+    the port's run_extended of the same segments on the CPU."""
+    from narrow_band_least_squares_tpu_torch.parallel import ShardedNarrowBandPipeline
+
+    cpu = ShardedNarrowBandPipeline(plan, rij, xcorr_method=method, device="cpu")
+    idx = [s % len(recs) for s in segs]
+    out = cpu.run_extended(cpu.extend_segments(st.data, [i * plan.npts for i in idx]))
+    ncl = plan.num_compute_list
+    for k, i in enumerate(idx):
+        z = segment_npz(recs[i].path_npz)
+        c = guarded({n: v[k] for n, v in out.items()})
+        compare_outputs((z["vel"], z["baz"], z["mdccm"], None, None, z["sig_tau"]),
+                        (c["vel"], c["baz"], c["mdccm"], None, None, c["sig_tau"]), ncl,
+                        label=f"monitor {name} segment {i}")
+
+
+def check_monitor_run(name, mon, st, recs, exact):
+    """(b): the persisted segments against ``pipe.run`` of the whole stream
+    in one batch on the card, bit for bit (``exact``) or within
+    MONITOR_RUN_TOL."""
+    out = guarded(mon.pipe.run(mon.pipe.segment_stream(st.data)))
+    W = mon.plan.max_windows
+    worst, unequal = 0.0, 0
+    for s, rec in enumerate(recs):
+        z = segment_npz(rec.path_npz)
+        for k, v in out.items():
+            a, b = z[k][:, :W], v[s]
+            d = np.abs(a - b)
+            worst = max(worst, float(d.max()))
+            unequal += int((a != b).sum())
+            if exact and unequal:
+                fail(f"monitor {name}: segment {s} {k} differs from pipe.run by up "
+                     f"to {float(d.max()):.3e} ({unequal} values)")
+            if (d > MONITOR_RUN_TOL + MONITOR_RUN_TOL * np.abs(b)).any():
+                fail(f"monitor {name}: segment {s} {k} differs from pipe.run beyond "
+                     f"{MONITOR_RUN_TOL} (max {float(d.max()):.3e})")
+    log(f"monitor {name} against pipe.run of all {len(recs)} segments in one "
+        f"batch: " + ("bit for bit" if exact else
+                      f"within {MONITOR_RUN_TOL} (max abs diff {worst:.3e}, "
+                      f"{unequal} values not bit-equal)"))
+
+
+def fft_batch_bits(mon, st):
+    """Logs whether cuFFT's bits for one segment's filter bank depend on
+    the batch count: segment 0 filtered alone (as the segment step does)
+    against filtered in one batched call with the other segments."""
+    import torch
+
+    pipe, base = mon.pipe, mon.pipe.base
+    x = torch.as_tensor(pipe._chain_halos(pipe.segment_stream(st.data)), device="cuda")
+    S, C, T = x.shape
+    alone = base._filter(x[0], nfft=pipe.nfft_ext, halo=pipe.halo)
+    batched = base._filter(x.reshape(S * C, T), nfft=pipe.nfft_ext, halo=pipe.halo)[:, :C]
+    d = (alone - batched).abs()
+    log(f"filter bank of segment 0 alone against in one cuFFT batch of {S} segments: "
+        f"{int((alone != batched).sum())} of {alone.numel()} values differ, max abs "
+        f"diff {float(d.max()):.3e} (largest |value| {float(alone.abs().max()):.3e})")
+
+
+def check_monitor_resume(name, mon, st, recs, exact):
+    """(d): a second process() does nothing; a deleted segment is redone
+    alone, its .txt byte-identical (``exact``) or within MONITOR_RUN_TOL."""
+    from narrow_band_least_squares_tpu_torch.io import read_txtfile
+
+    if mon.process(st) != []:
+        fail(f"monitor {name}: a second process() redid persisted segments")
+    rec = recs[5]
+    with open(rec.path_txt, "rb") as f:
+        before = f.read()
+    old = read_txtfile(mon.save_dir, os.path.basename(rec.path_txt)[:-4])
+    os.remove(rec.path_txt)
+    redo = mon.process(st)
+    mon.close()
+    if len(redo) != 1 or redo[0].start_epoch != rec.start_epoch:
+        fail(f"monitor {name}: deleting segment 5 redid {len(redo)} segments")
+    with open(redo[0].path_txt, "rb") as f:
+        after = f.read()
+    new = read_txtfile(mon.save_dir, os.path.basename(rec.path_txt)[:-4])
+    worst = max(float(np.abs(a - b).max()) for a, b in zip(new[:4], old[:4]))
+    if exact and after != before:
+        fail(f"monitor {name}: the redone segment's .txt is not byte-identical "
+             f"(max abs diff {worst:.3e})")
+    if any((np.abs(a - b) > MONITOR_RUN_TOL + MONITOR_RUN_TOL * np.abs(b)).any()
+           for a, b in zip(new[:4], old[:4])):
+        fail(f"monitor {name}: the redone segment differs beyond {MONITOR_RUN_TOL} "
+             f"(max abs diff {worst:.3e})")
+    log(f"monitor {name} resume: a second process() did nothing; the deleted "
+        f"segment 5 was redone alone, its .txt "
+        + ("byte-identical" if after == before else
+           f"within {MONITOR_RUN_TOL} (max abs diff {worst:.3e})"))
+
+
+def monitor_batch_times(label, mon, st, method):
+    """One batch of MONITOR_DISPATCH segments (``run_extended_async``: the
+    copy in and the segment step) by CUDA events over batches as the host
+    issues them, and its device busy time (torch.profiler), beside
+    MONITOR_DISPATCH x the canonical run_raw step of the same method."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+
+    pipe = mon.pipe
+    x4 = pipe.extend_segments(st.data, [k * pipe.plan.npts for k in range(MONITOR_DISPATCH)])
+    ev = cuda_time_ms(lambda: pipe.run_extended_async(x4), reps=10)
+    busy, rows = profile_once(lambda: pipe.run_extended_async(x4))
+    one = NarrowBandPipeline(pipe.plan, pipe.base.rij, xcorr_method=method, device="cuda")
+    seg = st.data[:, : pipe.plan.npts]
+    step_ev = cuda_time_ms(lambda: one.run_raw(seg), reps=20)
+    step_busy, step_rows = profile_once(lambda: one.run_raw(seg))
+    xd = torch.as_tensor(x4, device="cuda")
+    base, T = pipe.base, x4.shape[2]
+    per_seg = cuda_time_ms(lambda: [base._filter(row, nfft=pipe.nfft_ext, halo=pipe.halo)
+                                    for row in xd], reps=10)
+    batched = cuda_time_ms(lambda: base._filter(xd.reshape(-1, T), nfft=pipe.nfft_ext,
+                                                halo=pipe.halo), reps=10)
+    n = MONITOR_DISPATCH
+    log(f"[{label}] monitor {method}: the filter bank of a batch of {n} segments "
+        f"{per_seg:.4f} ms one segment at a time (as the segment step runs it), "
+        f"{batched:.4f} ms in one cuFFT batch (CUDA events over 10 batches)")
+    log(f"[{label}] monitor {method} at high: one batch of {n} segments "
+        f"{ev:.4f} ms by events, device busy {busy:.4f} ms in "
+        f"{sum(r[2] for r in rows)} kernels and copies; {n} x the canonical "
+        f"run_raw step {n * step_ev:.4f} ms by events, device busy "
+        f"{n * step_busy:.4f} ms in {n * sum(r[2] for r in step_rows)}")
+
+
+def monitor_profile(label, st, plan, rij, freqlist, workdir):
+    """Where ``process()`` spends its time ('mxu', 'high'): the device busy
+    share of one whole process() (torch.profiler), and one at a time the
+    host's parts of a batch: cutting the halo-extended segments, the
+    segment step to the host copy (run_extended, synchronous), and
+    persisting a segment (npz and TSV)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
+
+    mon = StreamingMonitor(plan, rij, os.path.join(workdir, "profiled"), freqlist,
+                           dispatch_segments=MONITOR_DISPATCH, device="cuda")
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        mon.process(st)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    busy = sum(r[0] for r in device_rows(prof)) * 1e-6
+    offs = [k * plan.npts for k in range(MONITOR_DISPATCH)]
+
+    def mean_s(fn, reps=5):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps
+
+    t_cut = mean_s(lambda: mon.pipe.extend_segments(st.data, offs))
+    x4 = mon.pipe.extend_segments(st.data, offs)
+    t_step = mean_s(lambda: mon.pipe.run_extended(x4))
+    out = mon.pipe.run_extended(x4)
+    t_write = mean_s(lambda: [mon._persist_segment(out, s, 1e9 + s) for s in range(len(offs))])
+    nb = -(-len(mon.segment_starts(st)) // MONITOR_DISPATCH)
+    log(f"[{label}] monitor profile (mxu, high): process() wall {wall * 1e3:.2f} ms "
+        f"under the profiler, device busy {busy * 1e3:.2f} ms "
+        f"({100 * busy / wall:.1f}%); a batch of {len(offs)} on the host, one part at a "
+        f"time: cut {t_cut * 1e3:.2f} ms, run_extended {t_step * 1e3:.2f} ms, persist "
+        f"{t_write * 1e3:.2f} ms ({nb} batches)")
+
+
+def monitor_lts(label, workdir):
+    """(g): LTS monitor ('mxu', ALPHA = LTS_ALPHA, element 3 incoherent) on
+    MONITOR_LTS_HOURS: the persisted flags equal the CPU's on every valid
+    window whose delays are bit-identical (at least LTS_SAME_MIN of them),
+    and element 3 is the most flagged."""
+    from narrow_band_least_squares_tpu_torch.parallel import ShardedNarrowBandPipeline
+
+    st, plan, rij, freqlist = monitor_inputs(MONITOR_LTS_HOURS,
+                                             outlier_channels=(LTS_OUTLIER,))
+    with LtsRecorder() as rec:
+        mon, recs, _, counts = monitor_run(label, st, plan, rij, freqlist, workdir,
+                                           "lts-mxu", warm=False, alpha=LTS_ALPHA)
+        tau_g = rec.taus[: len(recs)]
+    nb = -(-len(recs) // MONITOR_DISPATCH)
+    check_monitor_launches("lts-mxu", counts, "mxu", nb)
+    cpu = ShardedNarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, device="cpu")
+    with LtsRecorder() as rec:
+        out = cpu.run_extended(cpu.extend_segments(
+            st.data, [k * plan.npts for k in range(len(recs))]))
+        tau_c = rec.taus
+    wm = cpu.base.state_dict()["win_mask"].numpy()
+    n_same = n_valid = 0
+    for s, r in enumerate(recs):
+        z = segment_npz(r.path_npz)
+        same = (tau_g[s] == tau_c[s]).all(-1) & wm
+        n_same += int(same.sum())
+        n_valid += int(wm.sum())
+        bad = (z["flags"] != out["flags"][s]).any(-1) & same
+        if bad.any():
+            fail(f"monitor lts segment {s}: {int(bad.sum())} windows with "
+                 f"bit-identical delays flag other pairs on the card than on the CPU")
+    share = n_same / n_valid
+    log(f"monitor lts: {n_same}/{n_valid} = {share:.4f} valid windows with "
+        f"bit-identical delays on the card and the CPU; on all of them equal flags")
+    if share < LTS_SAME_MIN:
+        fail(f"monitor lts: fewer than {LTS_SAME_MIN:.0%} of the valid windows have "
+             f"bit-identical delays")
+    flags = mon.read_all(extras=True)[5]["flags"]
+    per = np.zeros(NCHANS, dtype=np.int64)
+    for p, (i, j) in enumerate(mon.pipe.base.pairs_np):
+        per[i] += flags[..., p].sum()
+        per[j] += flags[..., p].sum()
+    log(f"monitor lts: flags per element (1-based 1..{NCHANS}) {per.tolist()}")
+    if per.argmax() != LTS_OUTLIER:
+        fail(f"monitor lts: element {per.argmax() + 1} is the most flagged, not "
+             f"{LTS_OUTLIER + 1}")
+
+
+def bf16_envelope(ref, got):
+    """(h): tests/test_streaming.py:221-240's envelope of the bfloat16 wire
+    against the float32 wire."""
+    v1, b1, m1, _, n1 = ref[:5]
+    v2, b2, m2, _, n2 = got[:5]
+    if n1 != n2:
+        fail("monitor bf16: window counts differ from the float32 wire")
+    good = (m1 > MDCCM_THRESH) & (m2 > MDCCM_THRESH)
+    d = np.abs((b1[good] - b2[good] + 180.0) % 360.0 - 180.0)
+    dv = np.median(np.abs(v1[good] - v2[good]))
+    log(f"monitor bf16 wire against float32: {int(good.sum())} confident windows, "
+        f"median |d baz| {np.median(d):.4f} deg (max {d.max():.4f}), median "
+        f"|d vel| {dv:.6f} km/s")
+    if good.sum() <= 10 or np.median(d) >= 1.0 or d.max() >= 10.0 or dv >= 0.01:
+        fail("monitor bf16: outside the envelope of tests/test_streaming.py:221")
+
+
+def phase_monitor(label):
+    """examples/example_monitoring.py on the card: 'mxu' and 'fused' at
+    'high', checks (a)-(f), a bfloat16 wire (h), an LTS monitor (g), and
+    the throughput and batch times."""
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "monitor_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    st, plan, rij, freqlist = monitor_inputs(MONITOR_HOURS)
+    nbatches = -(-(st.npts // plan.npts) // MONITOR_DISPATCH)
+    for method in ("mxu", "fused"):
+        mon, recs, _, counts = monitor_run(label, st, plan, rij, freqlist, workdir,
+                                           method, xcorr_method=method)
+        check_monitor_launches(method, counts, method, nbatches)
+        check_monitor_cpu(method, st, plan, rij, recs, method)
+        check_monitor_run(method, mon, st, recs, exact=method == "fused")
+        if method == "fused":
+            fft_batch_bits(mon, st)
+        res = mon.read_all(extras=True)
+        ground_truth(res, res[4], label=f"monitor {method} ")
+        check_monitor_resume(method, mon, st, recs, exact=method == "fused")
+        if method == "mxu":
+            ref = res
+        monitor_batch_times(label, mon, st, method)
+    mon, _, _, _ = monitor_run(label, st, plan, rij, freqlist, workdir, "mxu-bf16",
+                               transfer_dtype="bfloat16")
+    bf16_envelope(ref, mon.read_all())
+    monitor_profile(label, st, plan, rij, freqlist, workdir)
+    monitor_lts(label, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -1555,6 +1944,9 @@ def main() -> int:
     if "lts" in phases:
         phase_lts(label)
         phase_done("lts")
+    if "monitor" in phases:
+        phase_monitor(label)
+        phase_done("monitor")
     if "timing" in phases:
         recs, plans, st = phase_timing(label, launches)
         phase_done("timing (icorr_peak)")

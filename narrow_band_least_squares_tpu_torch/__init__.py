@@ -6,21 +6,29 @@ public names, imports nothing of it, and runs on the card unless the caller
 passes ``device="cpu"``; on the CPU each hand-written kernel is replaced by
 its plain PyTorch version.
 
-What is ported so far is the OLS narrow-band main path:
+What is ported so far:
 
 - the band/window plan, geometry and time helpers (`utils`),
-- the waveform container and synthetic data (`io`),
+- the waveform container with its ObsPy-style indexing, synthetic data and
+  the reference TSV results format (`io`: ``write_txtfile`` /
+  ``read_txtfile``),
 - the frequency-domain filter bank (`ops.filters`),
 - window extraction (`ops.windows`),
 - DFT-as-matmul cross-correlation whose lag search is the CUDA kernel
-  ``icorr_peak`` (`ops.xcorr`, `ops.kernels`, ``csrc/xcorr_peak.cu``),
-- the closed-form OLS slowness solve (`ops.solve`),
-- the pipeline (`models.NarrowBandPipeline`) and the reference-parity API
-  (`api`),
+  ``icorr_peak`` (`ops.xcorr`, `ops.kernels`, ``csrc/xcorr_peak.cu`` and
+  ``csrc/xcorr_peak_tc.cu``),
 - ``xcorr_method='fused'``, whose delay search per window-length bucket is
   the CUDA kernel ``fused_xcorr_bucket`` (``csrc/fused_xcorr.cu``),
-- `models.MultiArrayPipeline` (many arrays per step, OLS, one device) and
-  `models.BroadbandPipeline` (one band).
+- the closed-form OLS solve (`ops.solve`) and exact-enumeration LTS
+  (``alpha < 1``, `ops.lts`) with its flags and stdict,
+- the pipeline (`models.NarrowBandPipeline`) and the reference-parity API
+  (`api`),
+- `models.MultiArrayPipeline` (many arrays per step, OLS or LTS, one
+  device) and `models.BroadbandPipeline` (one band),
+- the halo-extended segment step on one device
+  (`parallel.ShardedNarrowBandPipeline`) and the streaming monitor on it
+  (`models.StreamingMonitor`: batched dispatch, TSV/npz persistence,
+  resume).
 
 Importing the package builds no kernel: a kernel is compiled at its first
 launch on the card.
@@ -32,6 +40,8 @@ _API_NAMES = (
     "get_freqlist",
     "get_winlenlist",
     "filter_data",
+    "write_txtfile",
+    "read_txtfile",
     "get_rij",
     "make_float",
     "ltsva",
@@ -43,7 +53,9 @@ _API_NAMES = (
 )
 
 
-_MODEL_NAMES = ("NarrowBandPipeline", "MultiArrayPipeline", "BroadbandPipeline")
+_MODEL_NAMES = ("NarrowBandPipeline", "MultiArrayPipeline", "BroadbandPipeline",
+                "StreamingMonitor")
+_PARALLEL_NAMES = ("ShardedNarrowBandPipeline",)
 
 
 def __getattr__(name):
@@ -53,9 +65,12 @@ def __getattr__(name):
     if name in _MODEL_NAMES:
         from narrow_band_least_squares_tpu_torch import models
         return getattr(models, name)
+    if name in _PARALLEL_NAMES:
+        from narrow_band_least_squares_tpu_torch import parallel
+        return getattr(parallel, name)
     raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 __version__ = "0.1.0"
 
-__all__ = ["ArrayStream", *_API_NAMES, *_MODEL_NAMES]
+__all__ = ["ArrayStream", *_API_NAMES, *_MODEL_NAMES, *_PARALLEL_NAMES]

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
+from narrow_band_least_squares_tpu_torch.io.textio import read_txtfile, write_txtfile
 from narrow_band_least_squares_tpu_torch.models.narrowband import (
     NarrowBandPipeline,
     flags_to_stdict,
@@ -42,6 +43,8 @@ __all__ = [
     "get_rij",
     "make_float",
     "filter_data",
+    "write_txtfile",
+    "read_txtfile",
     "ltsva",
     "narrow_band_least_squares",
     "narrow_band_least_squares_parallel",
@@ -191,16 +194,21 @@ def ltsva(
             res.flags, res.t_array, res.num_compute_list, res.pairs,
             st.nchans, band_prefix=False,
         )
-    if plot_array_coordinates:  # parity convenience plot
-        import matplotlib.pyplot as plt
+    if plot_array_coordinates:  # parity convenience plot, best-effort
+        try:
+            import matplotlib.pyplot as plt
 
-        fig, ax = plt.subplots()
-        ax.scatter(rij[0], rij[1])
-        ax.set_xlabel("X [km]")
-        ax.set_ylabel("Y [km]")
-        ax.axis("square")
-        fig.savefig("array_coordinates.png", dpi=150)
-        plt.close(fig)
+            fig, ax = plt.subplots()
+            try:
+                ax.scatter(rij[0], rij[1])
+                ax.set_xlabel("X [km]")
+                ax.set_ylabel("Y [km]")
+                ax.axis("square")
+                fig.savefig("array_coordinates.png", dpi=150)
+            finally:
+                plt.close(fig)
+        except Exception:
+            pass
     return vel, baz, t, mdccm, stdict, sig_tau, vel_uncert, baz_uncert
 
 

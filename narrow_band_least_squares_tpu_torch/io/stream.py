@@ -3,8 +3,9 @@
 The on-host data contract of the port is the JAX package's ``ArrayStream``:
 a dense ``(nchans, npts)`` float array plus sampling rate, start time and
 coordinates.  This is the port's own copy (it imports nothing of the JAX
-package); acquisition (``gather_waveforms``, ObsPy, FDSN, wave servers) is
-not ported yet.
+package), with its ObsPy-style indexing (``len(st)``, ``st[i].data``,
+``st[i].times()``) and ``from_obspy`` bridge; acquisition
+(``gather_waveforms``, FDSN, wave servers) is not ported yet.
 """
 
 from __future__ import annotations
@@ -79,6 +80,28 @@ class ArrayStream:
         out.start_epoch = self.start_epoch + i0 / self.fs
         return out
 
+    # -- compatibility with ObsPy-style indexing used by plotting --------
+    def __len__(self) -> int:
+        return self.nchans
+
+    def __getitem__(self, i: int) -> "_TraceView":
+        return _TraceView(self, i)
+
+    # -- ObsPy bridge ----------------------------------------------------
+    @classmethod
+    def from_obspy(cls, st) -> "ArrayStream":
+        """Build from an ObsPy Stream whose traces carry .stats.latitude/longitude."""
+        npts = min(tr.stats.npts for tr in st)
+        data = np.stack([np.asarray(tr.data[:npts], dtype=np.float64) for tr in st])
+        return cls(
+            data=data,
+            fs=float(st[0].stats.sampling_rate),
+            start_epoch=float(st[0].stats.starttime.timestamp),
+            latitudes=[float(tr.stats.latitude) for tr in st],
+            longitudes=[float(tr.stats.longitude) for tr in st],
+            ids=[tr.id for tr in st],
+        )
+
     def save_npz(self, path: str) -> None:
         np.savez_compressed(
             path,
@@ -101,3 +124,28 @@ class ArrayStream:
             longitudes=[float(v) for v in z["longitudes"]],
             ids=[str(v) for v in z["ids"]],
         )
+
+
+class _TraceView:
+    """Minimal ObsPy-Trace-like view so plotting code can do st[0].times()."""
+
+    def __init__(self, stream: ArrayStream, idx: int):
+        self._stream = stream
+        self._idx = idx
+
+    @property
+    def data(self) -> np.ndarray:
+        return self._stream.data[self._idx]
+
+    def times(self, kind: str = "matplotlib") -> np.ndarray:
+        if kind == "matplotlib":
+            return self._stream.times_matplotlib()
+        if kind == "epoch":
+            return self._stream.times_epoch()
+        return np.arange(self._stream.npts) / self._stream.fs
+
+    def __array__(self, dtype=None, copy=None):
+        return np.asarray(self.data, dtype=dtype)
+
+    def __len__(self) -> int:
+        return self._stream.npts

@@ -33,7 +33,7 @@ class MultiArrayPipeline:
         plan: shared band/window plan.
         rij_list: per-array (2, N) geometries (same N across arrays).
         mesh: must be None; sharding the arrays over devices is not ported
-            yet (ROADMAP.md, Queue 1 item 9).
+            yet (ROADMAP.md, Queue 1 item 6).
         merge_chunk_arrays: how many arrays share one delay batch; 0 or None
             merges all of them.  The JAX package chunks to stay under an XLA
             tiling cliff on the TPU; the port keeps the option so both run
@@ -70,7 +70,7 @@ class MultiArrayPipeline:
                 f"all arrays must have the same element count, got {nchans}"
             )
         if mesh is not None:
-            raise _not_ported("MultiArrayPipeline(mesh=...)", "Queue 1 item 9")
+            raise _not_ported("MultiArrayPipeline(mesh=...)", "Queue 1 item 6")
         self.nchans = nchans.pop()
         self.A = len(rij_list)
         self.merge_chunk_arrays = int(merge_chunk_arrays or self.A)

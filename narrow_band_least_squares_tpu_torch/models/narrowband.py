@@ -204,23 +204,23 @@ class NarrowBandPipeline:
         device=None,
     ):
         if xcorr_method == "fft":
-            raise _not_ported("xcorr_method='fft'", "Queue 1 item 11")
+            raise _not_ported("xcorr_method='fft'", "Queue 1 item 8")
         if xcorr_method not in ("mxu", "pallas", "fused"):
             raise ValueError(f"unknown xcorr_method {xcorr_method!r}")
         if subsample_delays:
             if xcorr_method == "mxu":
-                raise _not_ported("subsample_delays=True", "Queue 1 item 11")
+                raise _not_ported("subsample_delays=True", "Queue 1 item 8")
             logger.warning(
                 "subsample_delays is ignored with xcorr_method=%r (the kernel "
                 "returns integer-lag peaks); use xcorr_method='mxu' for "
                 "parabolic sub-sample refinement", xcorr_method,
             )
         if window_method == "patches":
-            raise _not_ported("window_method='patches'", "Queue 1 item 11")
+            raise _not_ported("window_method='patches'", "Queue 1 item 8")
         if window_method not in ("strided", "gather"):
             raise ValueError(f"unknown window_method {window_method!r}")
         if dtype != torch.float32:
-            raise _not_ported(f"dtype={dtype}", "Queue 1 item 11")
+            raise _not_ported(f"dtype={dtype}", "Queue 1 item 8")
         XP.check_precision(matmul_precision)
         del bucket_ratio, xcorr_chunk_mb, xcorr_lag_tile
 
@@ -613,13 +613,20 @@ class NarrowBandPipeline:
             res["flags"] = ~out["retained"] & wm[..., None]
         return res
 
-    def _filter(self, x: torch.Tensor) -> torch.Tensor:
-        """One array's raw (C, T) -> the filtered bank (B, C, T)."""
+    def _filter(self, x: torch.Tensor, nfft: Optional[int] = None,
+                halo: int = 0) -> torch.Tensor:
+        """Raw rows (C, T) -> the filtered bank (B, C, T - halo).
+
+        ``nfft`` (default ``nfft_filter``) is the FFT length of the filter
+        bank; the first ``halo`` samples, which only warm the filter, are
+        dropped, and only then is the pipeline's taper applied.  Any dtype
+        of ``x`` is cast to the pipeline's on its device first."""
         s = self._state
         x = x.to(self.dtype)
         if self.apply_filter:
-            return F.filter_bank_fft(x, s["h_bank"], s["taper"], self.nfft_filter,
-                                     self.zerophase)
+            y = F.filter_bank_fft(x, s["h_bank"], None, nfft or self.nfft_filter,
+                                  self.zerophase)
+            return y[..., halo:] * s["taper"]
         # ltsva contract: the caller already filtered and tapered the data
         return x[None].expand((self.plan.nbands,) + tuple(x.shape))
 

@@ -227,7 +227,7 @@ def cross_correlate_mxu(
     if subsample:
         raise NotImplementedError(
             "subsample_delays=True is not ported yet (ROADMAP.md, Queue 1 "
-            "item 11)"
+            "item 8)"
         )
     del lag_tile
     nlag = lag_mask.shape[-1]

@@ -47,12 +47,20 @@ def test_import_builds_nothing():
         "from narrow_band_least_squares_tpu_torch.ops.kernels import _build, xcorr_peak\n"
         "from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr\n"
         "from narrow_band_least_squares_tpu_torch.models import (\n"
-        "    BroadbandPipeline, MultiArrayPipeline)\n"
+        "    BroadbandPipeline, MultiArrayPipeline, StreamingMonitor)\n"
+        "from narrow_band_least_squares_tpu_torch.models import streaming\n"
+        "from narrow_band_least_squares_tpu_torch.parallel import (\n"
+        "    ShardedNarrowBandPipeline, sharded)\n"
+        "from narrow_band_least_squares_tpu_torch.io import textio\n"
         "assert xcorr_peak._bound is None and fused_xcorr._bound is None\n"
         "assert xcorr_peak._bound_tc is None\n"
         "assert not _build._libs\n"
         "assert p.MultiArrayPipeline is MultiArrayPipeline\n"
         "assert p.BroadbandPipeline is BroadbandPipeline\n"
+        "assert p.StreamingMonitor is StreamingMonitor\n"
+        "assert p.ShardedNarrowBandPipeline is ShardedNarrowBandPipeline\n"
+        "assert p.write_txtfile is textio.write_txtfile is api.write_txtfile\n"
+        "assert p.read_txtfile is textio.read_txtfile is api.read_txtfile\n"
         "assert not any(m.split('.')[0] in ('jax', 'narrow_band_least_squares_tpu')"
         " for m in sys.modules), sorted(m for m in sys.modules if 'jax' in m)[:5]\n"
         "assert callable(p.narrow_band_least_squares)\n"
@@ -62,14 +70,15 @@ def test_import_builds_nothing():
     assert out.returncode == 0, out.stderr
 
 
-def test_entry_points_without_device_raise_without_cuda(small_stream):
+def test_entry_points_without_device_raise_without_cuda(small_stream, tmp_path):
     if torch.cuda.is_available():
         pytest.skip("this box has CUDA: the default device is usable")
     from narrow_band_least_squares_tpu_torch import api
     from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
     from narrow_band_least_squares_tpu_torch.models import (
-        BroadbandPipeline, NarrowBandPipeline,
+        BroadbandPipeline, NarrowBandPipeline, StreamingMonitor,
     )
+    from narrow_band_least_squares_tpu_torch.parallel import ShardedNarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.utils import (
         get_freqlist, get_rij, get_winlenlist, make_plan,
     )
@@ -86,6 +95,8 @@ def test_entry_points_without_device_raise_without_cuda(small_stream):
         lambda: NarrowBandPipeline(plan, rij),
         lambda: NarrowBandPipeline(plan, rij, xcorr_method="fused"),
         lambda: BroadbandPipeline(0.3, 1.2, 30.0, 0.5, st.npts, st.fs, rij),
+        lambda: ShardedNarrowBandPipeline(plan, rij),
+        lambda: StreamingMonitor(plan, rij, str(tmp_path), fl),
         lambda: api.filter_data(tst, "cheby1", 0.3, 1.2, 2, 0.01),
         lambda: api.ltsva(tst, st.latitudes, st.longitudes, 30, 0.5),
         lambda: api.narrow_band_least_squares(

@@ -213,9 +213,9 @@ def test_performance_defaults_reach_the_pipeline(small_stream):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"xcorr_method": "fft"}, "Queue 1 item 11"),
-    ({"subsample_delays": True}, "Queue 1 item 11"),
-    ({"window_method": "patches"}, "Queue 1 item 11"),
+    ({"xcorr_method": "fft"}, "Queue 1 item 8"),
+    ({"subsample_delays": True}, "Queue 1 item 8"),
+    ({"window_method": "patches"}, "Queue 1 item 8"),
 ])
 def test_unported_options_raise(small_stream, kw, item):
     st = small_stream

@@ -3,7 +3,8 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from ``narrow_band_least_squares_tpu_torch/
-csrc`` into ``build/nbls_torch_kernels/``, holds each kernel against its
+csrc`` into ``build/nbls_torch_kernels/`` (and its C++ host runtime into
+``build/nbls_torch_native/``), holds each kernel against its
 plain PyTorch version on the card, drives the canonical OLS narrow-band run
 (8 elements, 20 Hz, 1200 s, 8 log bands over 0.1-5 Hz, adaptive 50/60/30 s
 windows, cheby1 order 2) end to end through
@@ -49,8 +50,24 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   CPU and against ``pipe.run``, the truth, resume, launches per route, no
   retry; a bfloat16 wire; an LTS monitor on 2 h against the CPU's flags;
   segments and windows per second and the device time per batch;
+- ``ingest``: the monitor's stream as a station delivers it: Steim1
+  miniSEED written and decoded by the port's C++ codec, fed in arrival
+  order (per-channel lag of 0-2 records) through ``StreamingIngest``'s
+  native ring into ``StreamingMonitor(..., device="cuda")`` with 'mxu' and
+  'fused' at 'high': segments bit for bit the decoded stream's, results
+  against ``process()`` of the decoded stream, the CPU and the truth,
+  launches per route, every ``.txt`` by the C++ codec; decode, feed and
+  persistence times (C++ against Python TSV codec);
+- ``golden``: ``tests/data``'s recorded event through the port's
+  ``gather_waveforms_fdsn`` (miniSEED decode, StationXML deconvolution) and
+  ``api.narrow_band_least_squares(..., device="cuda")`` at ALPHA 1.0 and
+  0.75, against ``tests/data/golden.json`` and the CPU;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
   times, profiles.
+
+The ``build`` phase also compiles the port's native host runtime
+(``narrow_band_least_squares_tpu_torch/native``, ``g++``) and fails if it
+does not build.
 """
 
 from __future__ import annotations
@@ -90,7 +107,7 @@ PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
-          "multiarray", "lts", "monitor", "timing")
+          "multiarray", "lts", "monitor", "ingest", "golden", "timing")
 LTS_ALPHA = 0.75
 LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
 LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
@@ -103,6 +120,15 @@ MONITOR_DISPATCH = 4
 # 'mxu' monitor results against pipe.run of all segments in one batch: the
 # forward-DFT SGEMM sees another row count (as MULTI_TOL)
 MONITOR_RUN_TOL = 1e-5
+# ingest: the monitor's stream as Steim1 miniSEED, fed in packets of records
+INGEST_PACKET = 64
+INGEST_PEAK_COUNTS = 2 ** 15   # the encoding scale puts the peak near this
+# golden: tests/test_golden_event.py's plan and tests/test_torch_golden.py's rules
+GOLDEN_FMIN, GOLDEN_FMAX, GOLDEN_NBANDS = 0.3, 5.0, 6
+GOLDEN_WINLEN_1, GOLDEN_WINLEN_X = 30, 15
+GOLDEN_THRESH = 0.5   # golden.json's confident-window MdCCM threshold
+GOLDEN_EDGE = 1e-5    # windows this close to it may fall either side
+GOLDEN_RTOL = 1e-4    # per-band medians
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -1520,6 +1546,458 @@ def phase_monitor(label):
 
 
 # --------------------------------------------------------------------------
+# ingest: miniSEED -> StreamingIngest -> the monitor on the card
+# --------------------------------------------------------------------------
+
+def native_lib():
+    """The port's native runtime (miniSEED codec, ring buffer, TSV codec):
+    built from the checkout's sources, or the run fails."""
+    from narrow_band_least_squares_tpu_torch import native
+
+    lib = native.get_lib()
+    if lib is None:
+        fail(f"the native runtime did not build: {native.build_error}")
+    return lib
+
+
+def round_half_away(x):
+    """The encoder's rounding to counts (``native/ingest.cpp``)."""
+    return np.where(x < 0, np.trunc(x - 0.5), np.trunc(x + 0.5))
+
+
+def ingest_records(st, workdir):
+    """The monitor stream as a station would deliver it: Steim1 512-byte
+    records written by the port's ``write_mseed`` at a power-of-two scale
+    (exact in float64) whose peak is near INGEST_PEAK_COUNTS counts, then
+    decoded by the port's reader.  Checks every channel against
+    round(data x scale) exactly.  Returns (records, the decoded stream,
+    scale, (bytes, records, seconds to encode, seconds to decode))."""
+    from narrow_band_least_squares_tpu_torch.io.ingest import (
+        mseed_to_stream, read_mseed, read_mseed_records, write_mseed,
+    )
+
+    st = st.copy()
+    st.ids = [f"XX.E{c:02d}..BDF" for c in range(st.nchans)]   # NET.STA.LOC.CHA
+    peak = float(np.abs(st.data).max())
+    scale = 2.0 ** int(np.floor(np.log2(INGEST_PEAK_COUNTS / peak)))
+    counts = round_half_away(st.data * scale)
+    quant = (1.0 / np.sqrt(12.0)) / scale          # rms of the rounding
+    rms = float(np.sqrt(np.mean(st.data ** 2)))
+    path = os.path.join(workdir, "monitor.mseed")
+    t0 = time.perf_counter()
+    nbytes = write_mseed(path, st, scale=scale)
+    t_enc = time.perf_counter() - t0
+    with open(path, "rb") as f:
+        raw = f.read()
+    reps, t0 = 3, time.perf_counter()
+    for _ in range(reps):
+        recs = read_mseed_records(raw)
+    t_dec = (time.perf_counter() - t0) / reps
+    if [(r.sid, r.t0, r.samples.tolist()[:3]) for r in read_mseed(path)[:3]] != \
+            [(r.sid, r.t0, r.samples.tolist()[:3]) for r in recs[:3]]:
+        fail("ingest: read_mseed and read_mseed_records disagree")
+    coords = dict(zip(st.ids, zip(st.latitudes, st.longitudes)))
+    dec = mseed_to_stream(recs, coords)
+    if dec.ids != list(st.ids) or dec.npts != st.npts:
+        fail(f"ingest: the decoded stream has ids {dec.ids[:2]}.. and {dec.npts} "
+             f"samples, not {st.ids[:2]}.. and {st.npts}")
+    bad = int((dec.data != counts).sum())
+    if bad:
+        fail(f"ingest: {bad} decoded samples differ from round(data x scale)")
+    log(f"ingest: scale {scale:g} counts per unit (peak {peak * scale:.0f} counts); "
+        f"quantisation rms {quant:.3e} against the data's rms {rms:.3e} "
+        f"({quant / rms:.2e} of it); {len(recs)} Steim1 records of 512 B, "
+        f"{nbytes} B; every channel decodes to round(data x scale) exactly")
+    if quant > 1e-3 * rms:
+        fail("ingest: the quantisation is not under the noise")
+    return recs, dec, scale, (nbytes, len(recs), t_enc, t_dec)
+
+
+def arrival_order(records):
+    """examples/example_streaming_ingest.py:58-68's telemetry: each channel
+    lags 0-2 records (rng seed 0); records sorted by index plus lag."""
+    rng = np.random.default_rng(0)
+    by_sid = {}
+    for r in records:
+        by_sid.setdefault(r.sid, []).append(r)
+    keyed = []
+    for sid in by_sid:
+        lag = int(rng.integers(0, 3))
+        keyed += [(k + lag, r) for k, r in enumerate(by_sid[sid])]
+    keyed.sort(key=lambda kr: kr[0])
+    return [r for _, r in keyed]
+
+
+def ingest_feed(st, plan, rij, freqlist, feed, workdir, name, method):
+    """Feed ``feed`` into the port's StreamingIngest INGEST_PACKET records
+    at a time; after each packet every ready segment goes to a
+    ``StreamingMonitor(..., device="cuda", dispatch_segments=4)`` with the
+    segment before it, so the monitor cuts the filter halo from real data
+    (the earlier segment is queued or persisted already and is skipped).
+    Returns (monitor, its records in segment order, the segments, the
+    ingest, seconds of feeding, of emission, of the whole loop to the last
+    persisted file, launches by route, TSV files by codec)."""
+    import shutil
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.io import ArrayStream, textio
+    from narrow_band_least_squares_tpu_torch.io.ingest import StreamingIngest
+    from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
+
+    def monitor(d):
+        shutil.rmtree(d, ignore_errors=True)
+        return StreamingMonitor(plan, rij, d, freqlist, dispatch_segments=MONITOR_DISPATCH,
+                                device="cuda", xcorr_method=method)
+
+    warm = monitor(os.path.join(workdir, name + "-warm"))
+    warm.process(st.slice_samples(0, MONITOR_DISPATCH * plan.npts))
+    warm.close()
+    mon = monitor(os.path.join(workdir, name))
+    ing = StreamingIngest(st.ids, fs=st.fs, segment_npts=plan.npts,
+                          latitudes=st.latitudes, longitudes=st.longitudes)
+    if not ing.ring.is_native:
+        fail(f"ingest {name}: the ring buffer is not native")
+    segs, prev = [], None
+    t_feed = t_emit = 0.0
+    torch.cuda.synchronize()
+    with RetryCounter() as retries:
+        zero_launches()
+        before = dict(textio.codec_writes)
+        t_all = time.perf_counter()
+        for i in range(0, len(feed), INGEST_PACKET):
+            t0 = time.perf_counter()
+            ing.feed_records(feed[i:i + INGEST_PACKET])
+            t1 = time.perf_counter()
+            ready = list(ing.ready_segments())
+            t_feed += t1 - t0
+            t_emit += time.perf_counter() - t1
+            for seg in ready:
+                segs.append(seg)
+                sub = seg if prev is None else ArrayStream(
+                    data=np.concatenate([prev.data, seg.data], axis=1), fs=seg.fs,
+                    start_epoch=prev.start_epoch, latitudes=seg.latitudes,
+                    longitudes=seg.longitudes, ids=seg.ids)
+                mon.submit(sub)
+                prev = seg
+        recs = mon.close()
+        torch.cuda.synchronize()
+        t_all = time.perf_counter() - t_all
+        counts = lag_search_launches()
+        codecs = {k: v - before[k] for k, v in textio.codec_writes.items()}
+    if retries.n:
+        fail(f"ingest {name}: {retries.n} failed dispatches or retries were logged")
+    return mon, recs, segs, ing, t_feed, t_emit, t_all, counts, codecs
+
+
+def check_ingest_segments(name, segs, ing, dec, plan):
+    """(1): every segment bit for bit the decoded stream's slice, nothing
+    dropped, the ring native."""
+    nseg = dec.npts // plan.npts
+    if len(segs) != nseg:
+        fail(f"ingest {name}: {len(segs)} segments emitted, not {nseg}")
+    for s, seg in enumerate(segs):
+        want = dec.data[:, s * plan.npts:(s + 1) * plan.npts]
+        if not np.array_equal(seg.data, want) or seg.start_epoch != \
+                dec.start_epoch + s * plan.npts / dec.fs:
+            fail(f"ingest {name}: segment {s} is not the decoded stream's slice")
+    if ing.dropped_records != 0 or not ing.ring.is_native:
+        fail(f"ingest {name}: dropped_records {ing.dropped_records}, native ring "
+             f"{ing.ring.is_native}")
+    log(f"ingest {name}: {len(segs)} segments, each bit for bit the decoded stream's "
+        f"slice; dropped_records 0; native ring")
+
+
+def check_ingest_against_process(name, recs, ref_recs, exact):
+    """(2): the persisted results against process() of the decoded stream
+    as a whole, bit for bit (``exact``) or within MONITOR_RUN_TOL."""
+    if len(recs) != len(ref_recs):
+        fail(f"ingest {name}: {len(recs)} segments persisted, process() {len(ref_recs)}")
+    worst, unequal = 0.0, 0
+    for s, (a, b) in enumerate(zip(recs, ref_recs)):
+        if a.start_epoch != b.start_epoch:
+            fail(f"ingest {name}: segment {s} starts at {a.start_epoch}, process()'s "
+                 f"at {b.start_epoch}")
+        za, zb = segment_npz(a.path_npz), segment_npz(b.path_npz)
+        for k in ("vel", "baz", "mdccm", "sig_tau"):
+            d = np.abs(za[k] - zb[k])
+            worst = max(worst, float(d.max()))
+            unequal += int((za[k] != zb[k]).sum())
+            if (d > MONITOR_RUN_TOL + MONITOR_RUN_TOL * np.abs(zb[k])).any():
+                fail(f"ingest {name}: segment {s} {k} differs from process() beyond "
+                     f"{MONITOR_RUN_TOL} (max {float(d.max()):.3e})")
+    if exact and unequal:
+        fail(f"ingest {name}: {unequal} values differ from process() (max {worst:.3e})")
+    log(f"ingest {name} against process() of the decoded stream: "
+        + ("bit for bit" if not unequal else
+           f"within {MONITOR_RUN_TOL} (max abs diff {worst:.3e}, {unequal} values "
+           f"not bit-equal)"))
+
+
+def check_ingest_codec(name, mon, recs, codecs):
+    """(6): every .txt of the run written by the C++ codec; segment 0's
+    .txt byte for byte the Python codec's for the same arrays."""
+    from narrow_band_least_squares_tpu_torch.io import textio
+
+    if codecs != {"native": len(recs), "python": 0}:
+        fail(f"ingest {name}: TSV files by codec {codecs}, not {len(recs)} native")
+    with np.load(recs[0].path_npz) as z:
+        arrs = [z[k] for k in ("vel", "baz", "mdccm", "t")]
+    ref = textio.write_txtfile(os.path.dirname(recs[0].path_txt), "python-codec",
+                               *arrs, mon.freqlist, mon.plan.num_compute_list,
+                               use_native=False)
+    with open(recs[0].path_txt, "rb") as f, open(ref, "rb") as g:
+        same = f.read() == g.read()
+    os.remove(ref)
+    if not same:
+        fail(f"ingest {name}: segment 0's .txt differs from the Python codec's bytes")
+    log(f"ingest {name}: all {len(recs)} .txt written by the C++ codec; segment 0's "
+        f"byte for byte the Python codec's")
+
+
+def persist_times(label, mon, st, plan, rec0):
+    """A batch of MONITOR_DISPATCH segments persisted (npz and TSV), with
+    the C++ TSV codec and with the Python one, in turns (native, Python,
+    Python, native), one part at a time as PERF.md's F2 split it, beside the
+    segment step (run_extended) of the same batch; and process() of the
+    stream with each codec.  Returns {name: ms or segments/s}."""
+    import functools
+    import shutil
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.io import textio
+    from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
+    from narrow_band_least_squares_tpu_torch.models import streaming
+
+    offs = [k * plan.npts for k in range(MONITOR_DISPATCH)]
+    x4 = mon.pipe.extend_segments(st.data, offs)
+    out = mon.pipe.run_extended(x4)
+    reps = 5
+
+    def mean_ms(fn):
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) / reps * 1e3
+
+    native_writer = streaming.write_txtfile
+    python_writer = functools.partial(textio.write_txtfile, use_native=False)
+
+    def persist():
+        for s in range(MONITOR_DISPATCH):
+            mon._persist_segment(out, s, 2e9 + s)
+
+    res = {"step": mean_ms(lambda: mon.pipe.run_extended(x4))}
+    times = {"native": [], "python": []}
+    try:
+        for codec in ("native", "python", "python", "native"):
+            streaming.write_txtfile = native_writer if codec == "native" else python_writer
+            times[codec].append(mean_ms(persist))
+        for codec in ("native", "python"):
+            streaming.write_txtfile = native_writer if codec == "native" else python_writer
+            d = os.path.join(os.path.dirname(mon.save_dir), f"process-{codec}")
+            shutil.rmtree(d, ignore_errors=True)
+            m = StreamingMonitor(plan, mon.pipe.base.rij, d, mon.freqlist,
+                                 dispatch_segments=MONITOR_DISPATCH, device="cuda")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            n = len(m.process(st))
+            torch.cuda.synchronize()
+            res[f"process_{codec}"] = n / (time.perf_counter() - t0)
+            m.close()
+    finally:
+        streaming.write_txtfile = native_writer
+    for codec, ts in times.items():
+        res[f"persist_{codec}"] = float(np.mean(ts))
+    with np.load(rec0.path_npz) as z:
+        arrs = [z[k] for k in ("vel", "baz", "mdccm", "t")]
+    tsv = {}
+    for codec in ("native", "python", "python", "native"):
+        tsv.setdefault(codec, []).append(mean_ms(lambda: [textio.write_txtfile(
+            mon.save_dir, f"tsv-{codec}-{s}", *arrs, mon.freqlist,
+            plan.num_compute_list, use_native=codec == "native")
+            for s in range(MONITOR_DISPATCH)]))
+    for codec, ts in tsv.items():
+        res[f"tsv_{codec}"] = float(np.mean(ts))
+    log(f"[{label}] ingest persistence of a batch of {MONITOR_DISPATCH} segments "
+        f"(npz + TSV, host, mean of {reps} x 2 in turns): C++ codec "
+        f"{res['persist_native']:.2f} ms (runs {times['native'][0]:.2f} / "
+        f"{times['native'][1]:.2f}), Python codec {res['persist_python']:.2f} ms "
+        f"({times['python'][0]:.2f} / {times['python'][1]:.2f}); the TSV alone "
+        f"{res['tsv_native']:.2f} against {res['tsv_python']:.2f} ms; the segment "
+        f"step (run_extended) {res['step']:.2f} ms")
+    log(f"[{label}] ingest process() of the decoded stream ('mxu', 'high'): "
+        f"{res['process_native']:.2f} segments/s with the C++ codec, "
+        f"{res['process_python']:.2f} with the Python codec; the step's pace "
+        f"{MONITOR_DISPATCH / res['step'] * 1e3:.2f} segments/s")
+    return res
+
+
+def phase_ingest(label):
+    """The monitor's 6 h stream as a station would deliver it: Steim1
+    records, decoded by the port, fed in arrival order through the native
+    ring into StreamingMonitor(..., device="cuda") with 'mxu' and 'fused'
+    at 'high'; checks (1)-(6) and the times."""
+    import shutil
+
+    import torch
+
+    native_lib()
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "ingest_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    st, plan, rij, freqlist = monitor_inputs(MONITOR_HOURS)
+    recs, dec, _, (nbytes, nrec, t_enc, t_dec) = ingest_records(st, workdir)
+    log(f"[{label}] ingest decode (read_mseed_records, C++, mean of 3): "
+        f"{t_dec * 1e3:.2f} ms for {nbytes} B = {nbytes / t_dec / 1e6:.1f} MB/s, "
+        f"{nrec / t_dec:.0f} records/s, {dec.nchans * dec.npts / t_dec / 1e6:.1f} "
+        f"Msamples/s; encode (write_mseed) {t_enc * 1e3:.2f} ms")
+    feed = arrival_order(recs)
+    nseg = dec.npts // plan.npts
+    nbatches = -(-nseg // MONITOR_DISPATCH)
+    for method in ("mxu", "fused"):
+        mon, mrecs, segs, ing, t_feed, t_emit, t_all, counts, codecs = ingest_feed(
+            dec, plan, rij, freqlist, feed, workdir, method, method)
+        check_ingest_segments(method, segs, ing, dec, plan)
+        ref = process_whole(dec, plan, rij, freqlist, workdir, method)
+        check_ingest_against_process(method, mrecs, ref[0], exact=method == "fused")
+        check_monitor_cpu("ingest " + method, dec, plan, rij, mrecs, method)
+        res = mon.read_all()
+        ground_truth(res, res[4], label=f"ingest {method} ")
+        check_monitor_launches("ingest " + method, counts, method, nbatches)
+        check_ingest_codec(method, mon, mrecs, codecs)
+        log(f"[{label}] ingest {method}: {len(feed)} records in packets of "
+            f"{INGEST_PACKET}; feed {t_feed / nseg * 1e3:.3f} ms and emission "
+            f"{t_emit / nseg * 1e3:.3f} ms per segment; ingest to the last persisted "
+            f"file {t_all:.4f} s = {nseg / t_all:.2f} segments/s, process() of the "
+            f"decoded stream {ref[1]:.2f} segments/s; launches icorr_peak fp32 "
+            f"{counts[0]} / tensor-core {counts[1]}, fused_xcorr_bucket fp32 "
+            f"{counts[2]} / tensor-core {counts[3]}; no retry")
+        if method == "mxu":
+            persist_times(label, mon, dec, plan, mrecs[0])
+    torch.cuda.synchronize()
+    shutil.rmtree(workdir, ignore_errors=True)
+
+
+def process_whole(st, plan, rij, freqlist, workdir, method):
+    """process() of the whole stream by a fresh monitor on the card (after
+    the ingest run: the kernels are warm); returns (records, segments/s)."""
+    import shutil
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
+
+    d = os.path.join(workdir, method + "-process")
+    shutil.rmtree(d, ignore_errors=True)
+    mon = StreamingMonitor(plan, rij, d, freqlist, dispatch_segments=MONITOR_DISPATCH,
+                           device="cuda", xcorr_method=method)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    recs = mon.process(st)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mon.close()
+    return recs, len(recs) / secs
+
+
+# --------------------------------------------------------------------------
+# golden: the recorded-event fixture through the port's acquisition
+# --------------------------------------------------------------------------
+
+def golden_fetch(url, timeout=60.0):
+    """tests/data's fixture served by URL, as an FDSN service would."""
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+    name = ("i53_synth_event.mseed" if "dataselect" in url else
+            "i53_synth_event.xml" if "level=response" in url else
+            "i53_synth_event.txt")
+    with open(os.path.join(data, name), "rb") as f:
+        return f.read()
+
+
+def phase_golden(label):
+    """gather_waveforms_fdsn(..., remove_response=True) on the fixture, then
+    api.narrow_band_least_squares on the card at ALPHA 1.0 and 0.75, held
+    to tests/data/golden.json (as tests/test_torch_golden.py holds the CPU)
+    and to the port on the CPU."""
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.io.fdsn import gather_waveforms_fdsn
+
+    native_lib()
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+    with open(os.path.join(data, "i53_synth_event_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(data, "golden.json")) as f:
+        golden = json.load(f)
+    t0 = meta["start_epoch"]
+    st = gather_waveforms_fdsn("IRIS", "IM", "I53H*", "", "BDF", t0,
+                               t0 + meta["duration_s"], remove_response=True,
+                               _fetch=golden_fetch)
+    if st.nchans != meta["nchans"] or not np.isfinite(st.data).all():
+        fail(f"golden: {st.nchans} channels gathered, not {meta['nchans']}, or "
+             f"non-finite samples")
+    freqlist, nbands, _ = api.get_freqlist(GOLDEN_FMIN, GOLDEN_FMAX, "log", GOLDEN_NBANDS)
+    winlens = api.get_winlenlist("adaptive", nbands, 20, GOLDEN_WINLEN_1, GOLDEN_WINLEN_X)
+    fr = np.logspace(-2, np.log10(st.fs / 2), 50)
+
+    def run(alpha, device):
+        return api.narrow_band_least_squares(
+            winlens, 0.5, alpha, st, st.latitudes, st.longitudes, nbands, None, None,
+            freqlist, "log", fr, "cheby1", 2, 0.01, device=device)
+
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+
+    plan = make_plan(freqlist, "log", winlens, 0.5, st.npts, st.fs)
+    nbuckets = len(NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
+                                      device="cpu")._buckets)
+    runs = {}
+    for alpha in (1.0, 0.75):
+        for device in ("cuda", "cpu"):
+            with LtsRecorder() as rec:
+                zero_launches()
+                runs[alpha, device] = run(alpha, device), rec.taus
+                counts = lag_search_launches()
+            if device == "cuda":
+                log(f"golden ALPHA {alpha} on the card: launches icorr_peak fp32 "
+                    f"{counts[0]} / tensor-core {counts[1]}, fused_xcorr_bucket "
+                    f"{counts[2] + counts[3]} ({nbuckets} window-length buckets)")
+                if counts != (0, nbuckets, 0, 0):
+                    fail(f"golden at ALPHA {alpha}: launches {counts}, not one "
+                         f"icorr_peak tensor-core launch per bucket")
+    gpu, cpu = runs[1.0, "cuda"][0], runs[1.0, "cpu"][0]
+    ncl = gpu[6]
+    check_shapes(gpu, ncl, nbands)
+    compare_outputs(gpu, cpu, ncl, label="golden OLS")
+    (lg, tau_g), (lc, tau_c) = runs[0.75, "cuda"], runs[0.75, "cpu"]
+    compare_lts(lg, lc, tau_g[0], tau_c[0], ncl, "golden LTS")
+    mdccm = gpu[2]
+    for b, want in enumerate(golden["bands"]):
+        n = ncl[b]
+        edge = np.abs(mdccm[b, :n] - GOLDEN_THRESH) <= GOLDEN_EDGE
+        good = mdccm[b, :n] > GOLDEN_THRESH
+        if n != want["n_windows"]:
+            fail(f"golden band {b}: {n} windows, golden.json {want['n_windows']}")
+        if abs(int(good.sum()) - want["n_good"]) > int(edge.sum()):
+            fail(f"golden band {b}: {int(good.sum())} confident windows, golden.json "
+                 f"{want['n_good']} ({int(edge.sum())} within {GOLDEN_EDGE} of the "
+                 f"threshold)")
+        for key, col in (("median_baz", 1), ("median_vel", 0), ("median_mdccm", 2)):
+            got = float(np.median(gpu[col][b, :n][good]))
+            if abs(got - want[key]) > GOLDEN_RTOL * abs(want[key]):
+                fail(f"golden band {b} {key}: {got} on the card, golden.json "
+                     f"{want[key]} (rtol {GOLDEN_RTOL})")
+    flagged = sum(1 for k in lg[4] if k != "size")
+    if flagged != golden["lts_flagged_windows"]:
+        fail(f"golden LTS: {flagged} windows in the stdict, golden.json "
+             f"{golden['lts_flagged_windows']}")
+    check_outlier(lg[4], meta["nchans"], meta["outlier_channel"], "golden LTS")
+    log(f"golden: {sum(ncl)} windows in {nbands} bands, counts and the LTS stdict "
+        f"({flagged} windows) as golden.json, per-band medians within "
+        f"{GOLDEN_RTOL} relative, the card against the CPU as above")
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -1914,9 +2392,19 @@ def main() -> int:
         f"{torch.__version__}, cuda {torch.version.cuda}")
     torch.set_float32_matmul_precision("highest")
 
+    import threading
+
+    from narrow_band_least_squares_tpu_torch import native
+
     t0 = time.perf_counter()
+    host = threading.Thread(target=native.get_lib)   # g++ beside the nvcc builds
+    host.start()
     report = _build.build_all()
+    host.join()
     log(f"kernel build: {time.perf_counter() - t0:.2f} s for {sorted(report)}")
+    native_lib()
+    log(f"native runtime (g++, miniSEED codec, ring buffer, TSV codec): built in "
+        f"{native.build_seconds:.2f} s into {native.target()}")
     for name, r in report.items():
         for line in r["ptxas"].splitlines():
             if any(w in line for w in ("entry function", "registers", "spill", "smem")):
@@ -1947,6 +2435,12 @@ def main() -> int:
     if "monitor" in phases:
         phase_monitor(label)
         phase_done("monitor")
+    if "ingest" in phases:
+        phase_ingest(label)
+        phase_done("ingest")
+    if "golden" in phases:
+        phase_golden(label)
+        phase_done("golden")
     if "timing" in phases:
         recs, plans, st = phase_timing(label, launches)
         phase_done("timing (icorr_peak)")

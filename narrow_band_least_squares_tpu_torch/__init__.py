@@ -11,7 +11,13 @@ What is ported so far:
 - the band/window plan, geometry and time helpers (`utils`),
 - the waveform container with its ObsPy-style indexing, synthetic data and
   the reference TSV results format (`io`: ``write_txtfile`` /
-  ``read_txtfile``),
+  ``read_txtfile``, through a C++ codec),
+- data in (`io`): miniSEED decoding and Steim1 encoding, a gap-tracking
+  ring buffer and ``StreamingIngest`` (monitor-sized segments from a live
+  record feed), StationXML response removal, and acquisition from FDSN
+  services and Earthworm/Winston wave servers (``gather_waveforms``), on
+  the port's own C++ host runtime (`native`, built by ``g++`` at first
+  use),
 - the frequency-domain filter bank (`ops.filters`),
 - window extraction (`ops.windows`),
 - DFT-as-matmul cross-correlation whose lag search is the CUDA kernel
@@ -30,8 +36,8 @@ What is ported so far:
   (`models.StreamingMonitor`: batched dispatch, TSV/npz persistence,
   resume).
 
-Importing the package builds no kernel: a kernel is compiled at its first
-launch on the card.
+Importing the package builds nothing: a kernel is compiled at its first
+launch on the card, the host runtime at its first use.
 """
 
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream

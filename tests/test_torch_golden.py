@@ -1,9 +1,13 @@
 """PyTorch port: the recorded-event golden regression
-(``tests/test_golden_event.py``) run through the port's API on the CPU.
+(``tests/test_golden_event.py``) run through the port's acquisition and API
+on the CPU.
 
 The fixture's miniSEED and StationXML bytes are decoded and deconvolved by
-the JAX package's recorded-data path, as the JAX test does, and handed to
-the port as its own ``ArrayStream``.  The port's
+the port's own recorded-data path (`io.fdsn.gather_waveforms_fdsn`: the
+C++ miniSEED decoder, StationXML parsing, water-level deconvolution),
+served by the JAX test's offline fetcher; the resulting ``ArrayStream``
+equals the JAX package's exactly (data, ids, coordinates, rate, start).
+The port's
 ``narrow_band_least_squares`` runs at ALPHA 1.0 (OLS) and 0.75 (LTS) and is
 held to ``tests/data/golden.json``: window counts, confident-window counts
 and the LTS stdict's window count exactly (a window whose MdCCM lies within
@@ -17,8 +21,9 @@ import os
 import numpy as np
 import pytest
 
-from narrow_band_least_squares_tpu.io.fdsn import gather_waveforms_fdsn
+from narrow_band_least_squares_tpu.io.fdsn import gather_waveforms_fdsn as jgather
 from narrow_band_least_squares_tpu_torch import api as tapi
+from narrow_band_least_squares_tpu_torch.io.fdsn import gather_waveforms_fdsn
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
 
 from test_golden_event import (
@@ -42,15 +47,31 @@ def golden():
         return json.load(f)
 
 
-@pytest.fixture(scope="module")
-def results(meta):
+def _gather(fn, meta):
     t0 = meta["start_epoch"]
-    st = gather_waveforms_fdsn("IRIS", "IM", "I53H*", "", "BDF", t0,
-                               t0 + meta["duration_s"], remove_response=True,
-                               _fetch=_fixture_fetch)
-    tst = ArrayStream(data=st.data, fs=st.fs, start_epoch=st.start_epoch,
-                      latitudes=list(st.latitudes), longitudes=list(st.longitudes),
-                      ids=list(st.ids))
+    return fn("IRIS", "IM", "I53H*", "", "BDF", t0, t0 + meta["duration_s"],
+              remove_response=True, _fetch=_fixture_fetch)
+
+
+@pytest.fixture(scope="module")
+def stream(meta):
+    return _gather(gather_waveforms_fdsn, meta)
+
+
+def test_stream_equals_jax_acquisition(stream, meta):
+    want = _gather(jgather, meta)
+    assert isinstance(stream, ArrayStream)
+    np.testing.assert_array_equal(stream.data, want.data)
+    assert (stream.fs, stream.start_epoch) == (want.fs, want.start_epoch)
+    assert list(stream.ids) == list(want.ids)
+    assert list(stream.latitudes) == list(want.latitudes)
+    assert list(stream.longitudes) == list(want.longitudes)
+    assert stream.nchans == meta["nchans"]
+
+
+@pytest.fixture(scope="module")
+def results(stream):
+    tst = stream
     freqlist, nbands, _ = tapi.get_freqlist(FMIN, FMAX, "log", NBANDS)
     winlens = tapi.get_winlenlist("adaptive", nbands, 20, WINLEN_1, WINLEN_X)
     fr = np.logspace(-2, np.log10(tst.fs / 2), 50)

@@ -1,8 +1,10 @@
 """PyTorch port: import boundaries and device selection.
 
-The port and ``chip_smoke.py`` import neither ``jax`` nor the JAX package;
-importing the port builds no kernel; an entry point given no ``device`` runs
-on CUDA and raises where CUDA is absent, never falling back to the CPU.
+The port and ``chip_smoke.py`` import neither ``jax`` nor the JAX package,
+and no port file names the JAX package's native directory or its shared
+object (the port builds its own); importing the port builds no kernel and
+starts no compiler; an entry point given no ``device`` runs on CUDA and
+raises where CUDA is absent, never falling back to the CPU.
 """
 
 import ast
@@ -37,6 +39,54 @@ def test_no_jax_imports(path):
     for mod in _imports(path):
         top = mod.split(".")[0]
         assert top not in FORBIDDEN, f"{path.name} imports {mod}"
+
+
+PORT_FILES = sorted(p for p in PORT.rglob("*") if p.is_file()
+                    and p.suffix in (".py", ".cpp", ".cu", ".cuh"))
+
+
+@pytest.mark.parametrize("path", PORT_FILES + [ROOT / "chip_smoke.py"],
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES] + ["chip_smoke.py"])
+def test_no_reference_to_the_jax_native_library(path):
+    text = path.read_text()
+    for name in ("narrow_band_least_squares_tpu/native", "narrow_band_least_squares_tpu.native",
+                 "libnbls_native.so"):
+        assert name not in text, f"{path.name} names {name}"
+
+
+def test_importing_io_builds_nothing_and_starts_no_compiler():
+    code = (
+        "import subprocess, sys\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'a process was started at import: {a[:1]}')\n"
+        "subprocess.Popen = subprocess.run = subprocess.call = refuse\n"
+        "import narrow_band_least_squares_tpu_torch.io as io\n"
+        "from narrow_band_least_squares_tpu_torch.io import (\n"
+        "    earthworm, fdsn, ingest, response, stream, textio)\n"
+        "from narrow_band_least_squares_tpu_torch import native\n"
+        "assert native._lib is None and native.build_error is None\n"
+        "assert io.gather_waveforms is stream.gather_waveforms\n"
+        "assert io.StreamingIngest is ingest.StreamingIngest\n"
+        "assert io.RingBuffer is ingest.RingBuffer and io.MSRecord is ingest.MSRecord\n"
+        "assert io.read_mseed_records is ingest.read_mseed_records\n"
+        "assert io.read_mseed is ingest.read_mseed\n"
+        "assert io.mseed_to_stream is ingest.mseed_to_stream\n"
+        "assert not any(m.split('.')[0] in ('jax', 'narrow_band_least_squares_tpu')"
+        " for m in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_runs_the_ingest_and_golden_phases():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    phases = next(ast.literal_eval(node.value) for node in ast.walk(tree)
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "PHASES" for t in node.targets))
+    assert "ingest" in phases and "golden" in phases
+    assert phases.index("ingest") < phases.index("timing")
+    assert phases.index("golden") < phases.index("timing")
 
 
 def test_import_builds_nothing():

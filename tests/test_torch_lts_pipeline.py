@@ -111,13 +111,28 @@ def delays(monkeypatch):
 def _taus(delays, pipe, run=0, geometry=None):
     """(port, JAX) delays: the port's ``run``-th solve with this co-array
     (the merged batch solves its arrays in order), and of JAX's solves with
-    this co-array the one with the most windows equal to it (arrays may
-    share a geometry, and JAX's callbacks come in no fixed order)."""
+    this co-array the one with the most valid windows equal to it (arrays
+    may share a geometry, and JAX's callbacks come in no fixed order).
+
+    JAX's debug callbacks are unordered effects: ``jax.effects_barrier()``
+    waits for every one in flight before the record is read.  A record with
+    no solve of this co-array, or none whose delays match the port's on
+    MIN_SAME of the valid windows, fails with what was recorded."""
+    jax.effects_barrier()
     X = (geometry or pipe._geometry)["X"].numpy()
     tau_t = [t for x, t in delays["torch"] if np.array_equal(x, X)][run]
-    tau_j = max((t for x, t in delays["jax"] if np.array_equal(x, X)),
-                key=lambda t: int((t == tau_t).all(-1).sum()))
-    return tau_t, tau_j
+    cands = [t for x, t in delays["jax"] if np.array_equal(x, X)]
+    shapes = sorted({x.shape for x, _ in delays["jax"]})
+    assert cands, (f"none of the {len(delays['jax'])} recorded JAX solves (co-array "
+                   f"shapes {shapes}) has the port's co-array {X.shape}")
+    wm = pipe.state_dict()["win_mask"].numpy()
+    shares = [float(((t == tau_t).all(-1) & wm).sum() / wm.sum()) for t in cands]
+    best = int(np.argmax(shares))
+    assert shares[best] >= MIN_SAME, (
+        f"port solve {run}: no recorded JAX solve with its co-array has equal delays on "
+        f"{MIN_SAME:.0%} of the valid windows; shares {[round(v, 3) for v in shares]} "
+        f"over {len(cands)} of {len(delays['jax'])} JAX solves")
+    return tau_t, cands[best]
 
 
 @functools.lru_cache(maxsize=None)

@@ -62,8 +62,17 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   ``gather_waveforms_fdsn`` (miniSEED decode, StationXML deconvolution) and
   ``api.narrow_band_least_squares(..., device="cuda")`` at ALPHA 1.0 and
   0.75, against ``tests/data/golden.json`` and the CPU;
+- ``cli``: the port's command line (``narrow_band_least_squares_tpu_torch.
+  __main__.main``, as ``python -m narrow_band_least_squares_tpu_torch``
+  runs it) on the card: ``run --synthetic`` with the default config against
+  the same command on the CPU, the truth, ``config_used.json`` and the
+  figures; ``monitor`` on the monitor's 6 h stream as Steim1 miniSEED with
+  'mxu' and 'fused', bit for bit ``StreamingMonitor.process()`` of the
+  decoded stream, and resume; ``fetch`` of the golden fixture (served
+  offline), then ``run`` on it against ``tests/data/golden.json``; launches
+  per route and the command's phase times (``utils.profiling.PhaseTimers``);
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
-  times, profiles.
+  times, profiles (device time through ``utils.profiling``).
 
 The ``build`` phase also compiles the port's native host runtime
 (``narrow_band_least_squares_tpu_torch/native``, ``g++``) and fails if it
@@ -107,7 +116,7 @@ PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
-          "multiarray", "lts", "monitor", "ingest", "golden", "timing")
+          "multiarray", "lts", "monitor", "ingest", "golden", "cli", "timing")
 LTS_ALPHA = 0.75
 LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
 LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
@@ -129,6 +138,9 @@ GOLDEN_WINLEN_1, GOLDEN_WINLEN_X = 30, 15
 GOLDEN_THRESH = 0.5   # golden.json's confident-window MdCCM threshold
 GOLDEN_EDGE = 1e-5    # windows this close to it may fall either side
 GOLDEN_RTOL = 1e-4    # per-band medians
+# cli: the figure files `run` writes with the default config (ALPHA = 1)
+CLI_FIGURES = ("Broadband_Least_Squares", "Narrow_Band_Least_Squares",
+               "Narrow_Band_Processing_Parameters", "Narrow_Band_Least_Squares_Sigma_Tau")
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -364,7 +376,8 @@ def run_api(st, freqlist, winlens, device, alpha=1.0):
 
 def compare_outputs(gpu, cpu, ncl, label="main path"):
     """vel/baz/MdCCM/sig_tau within TOL on confident windows (MdCCM > 0.6),
-    and at least 99% of all valid windows within TOL."""
+    and at least 99% of all valid windows within TOL (sig_tau where both
+    sides have it)."""
     names = ("vel", "baz", "mdccm", None, None, "sig_tau")
     ok_all, n_all = 0, 0
     worst = 0.0
@@ -372,7 +385,7 @@ def compare_outputs(gpu, cpu, ncl, label="main path"):
         conf = cpu[2][b, :n] > MDCCM_THRESH
         close = np.ones(n, dtype=bool)
         for i, nm in enumerate(names):
-            if nm is None:
+            if nm is None or i >= len(gpu) or gpu[i] is None:
                 continue
             g, c = gpu[i][b, :n], cpu[i][b, :n]
             if nm == "baz":  # compare on the circle
@@ -1088,15 +1101,8 @@ def lts_rank_check(label, st, freqlist, winlens):
 def profile_once(fn):
     """Device ms of one call of ``fn`` (sum of every kernel and copy
     torch.profiler saw) and its largest rows."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
-    rows = device_rows(prof)
-    return sum(r[0] for r in rows) * 1e-3, rows
+    busy, rows = device_profile(fn)
+    return busy * 1e3, rows
 
 
 def lts_timing(label, st):
@@ -1413,18 +1419,14 @@ def monitor_profile(label, st, plan, rij, freqlist, workdir):
     segment step to the host copy (run_extended, synchronous), and
     persisting a segment (npz and TSV)."""
     import torch
-    from torch.profiler import ProfilerActivity, profile
     from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
 
     mon = StreamingMonitor(plan, rij, os.path.join(workdir, "profiled"), freqlist,
                            dispatch_segments=MONITOR_DISPATCH, device="cuda")
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        mon.process(st)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    busy = sum(r[0] for r in device_rows(prof)) * 1e-6
+    wall = []
+    busy, _ = device_profile(lambda: wall.append(wall_s(lambda: mon.process(st))))
+    wall = wall[0]
     offs = [k * plan.npts for k in range(MONITOR_DISPATCH)]
 
     def mean_s(fn, reps=5):
@@ -1915,6 +1917,44 @@ def golden_fetch(url, timeout=60.0):
         return f.read()
 
 
+def golden_inputs():
+    """tests/data's fixture metadata, golden.json, and the golden plan's
+    freqlist, band count and window lengths."""
+    from narrow_band_least_squares_tpu_torch import api
+
+    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
+    with open(os.path.join(data, "i53_synth_event_meta.json")) as f:
+        meta = json.load(f)
+    with open(os.path.join(data, "golden.json")) as f:
+        golden = json.load(f)
+    freqlist, nbands, _ = api.get_freqlist(GOLDEN_FMIN, GOLDEN_FMAX, "log", GOLDEN_NBANDS)
+    winlens = api.get_winlenlist("adaptive", nbands, 20, GOLDEN_WINLEN_1, GOLDEN_WINLEN_X)
+    return meta, golden, freqlist, nbands, winlens
+
+
+def check_golden(out, ncl, golden, label):
+    """Per band of ``out`` = (vel, baz, mdccm, ...): the window count, the
+    confident-window count (up to windows within GOLDEN_EDGE of the
+    threshold) and the medians of baz, vel and MdCCM over confident windows
+    (GOLDEN_RTOL) as golden.json has them."""
+    mdccm = out[2]
+    for b, want in enumerate(golden["bands"]):
+        n = ncl[b]
+        edge = np.abs(mdccm[b, :n] - GOLDEN_THRESH) <= GOLDEN_EDGE
+        good = mdccm[b, :n] > GOLDEN_THRESH
+        if n != want["n_windows"]:
+            fail(f"{label} band {b}: {n} windows, golden.json {want['n_windows']}")
+        if abs(int(good.sum()) - want["n_good"]) > int(edge.sum()):
+            fail(f"{label} band {b}: {int(good.sum())} confident windows, golden.json "
+                 f"{want['n_good']} ({int(edge.sum())} within {GOLDEN_EDGE} of the "
+                 f"threshold)")
+        for key, col in (("median_baz", 1), ("median_vel", 0), ("median_mdccm", 2)):
+            got = float(np.median(out[col][b, :n][good]))
+            if abs(got - want[key]) > GOLDEN_RTOL * abs(want[key]):
+                fail(f"{label} band {b} {key}: {got} on the card, golden.json "
+                     f"{want[key]} (rtol {GOLDEN_RTOL})")
+
+
 def phase_golden(label):
     """gather_waveforms_fdsn(..., remove_response=True) on the fixture, then
     api.narrow_band_least_squares on the card at ALPHA 1.0 and 0.75, held
@@ -1924,11 +1964,7 @@ def phase_golden(label):
     from narrow_band_least_squares_tpu_torch.io.fdsn import gather_waveforms_fdsn
 
     native_lib()
-    data = os.path.join(os.path.dirname(os.path.abspath(__file__)), "tests", "data")
-    with open(os.path.join(data, "i53_synth_event_meta.json")) as f:
-        meta = json.load(f)
-    with open(os.path.join(data, "golden.json")) as f:
-        golden = json.load(f)
+    meta, golden, freqlist, nbands, winlens = golden_inputs()
     t0 = meta["start_epoch"]
     st = gather_waveforms_fdsn("IRIS", "IM", "I53H*", "", "BDF", t0,
                                t0 + meta["duration_s"], remove_response=True,
@@ -1936,8 +1972,6 @@ def phase_golden(label):
     if st.nchans != meta["nchans"] or not np.isfinite(st.data).all():
         fail(f"golden: {st.nchans} channels gathered, not {meta['nchans']}, or "
              f"non-finite samples")
-    freqlist, nbands, _ = api.get_freqlist(GOLDEN_FMIN, GOLDEN_FMAX, "log", GOLDEN_NBANDS)
-    winlens = api.get_winlenlist("adaptive", nbands, 20, GOLDEN_WINLEN_1, GOLDEN_WINLEN_X)
     fr = np.logspace(-2, np.log10(st.fs / 2), 50)
 
     def run(alpha, device):
@@ -1945,12 +1979,9 @@ def phase_golden(label):
             winlens, 0.5, alpha, st, st.latitudes, st.longitudes, nbands, None, None,
             freqlist, "log", fr, "cheby1", 2, 0.01, device=device)
 
-    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
-    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+    from narrow_band_least_squares_tpu_torch.utils import make_plan
 
-    plan = make_plan(freqlist, "log", winlens, 0.5, st.npts, st.fs)
-    nbuckets = len(NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
-                                      device="cpu")._buckets)
+    nbuckets = lag_searches(make_plan(freqlist, "log", winlens, 0.5, st.npts, st.fs), st)
     runs = {}
     for alpha in (1.0, 0.75):
         for device in ("cuda", "cpu"):
@@ -1971,22 +2002,7 @@ def phase_golden(label):
     compare_outputs(gpu, cpu, ncl, label="golden OLS")
     (lg, tau_g), (lc, tau_c) = runs[0.75, "cuda"], runs[0.75, "cpu"]
     compare_lts(lg, lc, tau_g[0], tau_c[0], ncl, "golden LTS")
-    mdccm = gpu[2]
-    for b, want in enumerate(golden["bands"]):
-        n = ncl[b]
-        edge = np.abs(mdccm[b, :n] - GOLDEN_THRESH) <= GOLDEN_EDGE
-        good = mdccm[b, :n] > GOLDEN_THRESH
-        if n != want["n_windows"]:
-            fail(f"golden band {b}: {n} windows, golden.json {want['n_windows']}")
-        if abs(int(good.sum()) - want["n_good"]) > int(edge.sum()):
-            fail(f"golden band {b}: {int(good.sum())} confident windows, golden.json "
-                 f"{want['n_good']} ({int(edge.sum())} within {GOLDEN_EDGE} of the "
-                 f"threshold)")
-        for key, col in (("median_baz", 1), ("median_vel", 0), ("median_mdccm", 2)):
-            got = float(np.median(gpu[col][b, :n][good]))
-            if abs(got - want[key]) > GOLDEN_RTOL * abs(want[key]):
-                fail(f"golden band {b} {key}: {got} on the card, golden.json "
-                     f"{want[key]} (rtol {GOLDEN_RTOL})")
+    check_golden(gpu, ncl, golden, "golden")
     flagged = sum(1 for k in lg[4] if k != "size")
     if flagged != golden["lts_flagged_windows"]:
         fail(f"golden LTS: {flagged} windows in the stdict, golden.json "
@@ -1995,6 +2011,336 @@ def phase_golden(label):
     log(f"golden: {sum(ncl)} windows in {nbands} bands, counts and the LTS stdict "
         f"({flagged} windows) as golden.json, per-band medians within "
         f"{GOLDEN_RTOL} relative, the card against the CPU as above")
+
+
+# --------------------------------------------------------------------------
+# cli: the port's command line on the card
+# --------------------------------------------------------------------------
+
+def cli(*argv):
+    """``python -m narrow_band_least_squares_tpu_torch *argv`` in this
+    process (so that its launches are counted); returns the JSON it
+    printed."""
+    import contextlib
+    import io
+
+    from narrow_band_least_squares_tpu_torch.__main__ import main as cli_main
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        cli_main([str(a) for a in argv])
+    return json.loads(buf.getvalue())
+
+
+def cli_counted(expect, label, *argv):
+    """One command, with every launch count set to 0 just before it and
+    read just after; fails unless they are ``expect``.  Returns (the JSON
+    it printed, the launches, its seconds)."""
+    out = []
+    zero_launches()
+    secs = wall_s(lambda: out.append(cli(*argv)))
+    counts = lag_search_launches()
+    if counts != expect:
+        fail(f"cli {label}: launches {counts} (icorr_peak fp32, tensor-core, "
+             f"fused_xcorr_bucket fp32, tensor-core), not {expect}")
+    return out[0], counts, secs
+
+
+def lag_searches(plan, st, **kw):
+    """Window-length buckets of ``plan`` on ``st``'s array: one lag-search
+    launch each."""
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.utils import get_rij
+
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    return len(NarrowBandPipeline(plan, rij, device="cpu", **kw)._buckets)
+
+
+def cfg_plan(st, cfg):
+    """The narrow-band plan `run` builds from ``cfg`` for ``st``."""
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.utils import make_plan
+
+    freqlist, nbands, _ = api.get_freqlist(cfg.FMIN, cfg.FMAX, cfg.FREQ_BAND_TYPE,
+                                           cfg.NBANDS)
+    winlens = api.get_winlenlist(cfg.WINDOW_LENGTH_TYPE, nbands, cfg.WINLEN,
+                                 cfg.WINLEN_1, cfg.WINLEN_X)
+    return make_plan(freqlist, cfg.FREQ_BAND_TYPE, winlens, cfg.WINOVER, st.npts, st.fs)
+
+
+def run_lag_searches(st, cfg):
+    """(narrow-band, broadband) lag-search launches of `run` with ``cfg`` on
+    ``st``: api.narrow_band_least_squares, then api.ltsva (one band, no
+    filter bank)."""
+    from narrow_band_least_squares_tpu_torch.utils import make_plan
+
+    broadband = make_plan([0.0, st.fs / 2], "linear", [cfg.WINLEN], cfg.WINOVER,
+                          st.npts, st.fs)
+    return (lag_searches(cfg_plan(st, cfg), st),
+            lag_searches(broadband, st, apply_filter=False))
+
+
+def run_results(out):
+    """(vel, baz, mdccm, t, num_compute_list) of `run`'s TSV in ``out``,
+    read back by the port's read_txtfile."""
+    from narrow_band_least_squares_tpu_torch.io import read_txtfile
+
+    vel, baz, mdccm, t, _, ncl, _, _, _ = read_txtfile(out, "narrow_band_results")
+    return vel, baz, mdccm, t, [int(n) for n in ncl]
+
+
+def construction_split(label, st, cfg):
+    """`run`'s narrow-band phase in two parts: building the pipeline (a
+    `run` builds it anew: set_performance_defaults clears the API's cache)
+    and running it, each to a synchronize."""
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.utils import get_rij
+
+    plan = cfg_plan(st, cfg)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    fr = np.logspace(-2, np.log10(st.fs / 2), 1000)
+    pipe = []
+    t_build = wall_s(lambda: pipe.append(NarrowBandPipeline(plan, rij, device="cuda")))
+    t_run = wall_s(lambda: pipe[0].run(st, freq_resp_list=fr))
+    log(f"[{label}] cli run's narrow-band phase in parts: NarrowBandPipeline(...) "
+        f"{t_build:.4f} s (host filter bank and DFT tables, the tables' prepare on the "
+        f"card), then pipe.run {t_run:.4f} s")
+
+
+def cli_canonical(label, workdir, figures):
+    """`run --synthetic` with the default config on the card, against the
+    same command on the CPU and the truth; launches, config_used.json, the
+    figures, and the phase times of a cold and a warm (profiled) run."""
+    from narrow_band_least_squares_tpu_torch.config import NBLSConfig
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.utils import profiling
+    from narrow_band_least_squares_tpu_torch.utils.timeutils import parse_utc
+
+    cfg = NBLSConfig()
+    st = synthetic_plane_wave(   # the stream `run --synthetic` makes
+        nchans=8, duration_s=max(parse_utc(cfg.END) - parse_utc(cfg.START), 600.0),
+        fs=20.0, baz_deg=230.0, trace_vel_kms=0.34, start_epoch=parse_utc(cfg.START),
+        seed=42)
+    nb, bb = run_lag_searches(st, cfg)
+    expect = (0, nb + bb, 0, 0)
+    gdir, cdir, wdir = (os.path.join(workdir, n) for n in ("run-cuda", "run-cpu", "run-warm"))
+    flag = [] if figures else ["--no-figures"]
+    s_gpu, counts, secs = cli_counted(expect, "run", "run", "--synthetic", "--device", "cuda",
+                                      "--out", gdir, *flag)
+    log(f"[{label}] cli run --synthetic --device cuda {' '.join(flag)}(the first run "
+        f"of this plan in the process): {secs:.4f} s; launches icorr_peak fp32 "
+        f"{counts[0]} / tensor-core {counts[1]} = {nb} narrow-band buckets + {bb} "
+        f"broadband (ltsva) bucket, fused_xcorr_bucket {counts[2] + counts[3]}; "
+        f"PhaseTimers " + json.dumps(s_gpu["phases"]))
+    s_cpu, _, secs_cpu = cli_counted((0, 0, 0, 0), "run --device cpu", "run", "--synthetic",
+                                     "--device", "cpu", "--no-figures", "--out", cdir)
+    warm = []
+    busy, rows = device_profile(lambda: warm.append(cli_counted(
+        expect, "run (warm)", "run", "--synthetic", "--device", "cuda", "--no-figures",
+        "--out", wdir)))
+    s_warm, _, secs_warm = warm[0]
+    log(f"[{label}] cli run --synthetic --device cuda --no-figures again (warm), under "
+        f"the profiler: {secs_warm:.4f} s, device busy {busy:.4f} s "
+        f"({100 * busy / secs_warm:.1f}%) in {sum(r[2] for r in rows)} kernels and "
+        f"copies; PhaseTimers " + json.dumps(s_warm["phases"]) +
+        f"; the same command with --device cpu took {secs_cpu:.4f} s")
+    construction_split(label, st, cfg)
+    gpu, cpu = run_results(gdir), run_results(cdir)
+    if not (gpu[4] == cpu[4] == run_results(wdir)[4] == s_gpu["num_compute_list"]
+            == s_cpu["num_compute_list"]):
+        fail(f"cli run: num_compute_list {gpu[4]} on the card, {cpu[4]} on the CPU")
+    compare_outputs(gpu, cpu, gpu[4], label="cli run")
+    ground_truth(gpu, gpu[4], label="cli run ")
+    dbaz = (s_gpu["median_baz_deg"] - BAZ_TRUE + 180.0) % 360.0 - 180.0
+    if abs(dbaz) > 3.0 or abs(s_gpu["median_vel_kms"] - VEL_TRUE) > 0.1 * VEL_TRUE:
+        fail(f"cli run: median baz {s_gpu['median_baz_deg']} and vel "
+             f"{s_gpu['median_vel_kms']}, truth {BAZ_TRUE} and {VEL_TRUE}")
+    with open(os.path.join(gdir, "config_used.json")) as f:
+        if json.load(f) != cfg.to_dict():
+            fail("cli run: config_used.json is not NBLSConfig().to_dict()")
+    if figures:
+        paths = [os.path.join(gdir, n + cfg.file_type) for n in CLI_FIGURES]
+        sizes = [os.path.getsize(p) if os.path.exists(p) else 0 for p in paths]
+        if not all(sizes):
+            fail(f"cli run: figure files missing or empty: {dict(zip(CLI_FIGURES, sizes))}")
+        log(f"cli run: {len(paths)} figures at {cfg.dpi_num} dpi, bytes "
+            + json.dumps(dict(zip(CLI_FIGURES, sizes))))
+    log(f"cli run: the card's TSV as the CPU's, num_compute_list {gpu[4]} on both, "
+        f"median baz {s_gpu['median_baz_deg']:.4f} deg, vel {s_gpu['median_vel_kms']:.5f} "
+        f"km/s, config_used.json = NBLSConfig().to_dict()")
+    log(f"[{label}] cli run summary: " + profiling.RunSummary(
+        workload="cli run --synthetic", nbands=s_gpu["bands"],
+        num_compute_list=s_gpu["num_compute_list"], nchans=st.nchans, alpha=cfg.ALPHA,
+        device=profiling.device_name("cuda"), wall_s=secs,
+        phases=s_gpu["phases"]).to_json())
+
+
+def same_files(a, b, label):
+    """Every .npz and .txt of directory ``b`` is in ``a``, arrays and bytes
+    equal."""
+    names = sorted(n for n in os.listdir(b) if n.endswith((".npz", ".txt")))
+    if sorted(n for n in os.listdir(a) if n.endswith((".npz", ".txt"))) != names:
+        fail(f"{label}: the files differ: {sorted(os.listdir(a))[:4]}.. against "
+             f"{names[:4]}..")
+    for n in names:
+        pa, pb = os.path.join(a, n), os.path.join(b, n)
+        if n.endswith(".txt"):
+            with open(pa, "rb") as f, open(pb, "rb") as g:
+                same = f.read() == g.read()
+        else:
+            with np.load(pa) as za, np.load(pb) as zb:
+                same = sorted(za.files) == sorted(zb.files) and all(
+                    np.array_equal(za[k], zb[k], equal_nan=za[k].dtype.kind == "f")
+                    for k in za.files)
+        if not same:
+            fail(f"{label}: {n} differs")
+    return len(names)
+
+
+def cli_monitor(label, workdir):
+    """`monitor` on the monitor's 6 h stream as Steim1 miniSEED, with the
+    default config ('mxu') and with a config file that sets 'fused': every
+    segment bit for bit StreamingMonitor.process() of the decoded stream,
+    the route's launches once per bucket of each batch, and resume."""
+    from narrow_band_least_squares_tpu_torch.config import NBLSConfig
+
+    st, plan, rij, freqlist = monitor_inputs(MONITOR_HOURS)
+    _, dec, _, _ = ingest_records(st, workdir)
+    mseed = os.path.join(workdir, "monitor.mseed")
+    coords = os.path.join(workdir, "coords.json")
+    with open(coords, "w") as f:
+        json.dump({sid: [lat, lon] for sid, lat, lon in
+                   zip(dec.ids, dec.latitudes, dec.longitudes)}, f)
+    fused_cfg = os.path.join(workdir, "fused.json")
+    NBLSConfig(xcorr_method="fused").to_json(fused_cfg)
+    nseg = dec.npts // plan.npts
+    want = -(-nseg // MONITOR_DISPATCH) * CANONICAL_BUCKETS
+    for method in ("mxu", "fused"):
+        out = os.path.join(workdir, "cli-" + method)
+        argv = ["monitor", "--data", mseed, "--coords", coords, "--segment-s",
+                MONITOR_SEGMENT_S, "--dispatch-segments", MONITOR_DISPATCH, "--device",
+                "cuda", "--out", out] + ([] if method == "mxu" else ["--config", fused_cfg])
+        expect = (0, want, 0, 0) if method == "mxu" else (0, 0, 0, want)
+        rep, counts, secs = cli_counted(expect, f"monitor {method}", *argv)
+        if rep["segments_processed"] != nseg:
+            fail(f"cli monitor {method}: {rep['segments_processed']} segments, not {nseg}")
+        process_whole(dec, plan, rij, freqlist, workdir, method)
+        nfiles = same_files(out, os.path.join(workdir, method + "-process"),
+                            f"cli monitor {method} against process()")
+        again, _, secs2 = cli_counted((0, 0, 0, 0), f"monitor {method} again", *argv)
+        if again["segments_processed"] != 0:
+            fail(f"cli monitor {method}: a second invocation processed "
+                 f"{again['segments_processed']} segments, not 0")
+        log(f"[{label}] cli monitor ({method}) --data monitor.mseed --segment-s "
+            f"{MONITOR_SEGMENT_S:g} --dispatch-segments {MONITOR_DISPATCH}: {nseg} "
+            f"segments in {secs:.4f} s (miniSEED decode included), {nfiles} files bit "
+            f"for bit StreamingMonitor.process() of the decoded stream; launches "
+            f"icorr_peak fp32 {counts[0]} / tensor-core {counts[1]}, fused_xcorr_bucket "
+            f"fp32 {counts[2]} / tensor-core {counts[3]}; again: 0 segments in "
+            f"{secs2:.4f} s (resume)")
+
+
+class offline_fdsn:
+    """While installed (``with``): ``urllib.request.urlopen`` serves
+    tests/data's fixture (`golden_fetch`) and ObsPy cannot be imported, as
+    tests/test_torch_fdsn.py's fake does, so that `fetch` reaches no
+    network."""
+
+    class Response:
+        def __init__(self, data):
+            self.data = data
+
+        def read(self):
+            return self.data
+
+        def __enter__(self):
+            return self
+
+        def __exit__(self, *exc):
+            return False
+
+    def __enter__(self):
+        import urllib.request
+
+        self.real = urllib.request.urlopen
+        self.obspy = sys.modules.get("obspy", self)
+        urllib.request.urlopen = lambda req, timeout=0: self.Response(
+            golden_fetch(getattr(req, "full_url", req)))
+        sys.modules["obspy"] = None
+        return self
+
+    def __exit__(self, *exc):
+        import urllib.request
+
+        urllib.request.urlopen = self.real
+        if self.obspy is self:
+            del sys.modules["obspy"]
+        else:
+            sys.modules["obspy"] = self.obspy
+
+
+def cli_fetch_run(label, workdir):
+    """`fetch` of the golden fixture, then `run --data` on its npz with the
+    golden plan, held to golden.json."""
+    import datetime
+
+    from narrow_band_least_squares_tpu_torch.config import NBLSConfig
+    from narrow_band_least_squares_tpu_torch.io import ArrayStream
+
+    meta, golden, _, _, _ = golden_inputs()
+
+    def iso(epoch):
+        return datetime.datetime.fromtimestamp(epoch, datetime.timezone.utc).strftime(
+            "%Y-%m-%dT%H:%M:%S")
+
+    cfg = NBLSConfig(START=iso(meta["start_epoch"]),
+                     END=iso(meta["start_epoch"] + meta["duration_s"]),
+                     FMIN=GOLDEN_FMIN, FMAX=GOLDEN_FMAX, NBANDS=GOLDEN_NBANDS, WINLEN=20,
+                     WINLEN_1=GOLDEN_WINLEN_1, WINLEN_X=GOLDEN_WINLEN_X, ALPHA=1.0)
+    cpath, npz = os.path.join(workdir, "golden.json"), os.path.join(workdir, "event.npz")
+    cfg.to_json(cpath)
+    with offline_fdsn():
+        rep, _, t_fetch = cli_counted((0, 0, 0, 0), "fetch", "fetch", "--config", cpath,
+                                      "--out", npz)
+    st = ArrayStream.load_npz(npz)
+    if (rep["nchans"], rep["npts"]) != (meta["nchans"], st.npts) or \
+            not np.isfinite(st.data).all():
+        fail(f"cli fetch: {rep}")
+    nb, bb = run_lag_searches(st, cfg)
+    out = os.path.join(workdir, "golden-run")
+    s, counts, secs = cli_counted((0, nb + bb, 0, 0), "run on the fetched event", "run",
+                                  "--data", npz, "--config", cpath, "--device", "cuda",
+                                  "--no-figures", "--out", out)
+    res = run_results(out)
+    if res[4] != s["num_compute_list"]:
+        fail(f"cli fetch+run: the TSV's num_compute_list {res[4]}, the summary's "
+             f"{s['num_compute_list']}")
+    check_golden(res, res[4], golden, "cli fetch+run")
+    log(f"[{label}] cli fetch (golden fixture, served offline, response removed): "
+        f"{rep['nchans']} x {rep['npts']} samples in {t_fetch:.4f} s; run --data "
+        f"event.npz on the card: {secs:.4f} s, launches icorr_peak tensor-core "
+        f"{counts[1]} = {nb} + {bb} buckets; {sum(res[4])} windows in "
+        f"{len(res[4])} bands as golden.json (counts, medians within {GOLDEN_RTOL})")
+
+
+def phase_cli(label):
+    """The port's command line on the card: `run`, `monitor`, `fetch`."""
+    import importlib.util
+    import shutil
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "cli_smoke")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(workdir)
+    native_lib()
+    figures = importlib.util.find_spec("matplotlib") is not None
+    if not figures:
+        log("cli: matplotlib is not installed on this machine, so `run` draws no "
+            "figures here (--no-figures); the CPU tests hold the figures")
+    cli_canonical(label, workdir, figures)
+    cli_monitor(label, workdir)
+    cli_fetch_run(label, workdir)
+    shutil.rmtree(workdir, ignore_errors=True)
 
 
 # --------------------------------------------------------------------------
@@ -2060,38 +2406,49 @@ def route_bound_ms(flops, nbytes, precision):
     return max(ops, mem) * 1e3, ("operations" if ops >= mem else "bytes")
 
 
-def device_rows(prof):
-    """(device us, kernel name, calls) of every kernel and copy a
-    torch.profiler run saw, largest first."""
-    from torch.autograd import DeviceType
+def wall_s(fn):
+    """Host seconds of ``fn()`` up to the end of the device work it queued."""
+    import torch
 
-    rows = []
-    for e in prof.key_averages():
-        if e.device_type != DeviceType.CUDA:   # kernels and copies only
-            continue
-        dev_us = getattr(e, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(e, "self_cuda_time_total", 0.0)
-        if dev_us > 0:
-            rows.append((dev_us, e.key, e.count))
-    return sorted(rows, reverse=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def device_profile(fn):
+    """(device busy seconds, rows) of one call of ``fn`` under the package's
+    profiler (`utils.profiling.trace`, then `op_profile_summary`: every
+    kernel, memcpy and memset of the trace); rows are (device us, name,
+    calls), largest first."""
+    import shutil
+    import tempfile
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.utils import profiling
+
+    root = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(root, exist_ok=True)
+    d = tempfile.mkdtemp(prefix="trace-", dir=root)
+    try:
+        torch.cuda.synchronize()
+        with profiling.trace(d):
+            fn()
+        summary = profiling.op_profile_summary(d)
+    finally:
+        shutil.rmtree(d, ignore_errors=True)
+    return summary["device_busy_s"], [(k["total_s"] * 1e6, k["name"], k["calls"])
+                                      for k in summary["kernels"]]
 
 
 def profile_step(label, pipe, data, steps=5):
     """Device time by kernel name over a few steps (torch.profiler), and the
     device's busy share of the wall time."""
-    import torch
-    from torch.profiler import ProfilerActivity, profile
-
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            pipe.run_raw(data)
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-    rows = device_rows(prof)
-    busy = sum(r[0] for r in rows) * 1e-6
+    wall = []
+    busy, rows = device_profile(
+        lambda: wall.append(wall_s(lambda: [pipe.run_raw(data) for _ in range(steps)])))
+    wall = wall[0]
     log(f"[{label}] profile, canonical, {steps} steps: wall "
         f"{wall / steps * 1e3:.4f} ms/step, device busy "
         f"{busy / steps * 1e3:.4f} ms/step ({100 * busy / wall:.1f}% busy)")
@@ -2441,6 +2798,9 @@ def main() -> int:
     if "golden" in phases:
         phase_golden(label)
         phase_done("golden")
+    if "cli" in phases:
+        phase_cli(label)
+        phase_done("cli")
     if "timing" in phases:
         recs, plans, st = phase_timing(label, launches)
         phase_done("timing (icorr_peak)")

@@ -34,12 +34,18 @@ What is ported so far:
 - the halo-extended segment step on one device
   (`parallel.ShardedNarrowBandPipeline`) and the streaming monitor on it
   (`models.StreamingMonitor`: batched dispatch, TSV/npz persistence,
-  resume).
+  resume),
+- the run configuration (`config.NBLSConfig`, the JAX package's file
+  format), the command line (``python -m narrow_band_least_squares_tpu_torch
+  run|monitor|fetch|defaults``), the parity figures (`plotting`, host
+  matplotlib, imported only by the figure code) and the run profiler
+  (`utils.profiling`: phase timers, ``torch.profiler`` traces).
 
 Importing the package builds nothing: a kernel is compiled at its first
 launch on the card, the host runtime at its first use.
 """
 
+from narrow_band_least_squares_tpu_torch.config import NBLSConfig
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
 
 _API_NAMES = (
@@ -79,4 +85,4 @@ def __getattr__(name):
 
 __version__ = "0.1.0"
 
-__all__ = ["ArrayStream", *_API_NAMES, *_MODEL_NAMES, *_PARALLEL_NAMES]
+__all__ = ["NBLSConfig", "ArrayStream", *_API_NAMES, *_MODEL_NAMES, *_PARALLEL_NAMES]

@@ -3,8 +3,10 @@
 The port and ``chip_smoke.py`` import neither ``jax`` nor the JAX package,
 and no port file names the JAX package's native directory or its shared
 object (the port builds its own); importing the port builds no kernel and
-starts no compiler; an entry point given no ``device`` runs on CUDA and
-raises where CUDA is absent, never falling back to the CPU.
+starts no compiler; an entry point given no ``device`` (the command line
+given no ``--device``) runs on CUDA and raises where CUDA is absent, never
+falling back to the CPU; importing the port leaves matplotlib unloaded (only
+its figure code imports it).
 """
 
 import ast
@@ -89,6 +91,36 @@ def test_chip_smoke_runs_the_ingest_and_golden_phases():
     assert phases.index("golden") < phases.index("timing")
 
 
+def test_chip_smoke_runs_the_cli_phase():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    phases = next(ast.literal_eval(node.value) for node in ast.walk(tree)
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "PHASES" for t in node.targets))
+    assert "cli" in phases and phases.index("cli") < phases.index("timing")
+    names = {node.name for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)}
+    assert {"phase_cli", "cli_canonical", "cli_monitor", "cli_fetch_run"} <= names
+
+
+def test_importing_the_port_leaves_matplotlib_out():
+    code = (
+        "import sys\n"
+        "import narrow_band_least_squares_tpu_torch as p\n"
+        "from narrow_band_least_squares_tpu_torch import api, config, models, parallel\n"
+        "from narrow_band_least_squares_tpu_torch import __main__ as cli\n"
+        "from narrow_band_least_squares_tpu_torch.utils import profiling\n"
+        "from narrow_band_least_squares_tpu_torch.examples import (\n"
+        "    example, example_monitoring, example_streaming_ingest)\n"
+        "assert p.NBLSConfig is config.NBLSConfig\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'matplotlib')\n"
+        "assert not bad, bad[:5]\n"
+        "from narrow_band_least_squares_tpu_torch import plotting\n"
+        "assert 'matplotlib' in sys.modules\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
 def test_import_builds_nothing():
     code = (
         "import sys, narrow_band_least_squares_tpu_torch as p\n"
@@ -133,9 +165,13 @@ def test_entry_points_without_device_raise_without_cuda(small_stream, tmp_path):
         get_freqlist, get_rij, get_winlenlist, make_plan,
     )
 
+    from narrow_band_least_squares_tpu_torch.__main__ import main as cli_main
+
     st = small_stream
     tst = ArrayStream(data=st.data, fs=st.fs, start_epoch=st.start_epoch,
                       latitudes=list(st.latitudes), longitudes=list(st.longitudes))
+    npz = str(tmp_path / "stream.npz")
+    tst.save_npz(npz)
     fl, nb, _ = get_freqlist(0.3, 1.2, "log", 2)
     wl = get_winlenlist("constant", nb, 30, 0, 0)
     plan = make_plan(fl, "log", wl, 0.5, st.npts, st.fs)
@@ -155,6 +191,11 @@ def test_entry_points_without_device_raise_without_cuda(small_stream, tmp_path):
         lambda: api.narrow_band_loop(
             0, fl, "log", fr, tst, "cheby1", 2, 0.01, st.latitudes,
             st.longitudes, wl, 0.5, 1.0, 30),
+        lambda: cli_main(["run", "--data", npz, "--out", str(tmp_path / "run"),
+                          "--no-figures"]),
+        lambda: cli_main(["run", "--synthetic", "--out", str(tmp_path / "syn")]),
+        lambda: cli_main(["monitor", "--data", npz, "--out", str(tmp_path / "mon"),
+                          "--segment-s", "120"]),
     ]
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):

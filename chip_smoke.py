@@ -35,6 +35,18 @@ Phases, in order (``--phases`` picks a subset for a quick check):
 - ``multiarray``: ``MultiArrayPipeline`` on four canonical arrays, 'fused'
   at every precision (bit for bit) and 'mxu', against single-array runs,
   and ``BroadbandPipeline``;
+- ``sharded``: the (time, band) mesh on ``torch.distributed`` at full
+  width (the monitor's 6 h stream on the canonical plan; dense50 for band
+  shards): one process over NCCL at world size 1 (a 1x1 mesh) against the
+  one-device pipeline, bit for bit with 'fused' and 'mxu'; then ranks of
+  the worker ``narrow_band_least_squares_tpu_torch.parallel.smoke``, all
+  on ``cuda:0`` over gloo (NCCL cannot put two ranks on one GPU): (time=4)
+  'fused' bit for bit its sequential oracle, (2, 2) dense50 'mxu' within
+  1e-5 of it, (2, 2) LTS flags on bit-identical delays, each against the
+  CPU and the truth; the monitor on 4 ranks (rank 0 writes, resume)
+  against the one-process monitor; ``MultiArrayPipeline`` on (time=2)
+  against single arrays.  Launches per rank per route, wall times, halo
+  bytes and host-copy times;
 - ``lts``: exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
   with one incoherent element, through the API on the card and on the CPU,
   exhaustive and with ``PRODUCTION_DEFAULTS``: flags equal on every window
@@ -116,7 +128,8 @@ PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
-          "multiarray", "lts", "monitor", "ingest", "golden", "cli", "timing")
+          "multiarray", "sharded", "lts", "monitor", "ingest", "golden", "cli",
+          "timing")
 LTS_ALPHA = 0.75
 LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
 LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
@@ -823,6 +836,272 @@ def phase_multiarray():
     check_shapes(runs["cuda"], bncl, 1)
     compare_outputs(runs["cuda"], runs["cpu"], bncl)
     ground_truth(runs["cuda"], bncl, label="broadband ")
+
+
+# --------------------------------------------------------------------------
+# sharded: the (time, band) mesh across processes
+# --------------------------------------------------------------------------
+
+SHARDED_TIMEOUT_S = 600   # per launch of the worker's ranks
+SHARDED_PROCS = 4
+SHARDED_MOVED_MAX = 0.002  # share of confident windows whose lag may move card vs CPU
+
+
+def sharded_one_process(label, st, plan, rij):
+    """(1) One process over NCCL at world size 1: ``run`` through the mesh
+    code (the 1x1 device mesh, the all-gather) against the one-device
+    pipeline, bit for bit with 'fused' and 'mxu', the same launches."""
+    import torch
+    import torch.distributed as dist
+    from narrow_band_least_squares_tpu_torch.parallel import (
+        ShardedNarrowBandPipeline, make_mesh,
+    )
+    from narrow_band_least_squares_tpu_torch.parallel.smoke import free_port
+
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh(1, 1)
+        if not mesh.distributed or mesh.backend != "nccl":
+            fail(f"sharded: the 1x1 mesh over NCCL is {mesh!r}")
+        for method in ("fused", "mxu"):
+            runs, counts = {}, {}
+            for name, m in (("one device", None), ("mesh 1x1 nccl", mesh)):
+                pipe = ShardedNarrowBandPipeline(plan, rij, m, xcorr_method=method,
+                                                 device="cuda")
+                segs = pipe.segment_stream(st.data)
+                pipe.run(segs)
+                torch.cuda.synchronize()
+                zero_launches()
+                t0 = time.perf_counter()
+                runs[name] = pipe.run(segs)
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                counts[name] = lag_search_launches()
+                log(f"[{label}] sharded {method} {name}: run of {len(segs)} segments "
+                    f"{secs:.4f} s; launches {counts[name]}")
+            a, b = runs["one device"], runs["mesh 1x1 nccl"]
+            for k in a:
+                if not np.array_equal(a[k], b[k], equal_nan=True):
+                    fail(f"sharded {method}: {k} through the 1x1 NCCL mesh is not bit "
+                         "for bit the one-device pipeline")
+            want = ((0, 0, 0, CANONICAL_BUCKETS) if method == "fused"
+                    else (0, CANONICAL_BUCKETS, 0, 0))
+            if counts["one device"] != counts["mesh 1x1 nccl"] or counts["one device"] != want:
+                fail(f"sharded {method}: launches {counts}, expected {want} each")
+            log(f"sharded {method}: the 1x1 NCCL mesh equals the one-device pipeline "
+                f"bit for bit, {want} launches each")
+    finally:
+        dist.destroy_process_group()
+
+
+def sharded_launch(label, name, nproc, *argv):
+    """The worker's ranks on cuda:0 over gloo; logs each rank's stats and
+    checks its launches.  Returns (stats, rank 0's npz)."""
+    import shutil
+
+    from narrow_band_least_squares_tpu_torch.parallel.smoke import launch
+
+    outdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                          "sharded_smoke")
+    os.makedirs(outdir, exist_ok=True)
+    out = os.path.join(outdir, name + ".npz")
+    t0 = time.perf_counter()
+    try:
+        stats, _ = launch(nproc, [*argv, "--device", "cuda", "--backend", "gloo",
+                                  "--out", out], timeout_s=SHARDED_TIMEOUT_S)
+    except RuntimeError as e:
+        fail(f"sharded {name}: {e}")
+    secs = time.perf_counter() - t0
+    method = argv[argv.index("--xcorr-method") + 1] if "--xcorr-method" in argv else "mxu"
+    route = "fused_xcorr_bucket_tc" if method == "fused" else "icorr_peak_tc"
+    for s in stats:
+        log(f"[{label}] sharded {name} rank {s['rank']} (t={s['t']}, b={s['b']}): "
+            f"wall {s['wall_s']:.4f} s; launches {s['launches']}; halo "
+            f"{s.get('halo_bytes', 0)} B; gathered {s.get('gather_bytes', 0)} B; "
+            f"gloo host copies {s['host_copy_bytes']} B in {s['host_copy_s']:.4f} s"
+            + (f"; sequential oracle {s['sequential_s']:.3f} s, max abs diff "
+               f"{s['max_abs_diff_sequential']:.3e}, bit for bit "
+               f"{s['bit_for_bit_sequential']}" if "sequential_s" in s else ""))
+        got = s["launches"]
+        if got[route] == 0 or any(v for k, v in got.items() if k != route):
+            fail(f"sharded {name} rank {s['rank']}: launches {got}, expected only {route}")
+        if "batch" in s:
+            want = s["buckets"] * -(-s["segments"] // s["batch"])
+        else:
+            want = s["buckets"]
+        if got[route] != want:
+            fail(f"sharded {name} rank {s['rank']}: {got[route]} {route} launches, "
+                 f"predicted {want} (one per bucket a dispatch)")
+    log(f"sharded {name}: {nproc} ranks on cuda:0 over gloo in {secs:.1f} s "
+        "(process start-up included)")
+    with np.load(out) as z:
+        res = {k: z[k] for k in z.files}
+    shutil.rmtree(outdir, ignore_errors=True)
+    return stats, res
+
+
+def sharded_against_cpu(name, st, plan, rij, res, segs, **kw):
+    """Rank 0's assembled result on segments ``segs`` against the port's
+    ``run_extended`` of the same segments on the CPU (halos cut from the
+    stream): MdCCM within TOL on every valid window; vel/baz/sig_tau (and
+    with LTS the flags) within TOL (equal) on every valid window whose P
+    delays are bit-identical, at least LTS_SAME_MIN of them (a lag may move
+    at a near-tie between 3xTF32 and fp32, as the lts phase rules), and at
+    most SHARDED_MOVED_MAX of the confident windows with a moved lag; and
+    the truth over every segment."""
+    from narrow_band_least_squares_tpu_torch.parallel import ShardedNarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.parallel.smoke import DelayRecorder
+
+    cpu = ShardedNarrowBandPipeline(plan, rij, device="cpu", **kw)
+    with DelayRecorder() as rec:
+        ref = cpu.run_extended(cpu.extend_segments(st.data, [i * plan.npts for i in segs]))
+    ncl = plan.num_compute_list
+    n_same = n_valid = n_conf = moved_conf = 0
+    worst = 0.0
+    for k, i in enumerate(segs):
+        for b, n in enumerate(ncl):
+            same = (res["out_tau"][i, b, :n] == rec.taus[k][b, :n]).all(-1)
+            n_same += int(same.sum())
+            n_valid += n
+            conf = ref["mdccm"][k, b, :n] > MDCCM_THRESH
+            n_conf += int(conf.sum())
+            moved_conf += int((~same & conf).sum())
+            for nm in ("vel", "baz", "sig_tau", "mdccm"):
+                g, c = res["out_" + nm][i, b, :n], ref[nm][k, b, :n]
+                d = (np.abs((g - c + 180.0) % 360.0 - 180.0) if nm == "baz"
+                     else np.abs(g - c))
+                lim = TOL + TOL * np.abs(c)
+                ok = (d <= lim) | (np.isnan(g) & np.isnan(c))
+                held = np.ones(n, bool) if nm == "mdccm" else same
+                if not ok[held].all():
+                    fail(f"sharded {name} segment {i} band {b}: {nm} differs from the "
+                         f"CPU beyond {TOL} on {int((~ok & held).sum())} windows")
+                if held.any():
+                    worst = max(worst, float(np.nanmax((d / lim)[held])))
+            if "flags" in ref:
+                fg, fc = res["out_flags"][i, b, :n], ref["flags"][k, b, :n]
+                if not np.array_equal(fg[same], fc[same]):
+                    fail(f"sharded {name} segment {i} band {b}: LTS flags differ from "
+                         "the CPU on windows with bit-identical delays")
+    share = n_same / n_valid
+    log(f"sharded {name} segments {list(segs)} cuda vs cpu: {n_same}/{n_valid} = "
+        f"{share:.4f} valid windows with bit-identical delays; {moved_conf}/{n_conf} "
+        f"confident windows whose lag moved; MdCCM on all and vel/baz/sig_tau"
+        f"{' and flags' if 'flags' in ref else ''} on those within {TOL} "
+        f"(worst |d|/tol {worst:.3f})")
+    if share < LTS_SAME_MIN:
+        fail(f"sharded {name}: fewer than {LTS_SAME_MIN:.0%} of the valid windows have "
+             "bit-identical delays on the card and the CPU")
+    if moved_conf > SHARDED_MOVED_MAX * n_conf:
+        fail(f"sharded {name}: the lag moved on {moved_conf} of {n_conf} confident "
+             f"windows between the card and the CPU, more than {SHARDED_MOVED_MAX:.1%}")
+    S = res["out_vel"].shape[0]
+    cat = [np.zeros((plan.nbands, S * max(ncl))) for _ in range(3)]
+    for b, n in enumerate(ncl):
+        for j, key in enumerate(("vel", "baz", "mdccm")):
+            cat[j][b, :S * n] = np.concatenate([res["out_" + key][s, b, :n]
+                                                for s in range(S)])
+    ground_truth(cat, [S * n for n in ncl], label=f"sharded {name} ")
+
+
+def monitor_against_batched(res, ref):
+    """The ranks' monitor against the one-process monitor in batches of
+    MONITOR_DISPATCH segments: MdCCM within TOL on every valid window,
+    vel and baz within TOL on at least LTS_SAME_MIN of them (the forward
+    DFT's rounding, and so a lag at a near-tie, moves with the batch's row
+    count: ROADMAP Queue 3)."""
+    vel, baz, mdccm, _, num = ref
+    n_ok = n_valid = 0
+    worst = 0.0
+    for b, n in enumerate(num):
+        d = np.abs(res["mon_mdccm"][b, :n] - mdccm[b, :n])
+        if (d > TOL + TOL * np.abs(mdccm[b, :n])).any():
+            fail(f"sharded monitor band {b}: MdCCM differs from the one-process monitor "
+                 f"in batches of {MONITOR_DISPATCH} beyond {TOL} ({float(d.max()):.3e})")
+        ok = np.ones(n, bool)
+        for key, c in (("mon_vel", vel[b, :n]), ("mon_baz", baz[b, :n])):
+            g = res[key][b, :n]
+            d = np.abs((g - c + 180.0) % 360.0 - 180.0) if key == "mon_baz" else np.abs(g - c)
+            ok &= d <= TOL + TOL * np.abs(c)
+            worst = max(worst, float(d.max(initial=0.0)))
+        n_ok += int(ok.sum())
+        n_valid += n
+    share = n_ok / n_valid
+    log(f"sharded monitor 4x1 against one process in batches of {MONITOR_DISPATCH}: "
+        f"MdCCM within {TOL} on all {n_valid} valid windows, vel and baz on {n_ok} = "
+        f"{share:.4f} of them (largest difference {worst:.3e})")
+    if share < LTS_SAME_MIN:
+        fail(f"sharded monitor: vel/baz within {TOL} of the one-process monitor in "
+             f"batches of {MONITOR_DISPATCH} on fewer than {LTS_SAME_MIN:.0%} of the "
+             "valid windows")
+
+
+def phase_sharded(label):
+    """(1) world size 1 over NCCL; (2) the worker's ranks on cuda:0 over
+    gloo: (4, 1) 'fused', (2, 2) dense50 'mxu', (2, 2) LTS; (3) the monitor
+    on four ranks; (4) MultiArrayPipeline on (time=2)."""
+    import shutil
+
+    from narrow_band_least_squares_tpu_torch.models import StreamingMonitor
+    from narrow_band_least_squares_tpu_torch.parallel import auto_mesh_shape
+    from narrow_band_least_squares_tpu_torch.parallel.smoke import inputs
+
+    log(f"[{label}] sharded phase")
+    st, plan, rij, freqlist = inputs("canonical")
+    sharded_one_process(label, st, plan, rij)
+
+    _, res = sharded_launch(label, "fused 4x1", SHARDED_PROCS, "--mesh-time", "4",
+                            "--xcorr-method", "fused", "--workload", "canonical")
+    sharded_against_cpu("fused 4x1", st, plan, rij, res, (0, 4, 15), xcorr_method="fused")
+
+    if auto_mesh_shape(SHARDED_PROCS, 50) != (2, 2):
+        fail(f"auto_mesh_shape({SHARDED_PROCS}, 50) is not (2, 2)")
+    st50, plan50, rij50, _ = inputs("dense50")
+    _, res = sharded_launch(label, "mxu dense50 2x2", SHARDED_PROCS, "--mesh-time", "2",
+                            "--mesh-band", "2", "--workload", "dense50")
+    sharded_against_cpu("mxu dense50 2x2", st50, plan50, rij50, res, (0, 8, 15))
+
+    stl, planl, rijl, _ = inputs("canonical", LTS_ALPHA, MONITOR_LTS_HOURS)
+    stats, res = sharded_launch(label, "lts 2x2", SHARDED_PROCS, "--mesh-time", "2",
+                                "--mesh-band", "2", "--alpha", str(LTS_ALPHA),
+                                "--workload", "canonical", "--hours",
+                                str(MONITOR_LTS_HOURS))
+    log(f"sharded lts 2x2: flags equal the oracle's on every window with "
+        f"bit-identical delays ({stats[0]['lts_same_delay_share']:.4f} of them)")
+    sharded_against_cpu("lts 2x2", stl, planl, rijl, res, (0, 3, 5), alpha=LTS_ALPHA)
+
+    workdir = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build",
+                           "sharded_monitor")
+    shutil.rmtree(workdir, ignore_errors=True)
+    os.makedirs(os.path.join(workdir, "ranks"))
+    _, res = sharded_launch(label, "monitor 4x1", SHARDED_PROCS, "--mesh-time", "4",
+                            "--workload", "canonical", "--monitor-dir",
+                            os.path.join(workdir, "ranks"))
+    # each rank steps one segment a dispatch: the one-process monitor with
+    # batches of one computes the same shapes, so the same bits
+    ones = {}
+    for batch in (1, MONITOR_DISPATCH):
+        with StreamingMonitor(plan, rij, os.path.join(workdir, f"one-{batch}"), freqlist,
+                              dispatch_segments=batch, device="cuda") as mon:
+            mon.process(st)
+        ones[batch] = mon.read_all()
+        if (not np.array_equal(res["mon_num"], ones[batch][4])
+                or not np.array_equal(res["mon_t"], ones[batch][3])):
+            fail(f"sharded monitor: window counts or times differ from the one-process "
+                 f"monitor in batches of {batch}")
+    for key, ref in zip(("mon_vel", "mon_baz", "mon_mdccm"), ones[1][:3]):
+        if not np.array_equal(res[key], ref):
+            fail(f"sharded monitor: {key} is not bit for bit the one-process monitor's "
+                 f"in batches of one (max abs diff {float(np.abs(res[key] - ref).max()):.3e})")
+    monitor_against_batched(res, ones[MONITOR_DISPATCH])
+    log("sharded monitor 4x1: rank 0 alone wrote, resumed, redid a deleted segment "
+        "alone; bit for bit the one-process monitor with batches of one segment")
+    shutil.rmtree(workdir, ignore_errors=True)
+
+    sharded_launch(label, "multiarray 2x1", 2, "--multiarray", "--mesh-time", "2",
+                   "--xcorr-method", "fused", "--workload", "canonical")
+    log("sharded multiarray 2x1: each array bit for bit its single-array run")
 
 
 # --------------------------------------------------------------------------
@@ -2786,6 +3065,9 @@ def main() -> int:
     if "multiarray" in phases:
         phase_multiarray()
         phase_done("multiarray")
+    if "sharded" in phases:
+        phase_sharded(label)
+        phase_done("sharded")
     if "lts" in phases:
         phase_lts(label)
         phase_done("lts")

@@ -29,12 +29,14 @@ What is ported so far:
   (``alpha < 1``, `ops.lts`) with its flags and stdict,
 - the pipeline (`models.NarrowBandPipeline`) and the reference-parity API
   (`api`),
-- `models.MultiArrayPipeline` (many arrays per step, OLS or LTS, one
-  device) and `models.BroadbandPipeline` (one band),
-- the halo-extended segment step on one device
-  (`parallel.ShardedNarrowBandPipeline`) and the streaming monitor on it
-  (`models.StreamingMonitor`: batched dispatch, TSV/npz persistence,
-  resume),
+- `models.MultiArrayPipeline` (many arrays per step, OLS or LTS, on one
+  device or data-parallel over a mesh) and `models.BroadbandPipeline` (one
+  band),
+- the sharded pipeline over a (time, band) mesh of processes on
+  ``torch.distributed`` (`parallel.mesh`, `parallel.ShardedNarrowBandPipeline`:
+  halos sent to the right neighbour, snake-dealt band shards, the final
+  all-gather) and the streaming monitor on it (`models.StreamingMonitor`:
+  batched dispatch, TSV/npz persistence by rank 0, resume),
 - the run configuration (`config.NBLSConfig`, the JAX package's file
   format), the command line (``python -m narrow_band_least_squares_tpu_torch
   run|monitor|fetch|defaults``), the parity figures (`plotting`, host

@@ -3,9 +3,11 @@
     python -m narrow_band_least_squares_tpu_torch.examples.example
     python -m narrow_band_least_squares_tpu_torch.examples.example_monitoring
     python -m narrow_band_least_squares_tpu_torch.examples.example_streaming_ingest
+    python -m narrow_band_least_squares_tpu_torch.examples.example_parallel
 
 Each runs on the card unless given ``--cpu``, and writes under
-``build/torch_examples/`` at the repository root.
+``build/torch_examples/`` at the repository root (``example_parallel``
+writes nothing; under ``torchrun`` it runs one rank per process).
 """
 
 import os

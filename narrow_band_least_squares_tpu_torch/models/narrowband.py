@@ -45,7 +45,7 @@ from narrow_band_least_squares_tpu_torch.ops.windows import (
     build_window_grid,
     extract_windows,
     extract_windows_strided,
-    extract_windows_strided_bucket,
+    extract_windows_strided_rows,
 )
 from narrow_band_least_squares_tpu_torch.state import state_from_numpy
 from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
@@ -151,10 +151,14 @@ class NarrowBandPipeline:
       ``c_steps``, ``max_lts_candidates``, ``lts_candidate_chunk`` (set to
       4096 when there are more candidates) and ``lts_funnel_k`` (``'auto'``:
       ``max(16, ceil(Q/24))`` for Q candidates) as in the JAX package;
-    - ``xcorr_method='fft'``, ``window_method='patches'`` and
-      ``subsample_delays=True`` with 'mxu' raise
-      ``NotImplementedError``; with 'pallas' and 'fused' the JAX package
-      ignores ``subsample_delays`` with a warning, and so does the port;
+    - ``window_method='patches'`` and ``subsample_delays=True`` with 'mxu'
+      raise ``NotImplementedError``; with 'pallas' and 'fused' the JAX
+      package ignores ``subsample_delays`` with a warning, and so does the
+      port;
+    - ``xcorr_method='fft'`` (`ops.xcorr.cross_correlate`, unbucketed, at
+      ``nfft_corr = next_pow2(2 Lmax)``) with ``max_lag_s`` raises
+      ``ValueError``: the JAX package fails there (its capped lag mask does
+      not broadcast against the FFT's full lag axis);
     - ``xcorr_method`` 'mxu' and 'pallas' both search lags with the
       ``icorr_peak`` kernel, on the bucket's dense tables or its stacked
       ones; 'fused' runs each bucket in one ``fused_xcorr_bucket`` launch
@@ -203,10 +207,13 @@ class NarrowBandPipeline:
         *,
         device=None,
     ):
-        if xcorr_method == "fft":
-            raise _not_ported("xcorr_method='fft'", "Queue 1 item 8")
-        if xcorr_method not in ("mxu", "pallas", "fused"):
+        if xcorr_method not in ("mxu", "pallas", "fused", "fft"):
             raise ValueError(f"unknown xcorr_method {xcorr_method!r}")
+        if xcorr_method == "fft" and max_lag_s is not None:
+            raise ValueError(
+                "xcorr_method='fft' with max_lag_s: the JAX package fails here "
+                "(its capped lag mask does not broadcast against the FFT's "
+                "2*Lmax-1 lags); use xcorr_method='mxu' to cap the lags")
         if subsample_delays:
             if xcorr_method == "mxu":
                 raise _not_ported("subsample_delays=True", "Queue 1 item 8")
@@ -301,6 +308,8 @@ class NarrowBandPipeline:
 
         def tables(Lmax, lengths, band_idx):
             bml = min(max_lag, Lmax - 1) if max_lag is not None else None
+            if xcorr_method == "fft":
+                return {}, -(Lmax - 1)
             if xcorr_method == "pallas":
                 tab = XC.precompute_pallas_tables(
                     Lmax, lengths, dtype=np.float32, max_lag=bml,
@@ -337,8 +346,11 @@ class NarrowBandPipeline:
             out["len_mask"] = g.len_mask.reshape(len(g.band_idx), g.Lmax)
             return out, tab["lag_min"]
 
-        # the fused kernel works per bucket, so 'fused' always buckets
-        self.bucket_bands = bool(bucket_bands) or xcorr_method == "fused"
+        # the fused kernel works per bucket, so 'fused' always buckets;
+        # 'fft' never does (as in the JAX package)
+        self.nfft_corr = F.next_pow2(2 * grid.Lmax)
+        self.bucket_bands = ((bool(bucket_bands) and xcorr_method in ("mxu", "pallas"))
+                             or xcorr_method == "fused")
         self._buckets: List[dict] = []
         if self.bucket_bands:
             bgrids = build_bucket_grids(plan, max_lag=max_lag, slack=bucket_slack)
@@ -367,7 +379,7 @@ class NarrowBandPipeline:
                 st["tables." + k] = v
             st["tables.len_mask"] = grid.len_mask
             st["tables.lengths"] = grid.lengths.astype(np.float64)
-            if xcorr_method == "mxu":
+            if xcorr_method in ("mxu", "fft"):
                 lag_mask = grid.lag_mask
                 if max_lag is not None:
                     c = grid.Lmax - 1
@@ -432,6 +444,8 @@ class NarrowBandPipeline:
             return
         for pre in ([b["prefix"] for b in self._buckets]
                     if self.bucket_bands else ["tables."]):
+            if self.xcorr_method == "fft":
+                continue
             if self.xcorr_method == "mxu":
                 self._e2[pre] = XC.stack_inverse_table(
                     self._state[pre + "Ec"], self._state[pre + "Es"]
@@ -445,6 +459,9 @@ class NarrowBandPipeline:
     def _xcorr(self, win: torch.Tensor, pre: str, lag_min: int):
         s = self._state
         prec = self.matmul_precision
+        if self.xcorr_method == "fft":
+            return XC.cross_correlate(win, self._pairs, s[pre + "lag_mask"],
+                                      self.nfft_corr, self.plan.fs)
         if self.xcorr_method == "pallas":
             tab = {k: s[pre + k] for k in ("Cf", "Sf", "e2", "lo", "hi")}
         else:
@@ -465,9 +482,10 @@ class NarrowBandPipeline:
             if bk is None:
                 return extract_windows_strided(y, self.plan, s[pre + "len_mask"],
                                                s[pre + "lengths"])
-            return extract_windows_strided_bucket(
-                y, self.plan.windows, bk["grid"], s[pre + "len_mask"],
-                s[pre + "lengths"],
+            g = bk["grid"]
+            return extract_windows_strided_rows(
+                y, g.band_idx, [self.plan.windows[int(b)].hop for b in g.band_idx],
+                g.Wmax, g.Lmax, s[pre + "len_mask"], s[pre + "lengths"],
             )
         if bk is not None:
             y = y[torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
@@ -591,11 +609,11 @@ class NarrowBandPipeline:
             g.update(cand=s["cand"].long(), Ainv=s["Ainv"], cand_ok=s["cand_ok"])
         return g
 
-    def _solve_masked(self, tau, mdccm, geometry=None):
+    def _solve_masked(self, tau, mdccm, geometry=None, win_mask=None):
         """Slowness solve + window-validity masking; ``geometry`` is an
-        array's `_solve_constants`, the pipeline's own by default.  With LTS
-        the result also holds ``flags`` (B, Wmax, P): the dropped pairs of
-        valid windows."""
+        array's `_solve_constants` and ``win_mask`` (B, Wmax) its valid
+        windows, the pipeline's own by default.  With LTS the result also
+        holds ``flags`` (B, Wmax, P): the dropped pairs of valid windows."""
         g = geometry or self._geometry
         if self.alpha < 1.0:
             out = LTS.lts_solve(
@@ -605,7 +623,7 @@ class NarrowBandPipeline:
             )
         else:
             out = SOLVE.ols_solve(tau, g["X"], g["pinv"], g["XtX_inv"])
-        wm = self._state["win_mask"]
+        wm = self._state["win_mask"] if win_mask is None else win_mask
         zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
         res = {k: torch.where(wm, out[k], zero) for k in _OUTPUTS}
         res["mdccm"] = torch.where(wm, mdccm, zero)

@@ -1,12 +1,12 @@
 """Continuous-monitoring pipeline: segmented runs with checkpoint and resume.
 
-Port of ``narrow_band_least_squares_tpu/models/streaming.py`` on one
-process and one device.  `StreamingMonitor`:
+Port of ``narrow_band_least_squares_tpu/models/streaming.py``.
+`StreamingMonitor`:
 
 - tiles a long waveform, or a feed of chunks, into fixed segments,
 - runs them in batches on the halo-extended segment step
-  (`parallel.ShardedNarrowBandPipeline`), keeping the device queue
-  ``dispatch_depth`` batches deep,
+  (`parallel.ShardedNarrowBandPipeline`, one device or a process mesh),
+  keeping the device queue ``dispatch_depth`` batches deep,
 - persists each segment's dense results in the reference TSV format plus a
   compact .npz (flags, uncertainties) on one ordered writer thread,
 - on ``resume`` skips segments whose .txt exists,
@@ -15,9 +15,13 @@ process and one device.  `StreamingMonitor`:
 
 A failed batch is re-run synchronously on the same device, up to
 ``max_retries`` times; a CUDA error (which may leave the context unusable)
-is not retried, and never falls back to the CPU.  Several processes
-(``torch.distributed`` with a world size above 1) wait for ROADMAP.md
-Queue 1 item 6.
+is not retried, and never falls back to the CPU.
+
+Across processes (a mesh of more than one rank) every rank runs the same
+batches: rank 0 decides which segments are left to do and broadcasts it,
+a dispatch is never retried on one rank alone (the step and the assembly
+are collectives), so a failure propagates on every rank, and only rank 0
+persists.
 """
 
 from __future__ import annotations
@@ -33,7 +37,6 @@ import torch
 
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
 from narrow_band_least_squares_tpu_torch.io.textio import read_txtfile, write_txtfile
-from narrow_band_least_squares_tpu_torch.models.narrowband import _not_ported
 from narrow_band_least_squares_tpu_torch.utils.plan import NarrowBandPlan
 from narrow_band_least_squares_tpu_torch.utils.timeutils import epoch_to_datenum
 
@@ -66,10 +69,12 @@ class StreamingMonitor:
         rij: (2, N) array geometry [km].
         save_dir: directory for per-segment TSV/npz outputs.
         freqlist: band edges, written into every TSV row.
-        mesh: must be None (one device).
-        max_retries: synchronous re-runs of a failed batch.
-        dispatch_segments: segments per device dispatch; segments buffer
-            across `submit` calls until a batch fills (`flush` pads out the
+        mesh: a `parallel.mesh.Mesh`, or None for one device in one
+            process (several processes need a mesh).
+        max_retries: synchronous re-runs of a failed batch (one process).
+        dispatch_segments: segments per device dispatch, rounded up to a
+            multiple of the mesh's time shards; segments buffer across
+            `submit` calls until a batch fills (`flush` pads out the
             remainder by repeating the last segment).
         device: keyword-only; ``None`` means ``"cuda"`` and raises without
             CUDA.
@@ -96,8 +101,12 @@ class StreamingMonitor:
         **pipe_kwargs,
     ):
         dist = torch.distributed
-        if dist.is_available() and dist.is_initialized() and dist.get_world_size() > 1:
-            raise _not_ported("StreamingMonitor across processes", "Queue 1 item 6")
+        if (mesh is None and dist.is_available() and dist.is_initialized()
+                and dist.get_world_size() > 1):
+            raise ValueError(
+                "StreamingMonitor across processes needs a mesh over the process "
+                "group (parallel.make_mesh); without one every process would "
+                "run and persist the whole stream")
         from narrow_band_least_squares_tpu_torch.parallel.sharded import (
             ShardedNarrowBandPipeline,
         )
@@ -113,7 +122,13 @@ class StreamingMonitor:
         self.save_dir = save_dir
         self.max_retries = max_retries
         os.makedirs(save_dir, exist_ok=True)
-        self.batch = max(1, int(dispatch_segments))
+        # a multiple of the time shards: each takes batch/nt segments
+        self.pipe._require_mesh()
+        nt = self.pipe.nt
+        self.batch = nt * max(1, -(-int(dispatch_segments) // nt))
+        self.mesh = self.pipe.mesh
+        self._multiproc = self.mesh.world_size > 1
+        self._writer = self.mesh.rank == 0
 
         self._inflight = deque()   # (device_out | None, x_ext, t0s, real)
         self._backlog: List = []   # [(data, offset | None, t0)]
@@ -161,9 +176,18 @@ class StreamingMonitor:
         ``dispatch_depth`` batches in flight; call `flush` (or `process`) to
         collect SegmentRecords.  ``st.data`` is consumed before this call
         returns (sub-batch leftovers are snapshotted), so the caller may
-        reuse its buffer."""
-        todo = [(off, t0) for off, t0 in self.segment_starts(st)
-                if not ((resume and self._seg_done(t0)) or t0 in self._queued)]
+        reuse its buffer.
+
+        Across processes every rank must run the same batches, so rank 0's
+        view of what is done (its resume scan and queue) is broadcast.
+        """
+        starts = self.segment_starts(st)
+        todo = [not ((resume and self._seg_done(t0)) or t0 in self._queued)
+                for _, t0 in starts]
+        if self._multiproc:
+            mask = torch.tensor(todo, dtype=torch.int32, device=self.mesh.comm_device())
+            todo = self.mesh.broadcast_from_rank0(mask, "the resume mask").tolist()
+        todo = [s for s, keep in zip(starts, todo) if keep]
         if not todo:
             return 0
         self._queued.update(t0 for _, t0 in todo)
@@ -222,6 +246,10 @@ class StreamingMonitor:
             )
             x_ext = np.concatenate([x_ext, pad])
             t0s = t0s + [t0s[-1]] * (self.batch - real)
+        if self._multiproc:
+            # a collective: every rank dispatches, or the failure propagates
+            self._inflight.append((self.pipe.run_extended_async(x_ext), x_ext, t0s, real))
+            return
         try:
             dev = self.pipe.run_extended_async(x_ext)
         except Exception as e:
@@ -234,6 +262,16 @@ class StreamingMonitor:
 
     def _drain_oldest(self):
         dev, x_ext, t0s, real = self._inflight.popleft()
+        if self._multiproc:
+            # the assembly is a collective: a retry on one rank would leave
+            # the others waiting, so a failure propagates on every rank
+            out = self.pipe.finalize_extended(dev)
+            if not self._writer:
+                # the resume scan is rank 0's: nothing to persist here
+                self._queued.difference_update(t0s[:real])
+                return
+            self._persist_batch(out, t0s, real)
+            return
         try:
             if dev is None:
                 raise RuntimeError("dispatch failed")
@@ -250,6 +288,9 @@ class StreamingMonitor:
                 # permanently failed: un-queue so a later submit retries
                 self._queued.difference_update(t0s[:real])
                 raise
+        self._persist_batch(out, t0s, real)
+
+    def _persist_batch(self, out, t0s, real: int):
         pool = self._writer_pool()
         for s in range(real):
             self._futures.append(

@@ -214,17 +214,23 @@ def extract_windows_strided(
     return mask_demean(win, len_mask, lengths)
 
 
-def extract_windows_strided_bucket(
-    y: torch.Tensor,         # (B, C, T) FULL filtered bank
-    windows,                 # full plan.windows tuple
-    bucket: BucketGrid,
-    len_mask: torch.Tensor,  # (Bg, 1, 1, Lmax_g)
-    lengths: torch.Tensor,   # (Bg,) float
+def extract_windows_strided_rows(
+    y: torch.Tensor,         # (B, C, T) filtered waveforms
+    rows,                    # R row indices into y
+    hops,                    # R hops: the hop of the band each row holds
+    Wmax: int,
+    Lmax: int,
+    len_mask: torch.Tensor,  # (R, 1, 1, Lmax) each row's own length
+    lengths: torch.Tensor,   # (R,) float
 ) -> torch.Tensor:
-    """Strided extraction for one window-length bucket -> (Bg, Wmax_g, C, Lmax_g)."""
+    """Strided extraction of rows ``rows`` of ``y`` on one (Wmax, Lmax)
+    grid: row r's windows start every ``hops[r]`` samples and are masked to
+    its own length -> (R, Wmax, C, Lmax).  A window-length bucket passes its
+    bands and their hops; a slot template of the band-sharded pipeline its
+    slots' rows.  Gather extraction over a per-slot ``idx`` is
+    `extract_windows` on the same rows."""
     win = torch.stack(
-        [_strided_band(y[int(b)], windows[int(b)].hop, bucket.Wmax, bucket.Lmax)
-         for b in bucket.band_idx],
+        [_strided_band(y[int(r)], int(h), Wmax, Lmax) for r, h in zip(rows, hops)],
         dim=0,
     )
     return mask_demean(win, len_mask, lengths)

@@ -1,4 +1,5 @@
-"""Batched inter-element delay estimation: DFT-as-matmul cross-correlation.
+"""Batched inter-element delay estimation: DFT-as-matmul and FFT
+cross-correlation.
 
 Port of ``narrow_band_least_squares_tpu/ops/xcorr.py``.  Every
 (band, window, element-pair) cell is one row of a batched computation:
@@ -16,6 +17,11 @@ never writes the (rows, lags) correlation out, at the pipeline's
 stay IEEE fp32 (cuBLAS) at every precision.  Conventions are those of the
 reference: ``cc_p(l) = sum_t x_j(t + l) x_i(t)``, lags ascending, the first
 maximum wins.  Tables are built in float64 on the host and cast to float32.
+
+`cross_correlate` is the FFT form (``xcorr_method='fft'``): ``torch.fft``
+at ``nfft``, the circular lags reordered into linear ones, the masked
+first maximum over every lag; the JAX package computes it outside any
+Pallas kernel too.
 """
 
 from __future__ import annotations
@@ -28,6 +34,35 @@ import torch.nn.functional as Fnn
 
 from narrow_band_least_squares_tpu_torch.ops.kernels.xcorr_peak import icorr_peak
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
+
+
+def cross_correlate(
+    win: torch.Tensor,       # (B, W, C, Lmax) demeaned, zero-padded windows
+    pairs: torch.Tensor,     # (P, 2) int64
+    lag_mask: torch.Tensor,  # (B, 2*Lmax-1) bool
+    nfft: int,               # >= 2*Lmax
+    fs: float,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """FFT cross-correlation.  Returns (tau (B, W, P) [s], rho (B, W, P),
+    mdccm (B, W)).  Delays are `lag_seconds` of the first maximum."""
+    B, W, C, Lmax = win.shape
+    energy = torch.sum(win * win, dim=-1)                 # (B, W, C)
+    Wf = torch.fft.rfft(win, n=nfft, dim=-1)              # (B, W, C, F)
+    Fi = Wf[:, :, pairs[:, 0], :]
+    Fj = Wf[:, :, pairs[:, 1], :]
+    cc = torch.fft.irfft(Fj * torch.conj(Fi), n=nfft, dim=-1)   # circular lags
+    # circular -> linear 'full' order: [-(Lmax-1) .. Lmax-1]
+    cc_lin = torch.cat([cc[..., nfft - (Lmax - 1):], cc[..., :Lmax]], dim=-1)
+    neg_inf = torch.full((), float("-inf"), dtype=cc.dtype, device=cc.device)
+    cc_masked = torch.where(lag_mask[:, None, None, :], cc_lin, neg_inf)
+    k = torch.argmax(cc_masked, dim=-1)                   # the first maximum
+    peak = torch.gather(cc_masked, -1, k[..., None])[..., 0]
+    tau = lag_seconds(k.to(win.dtype) - (Lmax - 1), fs)
+    Ei = energy[:, :, pairs[:, 0]]
+    Ej = energy[:, :, pairs[:, 1]]
+    denom = torch.sqrt(Ei * Ej)
+    rho = torch.where(denom > 0, peak / denom, torch.zeros_like(peak))
+    return tau, rho, median_last(rho)
 
 
 def band_limit_bins(
@@ -234,6 +269,21 @@ def cross_correlate_mxu(
     m = lag_mask.to(torch.int32)
     lo = m.argmax(dim=-1).to(torch.int32)
     hi = (nlag - 1 - m.flip(-1).argmax(dim=-1)).to(torch.int32)
+    return cross_correlate_bounds(win, pairs, lo, hi, tables, fs, precision)
+
+
+def cross_correlate_bounds(
+    win: torch.Tensor,       # (B, W, C, Lmax)
+    pairs: torch.Tensor,     # (P, 2) int64
+    lo: torch.Tensor,        # (B,) int32: first lag column of each band
+    hi: torch.Tensor,        # (B,) int32: last lag column of each band
+    tables: Dict,
+    fs: float,
+    precision: str = "highest",
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`cross_correlate_mxu` with each band's lag columns ``[lo, hi]``
+    given instead of read from a mask (the sharded pipeline's per-row
+    ``lag_half``)."""
     e2 = tables.get("e2")
     if e2 is None:
         e2 = stack_inverse_table(tables["Ec"], tables["Es"])

@@ -199,7 +199,7 @@ def test_run_with_perf_config(stream_npz, tmp_path, capsys, restore_perf_default
                                   "xcorr_method": "fused"}
 
 
-REFUSED = [{"xcorr_method": "fft"}, {"window_method": "patches"}]
+REFUSED = [{"window_method": "patches"}]
 
 
 @pytest.mark.parametrize("command", ["run", "monitor"])
@@ -213,6 +213,24 @@ def test_refused_options_raise(command, kw, stream_npz, tmp_path, restore_perf_d
                                         ["--segment-s", "120"])
     with pytest.raises(NotImplementedError, match="item 8"):
         main(argv)
+
+
+@pytest.mark.parametrize("command", ["run", "monitor"])
+def test_fft_method_runs(command, stream_npz, tmp_path, capsys, restore_perf_defaults):
+    """``xcorr_method: "fft"`` (`ops.xcorr.cross_correlate`) runs through
+    the command line and finds the synthetic source."""
+    cfgp = str(tmp_path / "cfg.json")
+    NBLSConfig(FMIN=0.3, FMAX=2.0, NBANDS=3, WINLEN=40, WINLEN_1=50, WINLEN_X=30,
+               xcorr_method="fft").to_json(cfgp)
+    argv = [command, "--data", stream_npz, "--out", str(tmp_path / "o"), "--config",
+            cfgp, "--device", "cpu"] + (["--no-figures"] if command == "run" else
+                                        ["--segment-s", "120"])
+    main(argv)
+    rep = json.loads(capsys.readouterr().out)
+    if command == "run":
+        assert rep["median_baz_deg"] == pytest.approx(230.0, abs=8.0)
+    else:
+        assert rep["segments_processed"] == 2
 
 
 def test_unknown_device_is_refused(stream_npz, cfg_json, tmp_path):

@@ -14,6 +14,7 @@ from narrow_band_least_squares_tpu_torch.examples import (
     device_from_argv,
     example,
     example_monitoring,
+    example_parallel,
     example_streaming_ingest,
 )
 
@@ -69,3 +70,15 @@ def test_example_streaming_ingest(monkeypatch, tmp_path):
     done, baz = example_streaming_ingest.main(["--cpu"])
     assert done == 3 and len(baz) > 10 and _baz_ok(baz)
     assert len([n for n in os.listdir(tmp_path) if n.endswith(".txt")]) == 3
+
+
+def test_example_parallel_one_process(monkeypatch, capsys):
+    """One process, no process group: the 1x1 mesh from
+    ``auto_mesh_shape(1, NBANDS)``; the stream covers one segment per time
+    shard at least."""
+    _patch(monkeypatch, example_parallel, HOURS=0.2, SEGMENT_S=240.0)
+    out, good = example_parallel.main(["--cpu"])
+    text = capsys.readouterr().out
+    assert "processes=1 mesh=(time=1, band=1)" in text and "segments=3" in text
+    assert out["vel"].shape[:2] == (3, 3)
+    assert good.sum() > 10 and _baz_ok(out["baz"][good])

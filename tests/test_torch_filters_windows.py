@@ -95,8 +95,10 @@ def test_bucket_extractors_match_jax(method):
             jnp.asarray(ln.numpy()),
         ))
         if method == "strided":
-            got = TW.extract_windows_strided_bucket(
-                torch.from_numpy(y), tp.windows, g, lm, ln).numpy()
+            got = TW.extract_windows_strided_rows(
+                torch.from_numpy(y), g.band_idx,
+                [tp.windows[int(b)].hop for b in g.band_idx], g.Wmax, g.Lmax,
+                lm, ln).numpy()
         else:
             got = TW.extract_windows(
                 torch.from_numpy(y[g.band_idx]), torch.from_numpy(g.idx),

@@ -200,3 +200,27 @@ def test_entry_points_without_device_raise_without_cuda(small_stream, tmp_path):
     for call in calls:
         with pytest.raises(RuntimeError, match="CUDA is not available"):
             call()
+
+
+def test_importing_the_mesh_modules_starts_nothing():
+    """The mesh, the worker and the parallel example import neither JAX nor
+    the JAX package, join no process group and start no process (torch and
+    SciPy are imported first: they may ask the system about the CPU)."""
+    code = (
+        "import subprocess, sys\n"
+        "import scipy.signal, torch.distributed as dist\n"
+        "def refuse(*a, **k):\n"
+        "    raise AssertionError(f'a process was started at import: {a[:1]}')\n"
+        "subprocess.Popen = subprocess.run = subprocess.call = refuse\n"
+        "from narrow_band_least_squares_tpu_torch.parallel import (\n"
+        "    Mesh, auto_mesh_shape, initialize_distributed, make_mesh, mesh, smoke)\n"
+        "from narrow_band_least_squares_tpu_torch.examples import example_parallel\n"
+        "from narrow_band_least_squares_tpu_torch.ops.xcorr import cross_correlate\n"
+        "assert not dist.is_initialized()\n"
+        "assert make_mesh is mesh.make_mesh and Mesh is mesh.Mesh\n"
+        "assert not any(m.split('.')[0] in ('jax', 'narrow_band_least_squares_tpu')"
+        " for m in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr

@@ -109,7 +109,7 @@ def test_what_is_refused_raises(arrays, case):
         with pytest.raises(ValueError, match="same element count"):
             MultiArrayPipeline(tp, rijs[:2] + [np.zeros((2, 6))], device="cpu")
     elif case == "mesh":
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
             MultiArrayPipeline(tp, rijs, mesh=object(), device="cpu")
     elif case == "pallas-bucketed":
         pipe = MultiArrayPipeline(tp, rijs, xcorr_method="pallas", device="cpu")

@@ -213,7 +213,7 @@ def test_performance_defaults_reach_the_pipeline(small_stream):
 
 
 @pytest.mark.parametrize("kw,item", [
-    ({"xcorr_method": "fft"}, "Queue 1 item 8"),
+    ({"dtype": torch.float64}, "Queue 1 item 8"),
     ({"subsample_delays": True}, "Queue 1 item 8"),
     ({"window_method": "patches"}, "Queue 1 item 8"),
 ])

@@ -211,9 +211,20 @@ def test_async_returns_device_tensors(long_stream, alpha):
                                              (None, (1, 4))],
                          ids=["mesh", "time-shards", "band-shards"])
 def test_mesh_other_than_one_device_raises(long_stream, mesh, mesh_shape):
+    """A mesh that is not a `parallel.mesh.Mesh` raises; a ``mesh_shape``
+    without a mesh is a virtual mesh, whose ``run`` raises (as the JAX
+    package's ``_require_mesh``) while its oracle runs."""
     _, tp = _plans(long_stream)
     rij = get_rij(long_stream.latitudes, long_stream.longitudes, 4)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-        ShardedNarrowBandPipeline(tp, rij, mesh, mesh_shape=mesh_shape, device="cpu")
+    if mesh is not None:
+        with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
+            ShardedNarrowBandPipeline(tp, rij, mesh, mesh_shape=mesh_shape, device="cpu")
+        return
+    virt = ShardedNarrowBandPipeline(tp, rij, None, mesh_shape=mesh_shape, device="cpu")
+    segs = virt.segment_stream(long_stream.data)
+    with pytest.raises(RuntimeError, match="virtual mesh"):
+        virt.run(segs)
+    assert virt.run_reference_sequential(segs[:2 * mesh_shape[0]])["vel"].shape == (
+        2 * mesh_shape[0], tp.nbands, tp.max_windows)
     one = ShardedNarrowBandPipeline(tp, rij, None, mesh_shape=(1, 1), device="cpu")
     assert one.segment_stream(long_stream.data).shape == (8, 4, tp.npts)

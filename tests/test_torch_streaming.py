@@ -314,13 +314,14 @@ def test_nan_guard_zeroes_non_finite():
 
 
 def test_what_is_refused_raises(monitor_setup, tmp_path, monkeypatch):
-    """A mesh, and several processes, wait for ROADMAP.md Queue 1 item 6."""
+    """A mesh must be a `parallel.mesh.Mesh`; several processes need one
+    (without it each would run and persist the whole stream)."""
     _, mon, _, _ = monitor_setup
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(TypeError, match="parallel.mesh.Mesh"):
         _monitor(mon, tmp_path, mesh=object())
     monkeypatch.setattr(torch.distributed, "is_initialized", lambda: True)
     monkeypatch.setattr(torch.distributed, "get_world_size", lambda *a: 2)
-    with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+    with pytest.raises(ValueError, match="needs a mesh"):
         _monitor(mon, tmp_path)
 
 

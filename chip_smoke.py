@@ -83,6 +83,19 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   decoded stream, and resume; ``fetch`` of the golden fixture (served
   offline), then ``run`` on it against ``tests/data/golden.json``; launches
   per route and the command's phase times (``utils.profiling.PhaseTimers``);
+- ``options``: the options ported last.  ``icorr_peak``'s neighbour route
+  (sub-sample delays) at each precision: (peak, idx) bit for bit the
+  integer route, the neighbours against the route's own products and the
+  plain version, on random, tie and tile-edge cases (peaks on a tile's
+  first and last column, next to a tile no row searches, at lag 0 and
+  nlag - 1); the canonical run with ``subsample_delays=True`` at 'high',
+  'highest' and 'default' (one neighbour launch per bucket, card against
+  CPU on windows with equal integer lags, the truth); ``window_method=
+  'patches'`` bit for bit 'gather'; float64 bit for bit float32; a
+  bfloat16 ``ltsva`` against the CPU's; ``sosfilt`` (the port's own
+  kernel, ``filter_stream_scan``) against its plain version and scipy;
+  the canonical OLS and LTS runs against the port's NumPy oracle; the
+  neighbour route's times beside the integer route's, and peak memory;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
   times, profiles (device time through ``utils.profiling``).
 
@@ -129,7 +142,7 @@ MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
           "multiarray", "sharded", "lts", "monitor", "ingest", "golden", "cli",
-          "timing")
+          "options", "timing")
 LTS_ALPHA = 0.75
 LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
 LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
@@ -1143,6 +1156,7 @@ def zero_launches():
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
     XP.launches = XP.launches_tc = FX.launches = FX.launches_tc = 0
+    XP.launches_nb = XP.launches_nb_tc = 0
 
 
 def run_api_lts(st, freqlist, winlens, device, production):
@@ -2623,6 +2637,534 @@ def phase_cli(label):
 
 
 # --------------------------------------------------------------------------
+# the last options: sub-sample delays, patches, dtypes, sosfilt, the oracle
+# --------------------------------------------------------------------------
+
+# the neighbour route's (cm, cp) against the float64 sums of the products
+# its precision takes at idx -/+ 1 (`own_value`), relative to the largest
+# |peak|, as the peak is held (KERNEL_RTOL; DEFAULT_RTOL at 'default')
+NB_EDGE_NLAG = 300         # three lag tiles of 128: 0-127, 128-255, 256-299
+NB_EDGE_DOMINANT = (0, 127, 128, 255, 256, 299)
+# per block of 192 rows (one tensor-core CTA, three fp32 CTAs): [lo, hi]
+# and the lag that must win; -1: a random range with no dominant column
+NB_EDGE_BLOCKS = ((0, 50, 0),        # lo = 0: cm is the placeholder 0
+                  (100, 127, 127),   # last column of tile 0: cp from tile 1
+                  (128, 200, 128),   # lo on a boundary, tile 0 searched by no row
+                  (200, 255, 255),   # hi on a boundary, tile 2 searched by no row
+                  (256, 290, 256),   # first column of the last tile
+                  (260, 299, 299),   # hi = nlag - 1: cp is the placeholder 0
+                  (129, 254, -1),    # inside tile 1
+                  (1, 298, -1))      # across all tiles
+# the bfloat16 ltsva (canonical data, 0.5-2 Hz, 30 s windows) on the card
+# against the CPU's: measured on an H100 (700 W) equal in vel and baz on
+# all 79 windows and within 6.6e-7 in MdCCM (float32, from bf16 energies
+# summed in another order), once every product with a host scalar is taken
+# in float32 (`ops.xcorr.lag_seconds`, `ops.solve.degrees`: CUDA rounds
+# the scalar to bf16, the CPU does not).  The limits allow one bf16 step of
+# vel (2^-8 of itself) and of baz (1 degree above 128), and 1e-5 of MdCCM.
+# Against float32 it is logged only: the JAX step rounds the lag index
+# itself to bfloat16 (idx.astype(dtype)), so delays past 256 lags move in
+# steps of 2 to 8 samples.
+BF16_VEL_RTOL = 2.0 ** -8
+BF16_BAZ_DEG = 1.0
+BF16_MDCCM_ATOL = 1e-5
+SOSFILT_RTOL = 1e-3        # tests/test_jax_pipeline.py:231, against scipy in float64
+# the canonical runs against the port's NumPy oracle (tests/test_jax_pipeline.py)
+ORACLE_MDCCM_ATOL = 1e-2
+ORACLE_BAZ_Q90_DEG = 1.0
+ORACLE_VEL_MEDIAN = 1e-2
+ORACLE_LTS_FLAGS_MIN = 0.75
+ORACLE_LTS_BAZ_Q75_DEG = 2.0
+
+
+def nb_edge_case(K2p=256, seed=8):
+    """Small random e2 with dominant columns at NB_EDGE_DOMINANT and
+    non-negative cs2, rows in blocks of 192 with the ranges of
+    NB_EDGE_BLOCKS: peaks on the first and last column of a tile, next to
+    a tile that no row of the block searches, at lag 0 and nlag - 1."""
+    import torch
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    R = 192 * len(NB_EDGE_BLOCKS)
+    cs2 = torch.rand(R, K2p, generator=g, device="cuda")
+    e2 = 0.1 * torch.randn(K2p, NB_EDGE_NLAG, generator=g, device="cuda")
+    for d in NB_EDGE_DOMINANT:
+        e2[:, d] = 1.0 + 0.5 * torch.rand(K2p, generator=g, device="cuda")
+    lo = torch.empty(R, dtype=torch.int32, device="cuda")
+    hi = torch.empty_like(lo)
+    want = torch.full_like(lo, -1)
+    for k, (l, h, w) in enumerate(NB_EDGE_BLOCKS):
+        rows = slice(192 * k, 192 * (k + 1))
+        lo[rows], hi[rows], want[rows] = l, h, w
+    return cs2, e2, lo, hi, want
+
+
+def check_icorr_nb(name, cs2, e2, lo, hi, precision, want=None):
+    """The neighbour route at ``precision``: (peak, idx) bit for bit the
+    integer route's on the same inputs; (cm, cp) within rtol * max|peak| of
+    the float64 sums of the route's own products at idx -/+ 1, exactly 0
+    where idx is 0 or nlag - 1, and within the same of the plain version
+    on rows where its idx is the kernel's.  Returns max |cm, cp error|
+    against the plain version."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    rtol = DEFAULT_RTOL if precision == "default" else KERNEL_RTOL
+    prep = XP.prepare(e2, precision)
+    before = (XP.launches_nb, XP.launches_nb_tc)
+    pk, ix, cm, cp = XP.icorr_peak(cs2, e2, lo, hi, precision=precision,
+                                   prepared=prep, neighbours=True)
+    tc = precision != "highest"
+    if (XP.launches_nb - before[0], XP.launches_nb_tc - before[1]) != (int(not tc), int(tc)):
+        fail(f"icorr_peak neighbours {name} ({precision}) took the wrong route")
+    pk0, ix0 = XP.icorr_peak(cs2, e2, lo, hi, precision=precision, prepared=prep)
+    pr, ir, cmr, cpr = XP.icorr_peak_reference(cs2, e2, lo, hi, precision=precision,
+                                               neighbours=True)
+    torch.cuda.synchronize()
+    tag = f"icorr_peak neighbours {name} [{precision}]"
+    if not (torch.equal(pk, pk0) and torch.equal(ix, ix0)):
+        fail(f"{tag}: (peak, idx) differ from the integer route's bits on "
+             f"{int(((pk != pk0) | (ix != ix0)).sum())} rows")
+    if want is not None:
+        forced = want >= 0
+        if not torch.equal(ix[forced], want[forced]):
+            fail(f"{tag}: {int((ix[forced] != want[forced]).sum())} rows missed "
+                 f"their dominant lag")
+    nlag = e2.shape[1]
+    fin = torch.isfinite(pk)
+    scale = float(pk[fin].abs().max())
+    errs = []
+    for side, got, ref, k, edge in (("cm", cm, cmr, ix - 1, ix == 0),
+                                    ("cp", cp, cpr, ix + 1, ix == nlag - 1)):
+        if bool((got[edge & fin] != 0).any()):
+            fail(f"{tag}: {side} is not the placeholder 0 at the table's edge")
+        rows = (fin & ~edge).nonzero().flatten()
+        own = own_value(cs2, e2, rows, k[rows].long(), precision)
+        d_own = (got[rows].double() - own).abs()
+        if bool((d_own > rtol * scale).any()):
+            fail(f"{tag}: {side} differs from the route's own products beyond "
+                 f"rtol {rtol} (max {float(d_own.max()):.3e}, scale {scale:.3e})")
+        same = (ix == ir) & fin
+        d_ref = (got[same] - ref[same]).abs()
+        if bool((d_ref > rtol * scale).any()):
+            fail(f"{tag}: {side} differs from the plain version beyond rtol {rtol} "
+                 f"(max {float(d_ref.max()):.3e}, scale {scale:.3e})")
+        errs.append(float(d_ref.max()) if d_ref.numel() else 0.0)
+    moved = int(((ix != ir) & fin).sum())
+    at_edge = int(((ix % 128 == 0) | (ix % 128 == 127)).sum())
+    log(f"{tag}: R={cs2.shape[0]} K2p={cs2.shape[1]} nlag={nlag}: (peak, idx) "
+        f"bit for bit the integer route; max |cm, cp err| against plain "
+        f"{max(errs):.3e} (scale {scale:.3e}); {at_edge} rows peak on a tile "
+        f"edge; {moved} near-tie rows where the plain version picks another lag")
+    return max(errs)
+
+
+def options_kernel():
+    """The neighbour route on the random canonical-sized cases, the tie
+    case and the tile-edge case at every precision; returns the largest
+    (cm, cp) error against the plain version per precision."""
+    cases = {"canonical-largest-K": random_case(1092, 2432, 2399, 1),
+             "canonical-largest-R": random_case(2212, 1280, 1199, 2)}
+    cs2, e2, lo, hi, want = tie_case()
+    cases["tie"] = (cs2, e2, lo, hi, want)
+    cases["tile-edge"] = nb_edge_case()
+    errs = {}
+    for prec in PRECISIONS:
+        for name, args in cases.items():
+            e = check_icorr_nb(name, *args[:4], precision=prec,
+                               want=args[4] if len(args) > 4 else None)
+            errs[prec] = max(errs.get(prec, 0.0), e)
+    return errs
+
+
+def subsample_run(plan, rij, st, device, precision):
+    """One subsample 'mxu' step on ``device``: (outputs, integer-lag delays
+    of the same step, neighbour-route launches (fp32, tensor cores),
+    integer-route launches); on the card also (subsample delays, outputs
+    with integer lags).  NumPy."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    pipe = NarrowBandPipeline(plan, rij, subsample_delays=True,
+                              matmul_precision=precision, device=device)
+    XP.launches = XP.launches_tc = XP.launches_nb = XP.launches_nb_tc = 0
+    out = pipe.run_raw(st.data)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    nb = (XP.launches_nb, XP.launches_nb_tc)
+    plain = (XP.launches, XP.launches_tc)
+    np_ = lambda d: {k: v.cpu().numpy() for k, v in d.items()}
+    y = pipe._filter(pipe._to_device(st.data))
+    extra = ()
+    if device == "cuda":
+        extra = (pipe._delays(y)[0].cpu().numpy(),)
+    pipe.subsample_delays = False
+    tau_int = pipe._delays(y)[0].cpu().numpy()
+    if device == "cuda":
+        extra += (np_(pipe.run_raw(st.data)),)
+    return (np_(out), tau_int, nb, plain) + extra
+
+
+def options_subsample(label, st, plan, rij):
+    """The canonical plan with subsample_delays=True, 'mxu', at 'high' and
+    'highest' (and 'default' against the truth): one neighbour launch per
+    bucket and no integer-route launch; card against CPU within TOL on
+    every valid window whose integer lags are equal; the truth; the median
+    sig_tau against the integer-lag run.  Returns the launches per
+    precision."""
+    ncl = plan.num_compute_list
+    cpu, tint_c, _, _ = subsample_run(plan, rij, st, "cpu", "high")
+    launches = {}
+    for prec in ("high", "highest", "default"):
+        gpu, tint_g, nb, plain, tsub_g, gint = subsample_run(plan, rij, st, "cuda", prec)
+        own = nb[0] if prec == "highest" else nb[1]
+        if own != CANONICAL_BUCKETS or sum(nb) != own or plain != (0, 0):
+            fail(f"subsample at {prec}: neighbour launches {nb} and integer "
+                 f"launches {plain}; want {CANONICAL_BUCKETS} on the "
+                 f"{'fp32' if prec == 'highest' else 'tensor-core'} neighbour route only")
+        launches[prec] = own
+        wm = np.zeros(gpu["vel"].shape, dtype=bool)
+        for b, n in enumerate(ncl):
+            wm[b, :n] = True
+        frac = np.abs(tsub_g - tint_g)[wm] * plan.fs
+        if prec != "default":
+            same = (tint_g == tint_c).all(-1) & wm
+            worst = 0.0
+            for nm in ("vel", "baz", "mdccm", "sig_tau"):
+                g, c = gpu[nm][same], cpu[nm][same]
+                d = np.abs((g - c + 180.0) % 360.0 - 180.0) if nm == "baz" else np.abs(g - c)
+                lim = TOL + TOL * np.abs(c)
+                worst = max(worst, float((d / lim).max()))
+                if not (d <= lim).all():
+                    fail(f"subsample at {prec}: {nm} differs between cuda and cpu "
+                         f"beyond {TOL} on {int((d > lim).sum())} windows with "
+                         f"equal integer lags")
+            log(f"subsample at {prec} cuda vs cpu: {int(same.sum())}/{int(wm.sum())} "
+                f"valid windows with equal integer lags ({int(wm.sum() - same.sum())} "
+                f"moved); vel/baz/mdccm/sig_tau within {TOL} on them (worst "
+                f"|d|/tol {worst:.3f})")
+        conf = (gpu["mdccm"] > MDCCM_THRESH) & wm
+        log(f"subsample at {prec}: neighbour launches {own} a step; |frac| "
+            f"median {np.median(frac):.4f}, max {frac.max():.4f} samples; median "
+            f"sig_tau on confident windows {np.median(gpu['sig_tau'][conf]):.6f} s "
+            f"against {np.median(gint['sig_tau'][conf]):.6f} s with integer lags; "
+            f"max |vel| change {np.abs(gpu['vel'] - gint['vel'])[wm].max():.3e} km/s")
+        ground_truth((gpu["vel"], gpu["baz"], gpu["mdccm"]), ncl,
+                     label=f"subsample {prec} ")
+    return launches
+
+
+def options_patches_dtypes(st, plan, rij):
+    """'patches' bit for bit 'gather' with bucketing off, float64 bit for
+    bit float32, on the card; the bfloat16 ltsva against float32 and the
+    CPU's bfloat16."""
+    import torch
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.oracle import filter_and_taper
+
+    def run(**kw):
+        pipe = NarrowBandPipeline(plan, rij, device="cuda", **kw)
+        return {k: v.cpu() for k, v in pipe.run_raw(st.data).items()}
+
+    pat = run(window_method="patches", bucket_bands=True)
+    gat = run(window_method="gather", bucket_bands=False)
+    for k in gat:
+        if not torch.equal(pat[k], gat[k]):
+            fail(f"patches: {k} differs from gather (bucketing off) on the card")
+    f64, f32 = run(dtype=torch.float64), run()
+    for k in f32:
+        if f64[k].dtype != torch.float32 or not torch.equal(f64[k], f32[k]):
+            fail(f"dtype float64: {k} differs from float32 on the card")
+    log("patches (bucketing off, as in the JAX package) bit for bit gather on "
+        "the card; dtype=float64 computes float32, bit for bit float32")
+
+    filt, _ = filter_and_taper(st.data, st.fs, "cheby1", 0.5, 2.0, 2, 0.01)
+    stf = ArrayStream(data=filt, fs=st.fs, start_epoch=st.start_epoch, ids=list(st.ids),
+                      latitudes=st.latitudes, longitudes=st.longitudes)
+    out = {}
+    for key, dev, dt in (("bf16", "cuda", torch.bfloat16), ("f32", "cuda", None),
+                         ("bf16-cpu", "cpu", torch.bfloat16)):
+        prev = api.set_performance_defaults(dtype=dt)
+        try:
+            out[key] = api.ltsva(stf, st.latitudes, st.longitudes, 30.0, WINOVER,
+                                 1.0, device=dev)
+        finally:
+            api.set_performance_defaults(dtype=None)
+            api.set_performance_defaults(**prev)
+    b, f, c = out["bf16"], out["f32"], out["bf16-cpu"]
+    conf = c[3] > MDCCM_THRESH
+    for ref, what, held in ((c, "bfloat16 on the CPU", True),
+                            (f, "float32 on the card", False)):
+        dv = np.abs(b[0] - ref[0]) / np.abs(ref[0])
+        db = np.abs((b[1] - ref[1] + 180.0) % 360.0 - 180.0)
+        dm = np.abs(b[3] - ref[3])
+        log(f"bf16 ltsva against {what}: {len(b[0])} windows ({int(conf.sum())} "
+            f"confident, {int((dv[conf] > 2.0 ** -8).sum())} of them with vel "
+            f"off by more than a bf16 step): max |vel| rel {np.nanmax(dv[conf]):.3e}, |baz| "
+            f"{np.nanmax(db[conf]):.3f} deg, |MdCCM| {dm.max():.3e} on them (all "
+            f"windows: vel {np.nanmax(dv):.3e}, baz {np.nanmax(db):.3f})")
+        if held and ((dv[conf] > BF16_VEL_RTOL).any() or (db[conf] > BF16_BAZ_DEG).any()
+                     or (dm > BF16_MDCCM_ATOL).any()):
+            fail(f"bf16 ltsva on the card differs from {what} beyond vel "
+                 f"{BF16_VEL_RTOL:.3e} rel, baz {BF16_BAZ_DEG} deg (confident "
+                 f"windows), MdCCM {BF16_MDCCM_ATOL}")
+
+
+def options_sosfilt(label, st, plan):
+    """filter_stream_scan of each canonical band on the card: the kernel
+    against the plain version (CPU, bit for bit) on one band and a
+    four-section design, and against scipy's sosfilt in float64 on all;
+    timings of one launch.  Returns the kernels-line record."""
+    import torch
+    from scipy import signal
+    from narrow_band_least_squares_tpu_torch.ops import filters as F
+    from narrow_band_least_squares_tpu_torch.ops.kernels import sosfilt as SF
+
+    sos_list = [F.design_sos("cheby1", *plan.edges(b), 2, 0.01, st.fs)
+                for b in range(plan.nbands)]
+    taper = F.taper_window(st.npts, 0.01)
+    x = torch.as_tensor(st.data, dtype=torch.float32)
+    xd, td = x.cuda(), torch.as_tensor(taper, dtype=torch.float32).cuda()
+    sd = [torch.as_tensor(s, dtype=torch.float32).cuda() for s in sos_list]
+    SF.launches = 0
+    ys = [F.filter_stream_scan(xd, s, td, False) for s in sd]
+    torch.cuda.synchronize()
+    launches = SF.launches
+    if launches != plan.nbands:
+        fail(f"sosfilt: {launches} launches for {plan.nbands} bands")
+    worst_scipy = 0.0
+    for b, (y, sos) in enumerate(zip(ys, sos_list)):
+        ref = signal.sosfilt(sos, st.data, axis=-1) * taper
+        err = float(np.abs(y.cpu().numpy() - ref).max() / np.abs(ref).max())
+        worst_scipy = max(worst_scipy, err)
+        if err > SOSFILT_RTOL:
+            fail(f"sosfilt band {b}: {err:.3e} of the peak from scipy's float64 "
+                 f"sosfilt (limit {SOSFILT_RTOL})")
+    plain = SF.sosfilt_reference(sd[0].cpu(), x)
+    got = SF.sosfilt(sd[0], xd).cpu()
+    max_err = float((got - plain).abs().max())
+    if not torch.equal(got, plain):
+        fail(f"sosfilt band 0: the kernel differs from its plain version "
+             f"(max {max_err:.3e})")
+    # a fourth-order design: four sections, another of the kernel's
+    # instances, on the first 4,000 samples
+    sos4 = torch.as_tensor(F.design_sos("cheby1", *plan.edges(3), 4, 0.01, st.fs),
+                           dtype=torch.float32)
+    got4 = SF.sosfilt(sos4.cuda(), xd[:, :4000]).cpu()
+    if not torch.equal(got4, SF.sosfilt_reference(sos4, x[:, :4000])):
+        fail("sosfilt with four sections differs from its plain version")
+    N, T = x.shape
+    S = sd[0].shape[0]
+    kt = device_ms(lambda: SF.sosfilt(sd[0], xd), reps=5)
+    t0 = time.perf_counter()
+    SF.sosfilt_reference(sd[0], xd)
+    torch.cuda.synchronize()
+    pt = (time.perf_counter() - t0) * 1e3
+    nbytes = 4.0 * (2 * N * T + 6 * S)
+    flops = 9.0 * N * T * S
+    bound, by = (max(nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS) * 1e3,
+                 "bytes" if nbytes / PEAK_HBM_BYTES >= flops / PEAK_FP32_FLOPS
+                 else "operations")
+    log(f"[{label}] sosfilt: {launches} launches ({plan.nbands} bands x {N} rows x "
+        f"{T} samples, {S} sections); bit for bit its plain version on band 0 "
+        f"and with {sos4.shape[0]} sections; worst {worst_scipy:.3e} of the peak from scipy "
+        f"float64; one launch: kernel {kt:.4f} ms, plain (a loop over samples on "
+        f"the card) {pt:.1f} ms, bound {bound * 1e3:.3f} us by {by}; library: none")
+    return {"name": "sosfilt", "route": "cuda", "per": "launch",
+            "source": "narrow_band_least_squares_tpu_torch/csrc/sosfilt.cu",
+            "replaces": "none: the port's own kernel for "
+                        "narrow_band_least_squares_tpu/ops/filters.py:164 (lax.scan)",
+            "launches": launches, "max_abs_err": max_err, "ms": kt, "plain_ms": pt,
+            "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
+def oracle_compare(label, gpu, orc, ncl, lts):
+    """Per band, the card's API outputs against the port's float64 oracle at
+    tests/test_jax_pipeline.py's tolerances."""
+    vel_g, baz_g, md_g, t_g, sd_g, sig_g = gpu[:6]
+    vel_o, baz_o, md_o, t_o, sd_o, sig_o, num_o = orc[:7]
+    if list(num_o) != list(ncl):
+        fail(f"{label}: window counts differ from the oracle's")
+    agree = total = 0
+    for b, n in enumerate(ncl):
+        if not np.allclose(t_g[b, :n], t_o[b, :n], rtol=0, atol=1e-9):
+            fail(f"{label} band {b}: window times differ from the oracle's")
+        d = np.abs((baz_g[b, :n] - baz_o[b, :n] + 180.0) % 360.0 - 180.0)
+        if lts:
+            if np.quantile(d, 0.75) >= ORACLE_LTS_BAZ_Q75_DEG:
+                fail(f"{label} band {b}: baz 75% quantile off the oracle by "
+                     f"{np.quantile(d, 0.75):.3f} deg")
+            continue
+        if np.abs(md_g[b, :n] - md_o[b, :n]).max() > ORACLE_MDCCM_ATOL:
+            fail(f"{label} band {b}: MdCCM off the oracle beyond {ORACLE_MDCCM_ATOL}")
+        if np.quantile(d, 0.9) >= ORACLE_BAZ_Q90_DEG:
+            fail(f"{label} band {b}: baz 90% quantile off the oracle by "
+                 f"{np.quantile(d, 0.9):.3f} deg")
+        if np.median(np.abs(vel_g[b, :n] - vel_o[b, :n])) >= ORACLE_VEL_MEDIAN:
+            fail(f"{label} band {b}: median |vel| off the oracle beyond "
+                 f"{ORACLE_VEL_MEDIAN}")
+    if lts:
+        keys = sorted(k for k in sd_o if k != "size")
+        if keys != sorted(k for k in sd_g if k != "size"):
+            fail(f"{label}: the stdict keys differ from the oracle's")
+        for k in keys:
+            fo = set(map(tuple, np.asarray(sd_o[k]).reshape(-1, 2))) if len(sd_o[k]) else set()
+            fg = set(map(tuple, np.asarray(sd_g[k]).reshape(-1, 2))) if len(sd_g[k]) else set()
+            agree += len(fo & fg)
+            total += max(len(fo), len(fg), 1)
+        if agree / total <= ORACLE_LTS_FLAGS_MIN:
+            fail(f"{label}: flags agree with the oracle on {agree / total:.3f} of "
+                 f"the cells (limit {ORACLE_LTS_FLAGS_MIN})")
+    log(f"{label} against the port's NumPy oracle (float64): per band within "
+        f"tests/test_jax_pipeline.py's tolerances"
+        + (f"; flags agree on {agree}/{total} = {agree / total:.3f} of the cells"
+           if lts else ""))
+
+
+def options_oracle():
+    """The canonical OLS run, and LTS with one incoherent element, through
+    the API on the card against the port's oracle (FFT correlation, a
+    process a band)."""
+    from narrow_band_least_squares_tpu_torch.oracle import narrow_band_least_squares_oracle
+
+    fr = np.logspace(-2, np.log10(FS / 2), 100)
+    for alpha, outliers in ((1.0, ()), (LTS_ALPHA, (LTS_OUTLIER,))):
+        st, freqlist, winlens = canonical_inputs(outlier_channels=outliers)
+        gpu = run_api(st, freqlist, winlens, "cuda", alpha=alpha)
+        t0 = time.perf_counter()
+        orc = narrow_band_least_squares_oracle(
+            winlens, WINOVER, alpha, st, st.latitudes, st.longitudes, NBANDS,
+            freqlist, "log", fr, "cheby1", 2, 0.01, xcorr_method="fft", n_jobs=NBANDS)
+        log(f"oracle at ALPHA {alpha}: {time.perf_counter() - t0:.1f} s on the host")
+        oracle_compare(f"canonical ALPHA {alpha}", gpu, orc, gpu[6], alpha < 1.0)
+
+
+def options_timing(label, plan, rij, st, nb_errs, launches):
+    """Per precision, on the canonical subsample step's inputs: the
+    neighbour route against the integer route, its plain version and the
+    library (SGEMM + mask + max + two gathers); the peak memory of the
+    canonical 'mxu' step beside the subsample one.  Returns the records."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+
+    pipe = NarrowBandPipeline(plan, rij, subsample_delays=True, device="cuda")
+    seen = capture_icorr_inputs(pipe, st.data)
+    tot = {p: dict(ms=0.0, int_ms=0.0, plain_ms=0.0, library_ms=0.0, flops=0.0,
+                   nbytes=0.0) for p in PRECISIONS}
+    for args, _ in seen:
+        cs2, e2, lo, hi = args
+        nlag = e2.shape[1]
+        span = (torch.clamp(hi.long() + 1, max=nlag - 1)
+                - torch.clamp(lo.long() - 1, min=0) + 1).clamp(min=0).sum().item()
+        f = 2.0 * cs2.shape[1] * span
+        b = 4.0 * (cs2.numel() + e2.numel() + lo.numel() + hi.numel() + 4 * cs2.shape[0])
+        lib = {False: device_ms(lambda: library_peak_nb(*args), reps=5),
+               True: device_ms(lambda: library_peak_nb(*args, tf32=True), reps=5)}
+        for prec in PRECISIONS:
+            prep = XP.prepare(e2, prec)
+            t = tot[prec]
+            t["ms"] += device_ms(lambda: XP.icorr_peak(*args, precision=prec, prepared=prep,
+                                                       neighbours=True), reps=10)
+            t["int_ms"] += device_ms(lambda: XP.icorr_peak(*args, precision=prec,
+                                                           prepared=prep), reps=10)
+            t["plain_ms"] += device_ms(lambda: XP.icorr_peak_reference(
+                *args, precision=prec, neighbours=True), reps=3)
+            t["library_ms"] += lib[prec == "default"]
+            t["flops"] += f
+            t["nbytes"] += b
+    recs = []
+    for prec in PRECISIONS:
+        t = tot[prec]
+        t["bound_ms"], t["bound_by"] = route_bound_ms(t["flops"], t["nbytes"], prec)
+        log(f"[{label}] icorr_peak neighbour route per canonical step at {prec} "
+            f"({len(seen)} launches): kernel {t['ms']:.4f} ms against the integer "
+            f"route's {t['int_ms']:.4f} ms (+{100 * (t['ms'] / t['int_ms'] - 1):.1f}%), "
+            f"plain {t['plain_ms']:.4f} ms, library "
+            f"({'1xTF32' if prec == 'default' else 'fp32'} SGEMM + mask + max + two "
+            f"gathers) {t['library_ms']:.4f} ms, bound {t['bound_ms']:.4f} ms by "
+            f"{t['bound_by']}")
+        recs.append({
+            "name": f"icorr_peak_nb@{prec}", "route": "cuda", "precision": prec,
+            "source": SOURCES[prec],
+            "replaces": "narrow_band_least_squares_tpu/ops/kernels/xcorr_peak.py:94",
+            "launches": launches.get(prec, 0), "max_abs_err": nb_errs.get(prec),
+            "ms": t["ms"], "plain_ms": t["plain_ms"], "bound_ms": t["bound_ms"],
+            "bound_by": t["bound_by"], "library_ms": t["library_ms"],
+        })
+    pipes = {sub: NarrowBandPipeline(plan, rij, subsample_delays=sub, device="cuda")
+             for sub in (False, True)}
+    step_ms = {False: [], True: []}
+    for sub in (False, True, True, False):       # in turns: the host's load drifts
+        p = pipes[sub]
+        step_ms[sub].append(cuda_time_ms(lambda: p.run_raw(st.data), reps=20))
+    for sub, p in pipes.items():
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        p.run_raw(st.data)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        busy, _ = device_profile(lambda: [p.run_raw(st.data) for _ in range(5)])
+        log(f"[{label}] canonical 'mxu' step at 'high'"
+            + (" with subsample_delays" if sub else "")
+            + f": {np.mean(step_ms[sub]):.4f} ms per run_raw step (turns "
+            f"{', '.join(f'{v:.4f}' for v in step_ms[sub])}), device busy "
+            f"{busy / 5 * 1e3:.4f} ms a step; torch.cuda.max_memory_allocated "
+            f"{peak / 2**20:.1f} MiB ({(peak - base) / 2**20:.1f} MiB above the "
+            f"{base / 2**20:.1f} MiB held before the step)")
+    return recs
+
+
+def library_peak_nb(cs2, e2, lo, hi, tf32=False):
+    """`library_peak` and the two neighbouring correlations gathered from
+    the unmasked product."""
+    import torch
+
+    prev = torch.get_float32_matmul_precision()
+    torch.set_float32_matmul_precision("high" if tf32 else "highest")
+    try:
+        cc = torch.matmul(cs2, e2)
+    finally:
+        torch.set_float32_matmul_precision(prev)
+    col = torch.arange(cc.shape[1], device=cc.device)
+    bad = (col[None, :] < lo[:, None]) | (col[None, :] > hi[:, None])
+    peak, idx = cc.masked_fill(bad, float("-inf")).max(dim=1)
+    n = cc.shape[1] - 1
+    cm = cc.gather(1, (idx - 1).clamp(0, n)[:, None])
+    cp = cc.gather(1, (idx + 1).clamp(0, n)[:, None])
+    return peak, idx, cm, cp
+
+
+def phase_options(label):
+    """The options this slice ports, on the card; returns the kernels-line
+    records of the neighbour route and sosfilt."""
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+
+    t0 = time.perf_counter()
+    lap = lambda what: log(f"options: {what} done at {time.perf_counter() - t0:.1f} s")
+    nb_errs = options_kernel()
+    lap("kernel checks")
+    st, freqlist, winlens = canonical_inputs()
+    plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    launches = options_subsample(label, st, plan, rij)
+    lap("subsample")
+    options_patches_dtypes(st, plan, rij)
+    lap("patches and dtypes")
+    srec = options_sosfilt(label, st, plan)
+    lap("sosfilt")
+    options_oracle()
+    lap("oracle")
+    recs = options_timing(label, plan, rij, st, nb_errs, launches)
+    lap("timing")
+    return recs + [srec]
+
+
+# --------------------------------------------------------------------------
 # timings
 # --------------------------------------------------------------------------
 
@@ -3083,13 +3625,20 @@ def main() -> int:
     if "cli" in phases:
         phase_cli(label)
         phase_done("cli")
+    recs = []
+    if "options" in phases:
+        orecs = phase_options(label)
+        phase_done("options")
     if "timing" in phases:
         recs, plans, st = phase_timing(label, launches)
         phase_done("timing (icorr_peak)")
-        frecs = time_fused(label, plans, st, fused_errs, fused_launches or {})
+        recs += time_fused(label, plans, st, fused_errs, fused_launches or {})
         phase_done("timing (fused)")
+    if "options" in phases:
+        recs += orecs
+    if recs:
         log(f"[{label}]")
-        log(json.dumps({"kernels": recs + frecs}))
+        log(json.dumps({"kernels": recs}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}))
     return 0

@@ -6,7 +6,7 @@ public names, imports nothing of it, and runs on the card unless the caller
 passes ``device="cpu"``; on the CPU each hand-written kernel is replaced by
 its plain PyTorch version.
 
-What is ported so far:
+What is ported:
 
 - the band/window plan, geometry and time helpers (`utils`),
 - the waveform container with its ObsPy-style indexing, synthetic data and
@@ -41,7 +41,16 @@ What is ported so far:
   format), the command line (``python -m narrow_band_least_squares_tpu_torch
   run|monitor|fetch|defaults``), the parity figures (`plotting`, host
   matplotlib, imported only by the figure code) and the run profiler
-  (`utils.profiling`: phase timers, ``torch.profiler`` traces).
+  (`utils.profiling`: phase timers, ``torch.profiler`` traces),
+- the last options: sub-sample delays (``subsample_delays``, on the
+  neighbour epilogue of ``icorr_peak``), ``window_method='patches'``, the
+  pipeline dtypes the JAX package runs, the exact SOS recurrence
+  (`ops.filters.sosfilt_scan`, the CUDA kernel ``csrc/sosfilt.cu``), and
+  the NumPy/SciPy oracle (`oracle`, importing neither torch nor JAX).
+
+With these the port does all the JAX package does, apart from its
+compilation cache (``utils/compcache.py``), which eager PyTorch has no use
+for.
 
 Importing the package builds nothing: a kernel is compiled at its first
 launch on the card, the host runtime at its first use.

@@ -15,6 +15,9 @@ same commands, arguments, config files and outputs, on the card unless
 results, the config it used, the full figure set and a JSON summary with
 the phase times; `monitor` runs the segmented checkpoint/resume pipeline.
 Without CUDA, `run` and `monitor` raise unless given ``--device cpu``.
+``--subsample-delays`` (`run` and `monitor`, the port's own flag: the JAX
+package's config has no such field) refines every delay by the parabola
+through its peak's neighbours, with ``xcorr_method`` 'mxu'.
 """
 
 from __future__ import annotations
@@ -71,6 +74,15 @@ def _load_config(args):
     return NBLSConfig.from_json(args.config) if args.config else NBLSConfig()
 
 
+def _overrides(args, cfg):
+    """The config's pipeline options, with ``subsample_delays`` when the
+    command line asks for it."""
+    out = cfg.perf_overrides()
+    if getattr(args, "subsample_delays", False):
+        out["subsample_delays"] = True
+    return out
+
+
 def cmd_run(args):
     from narrow_band_least_squares_tpu_torch import api
     from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
@@ -79,7 +91,7 @@ def cmd_run(args):
     dev = resolve_device(args.device)
     cfg = _load_config(args)
     os.makedirs(args.out, exist_ok=True)
-    api.set_performance_defaults(**cfg.perf_overrides())
+    api.set_performance_defaults(**_overrides(args, cfg))
     st = _load_stream(args, cfg)
     timers = PhaseTimers()
 
@@ -211,7 +223,7 @@ def cmd_monitor(args):
         filter_type=cfg.FILTER_TYPE, filter_order=cfg.FILTER_ORDER,
         filter_ripple=cfg.FILTER_RIPPLE, alpha=cfg.ALPHA,
         dispatch_segments=getattr(args, "dispatch_segments", 4),
-        device=dev, **cfg.perf_overrides(),
+        device=dev, **_overrides(args, cfg),
     ) as mon:
         recs = mon.process(st, resume=not args.no_resume)
     print(json.dumps({
@@ -254,6 +266,8 @@ def main(argv=None):
     sub = ap.add_subparsers(dest="cmd", required=True)
     device_help = ("'cuda' (the default; raises without CUDA) or 'cpu' (the "
                    "kernels' plain PyTorch versions)")
+    subsample_help = ("refine each delay by the parabola through the "
+                      "correlation peak and its neighbours (xcorr_method 'mxu')")
 
     p_run = sub.add_parser("run", help="broadband + narrow-band processing")
     p_run.add_argument("--config", help="NBLSConfig JSON (defaults otherwise)")
@@ -264,6 +278,7 @@ def main(argv=None):
                        help="synthesize the canonical event (offline)")
     p_run.add_argument("--no-figures", action="store_true")
     p_run.add_argument("--device", default="cuda", help=device_help)
+    p_run.add_argument("--subsample-delays", action="store_true", help=subsample_help)
     p_run.set_defaults(fn=cmd_run)
 
     p_mon = sub.add_parser("monitor", help="segmented checkpoint/resume run")
@@ -279,6 +294,7 @@ def main(argv=None):
                             "(amortizes dispatch round trips; higher = "
                             "more throughput, more result latency)")
     p_mon.add_argument("--device", default="cuda", help=device_help)
+    p_mon.add_argument("--subsample-delays", action="store_true", help=subsample_help)
     p_mon.set_defaults(fn=cmd_monitor)
 
     p_def = sub.add_parser("defaults", help="print a default config JSON")

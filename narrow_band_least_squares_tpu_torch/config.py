@@ -15,8 +15,11 @@ port keeps them all so that files round-trip; what the port does with each:
 - ``xcorr_chunk_mb`` and ``xcorr_lag_tile`` reach the pipeline, which
   accepts them and changes nothing (they bound a correlation tensor that the
   port's lag-search kernel never forms);
-- ``xcorr_method='fft'`` and ``window_method='patches'`` reach the pipeline,
-  which raises ``NotImplementedError`` for them (ROADMAP Queue 1 item 8).
+- every other option reaches the pipeline and runs as in the JAX package:
+  ``xcorr_method`` 'mxu', 'pallas', 'fused' and 'fft', ``window_method``
+  'strided', 'gather' and 'patches' (which turns bucketing off).
+  ``subsample_delays`` is no field of either package's file; the port's
+  command line takes it as ``--subsample-delays``.
 """
 
 from __future__ import annotations
@@ -89,8 +92,8 @@ class NBLSConfig:
     # --- pipeline options (the command line applies these to every
     #     pipeline via api.set_performance_defaults; see
     #     models.NarrowBandPipeline)
-    xcorr_method: str = "mxu"       # 'mxu' | 'pallas' | 'fused' ('fft' refused)
-    window_method: str = "strided"  # 'strided' | 'gather' ('patches' refused)
+    xcorr_method: str = "mxu"       # 'mxu' | 'pallas' | 'fused' | 'fft'
+    window_method: str = "strided"  # 'strided' | 'gather' | 'patches'
     max_lag_s: Optional[float] = None   # physical lag cap [s] (None = full)
     matmul_precision: str = "high"  # 'highest' (fp32) | 'high' (3xTF32) | 'default' (1xTF32)
     lts_funnel_k: object = 0        # FAST-LTS funnel top-K; 0 = exact

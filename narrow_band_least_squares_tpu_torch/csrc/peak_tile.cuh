@@ -8,7 +8,8 @@
 //     operands K-major in shared memory (the only layout wgmma takes for
 //     tf32);
 //   - the masked first-max epilogue on the accumulator fragment, and the
-//     in-order fold of per-lag-tile partials;
+//     in-order fold of per-lag-tile partials; the same with the peak's two
+//     neighbouring correlations (the three-point parabola's inputs);
 //   - the warp-specialised tile kernel built from them (tc_tile_kernel: a
 //     TMA producer, three wgmma consumer warpgroups, a first-max or a store
 //     epilogue) and its host-side launch helpers, used by icorr_peak
@@ -301,6 +302,103 @@ __global__ void peak_merge_kernel(const float* __restrict__ part_val,
   idx[r] = bidx;
 }
 
+// ---- the neighbour epilogue (sub-sample delays) ------------------------------
+//
+// Beside a row's first maximum (ia, va) of a tile, the correlations at
+// ia - 1 and ia + 1 of the same accumulator: the product that gave the peak,
+// so at every precision the neighbours carry the peak's own rounding.  The
+// lanes of a row hold columns 8j + 2q + e (q = lane % 4), so each lane
+// takes the neighbours it holds and the quad shares them.  A neighbour
+// outside the tile or at or past nlag is 0 here: the fold patches the
+// first from the adjacent tile's edge column (peak_merge_nb_kernel).
+// Neighbours are taken from the unmasked correlation: they may lie outside
+// [lo, hi].
+
+__device__ __forceinline__ void take_flagged(float& v, bool& has, int off) {
+  const float ov = __shfl_xor_sync(0xffffffffu, v, off);
+  const bool oh = __shfl_xor_sync(0xffffffffu, (int)has, off) != 0;
+  if (oh && !has) {
+    v = ov;
+    has = true;
+  }
+}
+
+// (cm_a, cp_a, cm_b, cp_b) of rows a and b, given their tile maxima ia, ib
+struct TileNb {
+  float ma, pa, mb, pb;
+};
+
+__device__ __forceinline__ TileNb tile_neighbours(const float (&d)[ACC],
+                                                  int lag0, int nlag, int ia,
+                                                  int ib) {
+  const int q = threadIdx.x & 3;
+  float v[4] = {0.f, 0.f, 0.f, 0.f};
+  bool has[4] = {false, false, false, false};
+#pragma unroll
+  for (int j = 0; j < TILE_N / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = lag0 + 8 * j + 2 * q + e;
+      const float va = d[4 * j + e], vb = d[4 * j + 2 + e];
+      if (col == ia - 1) { v[0] = va; has[0] = true; }
+      if (col == ia + 1 && col < nlag) { v[1] = va; has[1] = true; }
+      if (col == ib - 1) { v[2] = vb; has[2] = true; }
+      if (col == ib + 1 && col < nlag) { v[3] = vb; has[3] = true; }
+    }
+  }
+#pragma unroll
+  for (int off = 1; off < 4; off <<= 1)
+#pragma unroll
+    for (int k = 0; k < 4; ++k) take_flagged(v[k], has[k], off);
+  return TileNb{v[0], v[1], v[2], v[3]};
+}
+
+// The neighbour partials of a lag tile: four planes of ntiles x R after
+// part_val / part_idx, plane 0 cm, 1 cp, 2 the tile's first column, 3 its
+// last column (both unmasked), each at [plane][tile][row].
+struct NbPlanes {
+  float* base;
+  size_t plane;  // ntiles * R
+  __device__ float& at(int k, size_t i) const { return base[k * plane + i]; }
+};
+
+// Folds the partials in ascending tile order with a strict >, as
+// peak_merge_kernel does, carrying the winner's neighbours; a winner on
+// its tile's first (last) column takes cm (cp) from the previous (next)
+// tile's last (first) column.  A row with no valid lag gives (-inf, 0, 0,
+// 0); a peak at lag 0 has cm 0, one at nlag - 1 has cp 0.
+__global__ void peak_merge_nb_kernel(const float* __restrict__ part_val,
+                                     const int* __restrict__ part_idx,
+                                     const float* __restrict__ part_nb,
+                                     float* __restrict__ peak,
+                                     int* __restrict__ idx,
+                                     float* __restrict__ cm,
+                                     float* __restrict__ cp, int R,
+                                     int ntiles, int tile_n) {
+  const int r = blockIdx.x * blockDim.x + threadIdx.x;
+  if (r >= R) return;
+  const size_t plane = (size_t)ntiles * R;
+  float best = -CUDART_INF_F, bm = 0.f, bp = 0.f;
+  int bidx = 0;
+  for (int j = 0; j < ntiles; ++j) {
+    const size_t i = (size_t)j * R + r;
+    const float v = part_val[i];
+    if (v > best) {
+      best = v;
+      bidx = part_idx[i];
+      bm = part_nb[i];
+      bp = part_nb[plane + i];
+      if (bidx == j * tile_n && j > 0) bm = part_nb[3 * plane + i - R];
+      if (bidx == (j + 1) * tile_n - 1 && j + 1 < ntiles)
+        bp = part_nb[2 * plane + i + R];
+    }
+  }
+  peak[r] = best;
+  idx[r] = bidx;
+  cm[r] = bm;
+  cp[r] = bp;
+}
+
 
 // ---- the warp-specialised tile kernel ---------------------------------------
 //
@@ -324,6 +422,11 @@ __global__ void peak_merge_kernel(const float* __restrict__ part_val,
 //     row_base places the launch's rows in a larger problem), written as the
 //     tile's partial at part_val/part_idx[blockIdx.y * R + r]; a tile whose
 //     rows all search outside its 128 columns is skipped.
+//   EPI_PEAK_NB: EPI_PEAK, and per row of the tile its maximum's two
+//     neighbouring sums (tile_neighbours) and the tile's first and last
+//     column, the four planes of NbPlanes at part_nb; a tile is skipped only
+//     when no row's [lo - 1, hi + 1] meets it, since a peak at lo or hi
+//     takes a neighbour from one column past the band;
 //   EPI_STORE: out[r * ldo + col] = the sum, negated in columns >= neg_from;
 //     ncols must be a multiple of 128.  blockIdx.z = z sums only K part
 //     [z * kpart, (z + 1) * kpart) and writes to out + z * R * ldo, so that
@@ -354,7 +457,7 @@ struct TcCfg {
   static constexpr int SMEM = STAGES * STAGE + 2 * STAGES * 8 + 1024;
 };
 
-enum : int { EPI_PEAK = 0, EPI_STORE = 1 };
+enum : int { EPI_PEAK = 0, EPI_STORE = 1, EPI_PEAK_NB = 2 };
 
 struct TcOut {
   const int* lo;    // EPI_PEAK: lag bounds, one per bdiv rows
@@ -366,6 +469,7 @@ struct TcOut {
   float* out;       // EPI_STORE: R x ldo
   int ldo;
   int neg_from;
+  float* part_nb;   // EPI_PEAK_NB: 4 planes of (ncols / 128) x R, NbPlanes
 };
 
 template <int NPROD, int EPI>
@@ -392,6 +496,24 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
       if (t < TC_BM && row0 + t < R) {
         o.part_val[part0 + row0 + t] = -CUDART_INF_F;
         o.part_idx[part0 + row0 + t] = 0;
+      }
+      return;
+    }
+  }
+  if (EPI == EPI_PEAK_NB) {
+    bool needed = false;
+    if (t < TC_BM && row0 + t < R) {
+      const int b = (o.row_base + row0 + t) / o.bdiv;
+      const int l = o.lo[b], h = o.hi[b];
+      needed = l <= h && l - 1 <= lag0 + TILE_N - 1 && h + 1 >= lag0;
+    }
+    if (!__syncthreads_or(needed)) {
+      if (t < TC_BM && row0 + t < R) {
+        const NbPlanes nb{o.part_nb, (size_t)gridDim.y * R};
+        o.part_val[part0 + row0 + t] = -CUDART_INF_F;
+        o.part_idx[part0 + row0 + t] = 0;
+#pragma unroll
+        for (int k = 0; k < 4; ++k) nb.at(k, part0 + row0 + t) = 0.f;
       }
       return;
     }
@@ -514,6 +636,32 @@ __global__ void __launch_bounds__(TC_THREADS, 1)
     hi_b = o.hi[(o.row_base + rb) / o.bdiv];
   }
   const TileBest b = tile_first_max(acc, lag0, ncols, lo_a, hi_a, lo_b, hi_b);
+  if (EPI == EPI_PEAK_NB) {
+    const TileNb n = tile_neighbours(acc, lag0, ncols, b.ia, b.ib);
+    const NbPlanes nb{o.part_nb, (size_t)gridDim.y * R};
+    const int q = lane & 3;
+    if (q == 0) {
+      if (ra < R) {
+        o.part_val[part0 + ra] = b.va;
+        o.part_idx[part0 + ra] = b.ia;
+        nb.at(0, part0 + ra) = n.ma;
+        nb.at(1, part0 + ra) = n.pa;
+        nb.at(2, part0 + ra) = acc[0];
+      }
+      if (rb < R) {
+        o.part_val[part0 + rb] = b.vb;
+        o.part_idx[part0 + rb] = b.ib;
+        nb.at(0, part0 + rb) = n.mb;
+        nb.at(1, part0 + rb) = n.pb;
+        nb.at(2, part0 + rb) = acc[2];
+      }
+    }
+    if (q == 3) {  // column lag0 + 127: j = 15, e = 1
+      if (ra < R) nb.at(3, part0 + ra) = acc[ACC - 3];
+      if (rb < R) nb.at(3, part0 + rb) = acc[ACC - 1];
+    }
+    return;
+  }
   if ((lane & 3) == 0) {
     if (ra < R) {
       o.part_val[part0 + ra] = b.va;

@@ -260,6 +260,71 @@ __device__ __forceinline__ void first_max_partials(const float (&acc)[TM][TN],
   }
 }
 
+// first_max_partials, and beside each row's maximum the correlations at its
+// lag - 1 and lag + 1 (0 outside the tile or at or past nlag; the fold
+// patches those from the adjacent tile) and the tile's first and last
+// column, unmasked: planes 0-3 at nb[k * plane + r].  The 16 lanes of a row
+// hold columns acc_col(tx, j); the lane that holds a neighbour shares it.
+template <class Bounds>
+__device__ __forceinline__ void first_max_nb_partials(
+    const float (&acc)[TM][TN], int row0, int lag0, int R, int nlag,
+    const Bounds& bounds, float* part_val, int* part_idx, float* nb,
+    size_t plane) {
+  const int t = threadIdx.x, tx = t % LANES, ty = t / LANES;
+#pragma unroll
+  for (int i = 0; i < TM; ++i) {
+    const int r = row0 + acc_row(ty, i);
+    int lo = 1, hi = 0;  // empty range for rows past R
+    if (r < R) bounds(r, lo, hi);
+    float best = -CUDART_INF_F;
+    int bidx = 0;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = lag0 + acc_col(tx, j);
+      if (col >= lo && col <= hi && col < nlag && acc[i][j] > best) {
+        best = acc[i][j];
+        bidx = col;
+      }
+    }
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+      const int oi = __shfl_xor_sync(0xffffffffu, bidx, off);
+      if (ov > best || (ov == best && oi < bidx)) {
+        best = ov;
+        bidx = oi;
+      }
+    }
+    float m = 0.f, p = 0.f;
+    bool hm = false, hp = false;
+#pragma unroll
+    for (int j = 0; j < TN; ++j) {
+      const int col = lag0 + acc_col(tx, j);
+      if (col == bidx - 1) { m = acc[i][j]; hm = true; }
+      if (col == bidx + 1 && col < nlag) { p = acc[i][j]; hp = true; }
+    }
+#pragma unroll
+    for (int off = LANES / 2; off > 0; off >>= 1) {
+      const float om = __shfl_xor_sync(0xffffffffu, m, off);
+      const bool ohm = __shfl_xor_sync(0xffffffffu, (int)hm, off) != 0;
+      const float op = __shfl_xor_sync(0xffffffffu, p, off);
+      const bool ohp = __shfl_xor_sync(0xffffffffu, (int)hp, off) != 0;
+      if (ohm && !hm) { m = om; hm = true; }
+      if (ohp && !hp) { p = op; hp = true; }
+    }
+    if (r < R) {
+      if (tx == 0) {
+        part_val[r] = best;
+        part_idx[r] = bidx;
+        nb[r] = m;
+        nb[plane + r] = p;
+        nb[2 * plane + r] = acc[i][0];         // column lag0
+      }
+      if (tx == LANES - 1) nb[3 * plane + r] = acc[i][TN - 1];  // lag0 + BN - 1
+    }
+  }
+}
+
 // out[r][col0 + c] = acc, negated in columns >= neg_from (a multiple of 4);
 // rows >= M are skipped.  out rows are ldo floats, ldo a multiple of 4.
 __device__ __forceinline__ void store_tile(const float (&acc)[TM][TN], int row0,

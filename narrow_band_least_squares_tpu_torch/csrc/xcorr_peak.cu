@@ -34,6 +34,13 @@
 // the whole lag range.  No split-K: a row's value does not depend on the
 // grid.  Tiles that no row of the CTA searches are skipped.
 //
+// With sub-sample delays (nbls_icorr_peak_f32_nb) the epilogue also keeps
+// the correlations beside each row's maximum, from the same accumulator,
+// and each tile's first and last column; the fold patches a neighbour
+// that lies in the adjacent tile from that tile's edge column, as the JAX
+// package's lag-tiled loop does with its carried columns
+// (narrow_band_least_squares_tpu/ops/xcorr.py::cross_correlate_mxu).
+//
 // Plain C interface, bound from Python with ctypes; built with
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 // by narrow_band_least_squares_tpu_torch/ops/kernels/_build.py.
@@ -47,6 +54,11 @@ using namespace nbls::simt;
 
 constexpr int BK = 16;  // K chunk per shared-memory stage
 
+// NB: also the peak's two neighbouring correlations (first_max_nb_partials)
+// into the four planes of part_nb; a tile is then needed where a row's
+// [lo - 1, hi + 1] meets it, since a peak at lo or hi takes a neighbour
+// from one column past the band.
+template <bool NB>
 __global__ void __launch_bounds__(NT, MIN_CTAS)
 icorr_peak_tile_kernel(const float* __restrict__ cs2,
                        const float* __restrict__ e2p,
@@ -54,24 +66,43 @@ icorr_peak_tile_kernel(const float* __restrict__ cs2,
                        const int* __restrict__ hi,
                        float* __restrict__ part_val,
                        int* __restrict__ part_idx,
+                       float* __restrict__ part_nb,
                        int R, int K2, int nlag, int nlag_p) {
   const int row0 = blockIdx.x * BM;
   const int lag0 = blockIdx.y * BN;
   float* pv = part_val + (size_t)blockIdx.y * R;
   int* pi = part_idx + (size_t)blockIdx.y * R;
+  const size_t plane = (size_t)gridDim.y * R;
   const auto bounds = [&](int r, int& l, int& h) {
     l = lo[r];
     h = hi[r];
   };
-  if (!tile_needed(row0, lag0, R, bounds)) {
+  const auto grown = [&](int r, int& l, int& h) {
+    l = lo[r];
+    h = hi[r];
+    if (l <= h) {
+      --l;
+      ++h;
+    }
+  };
+  const bool needed = NB ? tile_needed(row0, lag0, R, grown)
+                         : tile_needed(row0, lag0, R, bounds);
+  if (!needed) {
     skip_partials(row0, R, pv, pi);
+    if (NB && threadIdx.x < BM && row0 + threadIdx.x < R)
+      for (int k = 0; k < 4; ++k)
+        part_nb[k * plane + (size_t)blockIdx.y * R + row0 + threadIdx.x] = 0.f;
     return;
   }
   __shared__ __align__(16) Smem<BK> s;
   float acc[TM][TN];
   mainloop<BK>(s, RowsA<BK>(cs2, row0, R, K2), RowsB{e2p + lag0, nlag_p, K2},
                0, K2 / BK, acc);
-  first_max_partials(acc, row0, lag0, R, nlag, bounds, pv, pi);
+  if (NB)
+    first_max_nb_partials(acc, row0, lag0, R, nlag, bounds, pv, pi,
+                          part_nb + (size_t)blockIdx.y * R, plane);
+  else
+    first_max_partials(acc, row0, lag0, R, nlag, bounds, pv, pi);
 }
 
 }  // namespace
@@ -98,12 +129,34 @@ int nbls_icorr_peak_f32(const float* cs2, const float* e2p, const int* lo,
     return (int)cudaErrorInvalidValue;
   const int ntiles = nlag_p / BN;
   const dim3 grid((R + BM - 1) / BM, ntiles);
-  icorr_peak_tile_kernel<<<grid, NT, 0, stream>>>(cs2, e2p, lo, hi, part_val,
-                                                  part_idx, R, K2, nlag, nlag_p);
+  icorr_peak_tile_kernel<false><<<grid, NT, 0, stream>>>(
+      cs2, e2p, lo, hi, part_val, part_idx, nullptr, R, K2, nlag, nlag_p);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   nbls::peak_merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
       part_val, part_idx, peak, idx, R, ntiles);
+  return (int)cudaGetLastError();
+}
+
+// nbls_icorr_peak_f32, and per row the correlations at idx - 1 and idx + 1
+// into cm / cp (0 where idx is 0, nlag - 1 or the row has no valid lag).
+// part_nb: scratch of 4 x nlag_p / lag_tile x R.
+int nbls_icorr_peak_f32_nb(const float* cs2, const float* e2p, const int* lo,
+                           const int* hi, float* peak, int* idx, float* cm,
+                           float* cp, float* part_val, int* part_idx,
+                           float* part_nb, int R, int K2, int nlag, int nlag_p,
+                           cudaStream_t stream) {
+  if (R <= 0 || nlag <= 0 || K2 <= 0 || K2 % BK != 0 || nlag_p % BN != 0 ||
+      nlag_p < nlag)
+    return (int)cudaErrorInvalidValue;
+  const int ntiles = nlag_p / BN;
+  const dim3 grid((R + BM - 1) / BM, ntiles);
+  icorr_peak_tile_kernel<true><<<grid, NT, 0, stream>>>(
+      cs2, e2p, lo, hi, part_val, part_idx, part_nb, R, K2, nlag, nlag_p);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  nbls::peak_merge_nb_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
+      part_val, part_idx, part_nb, peak, idx, cm, cp, R, ntiles, BN);
   return (int)cudaGetLastError();
 }
 

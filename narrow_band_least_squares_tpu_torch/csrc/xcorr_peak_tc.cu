@@ -49,6 +49,12 @@
 //   multi-array runs equal single-array runs.
 // - A tile whose rows all search outside its 128 lags is skipped.
 // - Ragged R rows arrive from TMA as zeros; lags past nlag are masked.
+// - With sub-sample delays (nbls_icorr_peak_tc_nb, the EPI_PEAK_NB
+//   epilogue) each row's two neighbouring correlations come from the
+//   accumulator fragment that holds the peak, one quad shuffle away, so
+//   they carry the peak's own rounding at 'high' and 'default'; each tile
+//   also writes its first and last column, from which the fold patches a
+//   neighbour in the adjacent tile.
 //
 // Plain C interface, bound from Python with ctypes; built with
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -102,6 +108,39 @@ int nbls_icorr_peak_tc(const float* cs2, float* a_split, const float* e2t,
   const int ntiles = (nlag + TILE_N - 1) / TILE_N;
   peak_merge_kernel<<<(R + 255) / 256, 256, 0, stream>>>(part_val, part_idx,
                                                          peak, idx, R, ntiles);
+  return (int)cudaGetLastError();
+}
+
+// nbls_icorr_peak_tc, and per row the correlations at idx - 1 and idx + 1
+// from the same accumulators (the EPI_PEAK_NB epilogue) into cm / cp (0
+// where idx is 0, nlag - 1 or the row has no valid lag).  part_nb: scratch
+// of 4 x ceil(nlag / lag_tile) x R.
+int nbls_icorr_peak_tc_nb(const float* cs2, float* a_split, const float* e2t,
+                          const int* lo, const int* hi, float* peak, int* idx,
+                          float* cm, float* cp, float* part_val, int* part_idx,
+                          float* part_nb, int R, int K2p, int nlag, int nlag_p,
+                          int nprod, cudaStream_t stream) {
+  if (R <= 0 || nlag <= 0 || K2p <= 0 || K2p % TILE_K != 0 ||
+      nlag_p % TILE_N != 0 || nlag_p < nlag || (nprod != 1 && nprod != 3))
+    return (int)cudaErrorInvalidValue;
+  const size_t a_plane = (size_t)R * K2p, b_plane = (size_t)nlag_p * K2p;
+  float* a_hi = a_split;
+  float* a_lo = nprod == 3 ? a_split + a_plane : a_split;
+  int err = launch_split(cs2, a_hi, nprod == 3 ? a_lo : nullptr,
+                         (long long)a_plane, stream);
+  if (err != 0) return err;
+  CUtensorMap maps[4];
+  err = encode_operands(maps, a_hi, a_lo, R, e2t,
+                        nprod == 3 ? e2t + b_plane : e2t, nlag_p, K2p);
+  if (err != 0) return err;
+  const TcOut o{lo, hi, 1, 0, part_val, part_idx, nullptr, 0, 0, part_nb};
+  err = nprod == 3
+            ? launch_tc_tiles<3, EPI_PEAK_NB>(maps, o, R, K2p, K2p, nlag, stream)
+            : launch_tc_tiles<1, EPI_PEAK_NB>(maps, o, R, K2p, K2p, nlag, stream);
+  if (err != 0) return err;
+  const int ntiles = (nlag + TILE_N - 1) / TILE_N;
+  peak_merge_nb_kernel<<<(R + 255) / 256, 256, 0, stream>>>(
+      part_val, part_idx, part_nb, peak, idx, cm, cp, R, ntiles, TILE_N);
   return (int)cudaGetLastError();
 }
 

@@ -44,6 +44,7 @@ from narrow_band_least_squares_tpu_torch.ops.windows import (
     build_bucket_grids,
     build_window_grid,
     extract_windows,
+    extract_windows_patches,
     extract_windows_strided,
     extract_windows_strided_rows,
 )
@@ -134,10 +135,41 @@ def flags_to_stdict(
     return out
 
 
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported to PyTorch yet (ROADMAP.md, {item})"
-    )
+# dtypes narrower than float32 that the JAX package runs in places
+# (check_dtype); every other computation of the port is float32
+LOW_DTYPES = (torch.bfloat16, torch.float16)
+
+
+def check_dtype(dtype, apply_filter: bool, xcorr_method: str) -> torch.dtype:
+    """The dtype a pipeline computes in, by what the JAX package does with
+    ``dtype``: float32 runs; float64 warns and computes float32 (the JAX
+    package never enables x64, so it truncates to float32); bfloat16 and
+    float16 run only with ``apply_filter=False`` and 'mxu' or 'pallas'
+    and raise ``ValueError`` elsewhere, naming the JAX package's failure."""
+    if dtype == torch.float32:
+        return dtype
+    if dtype == torch.float64:
+        logger.warning(
+            "dtype=torch.float64 computes float32: the JAX package does not "
+            "enable x64 and truncates float64 to float32")
+        return torch.float32
+    if dtype not in LOW_DTYPES:
+        raise ValueError(f"unsupported dtype {dtype}; expected torch.float32, "
+                         f"float64, bfloat16 or float16")
+    if apply_filter:
+        raise ValueError(
+            f"dtype={dtype} with apply_filter=True: the JAX package's filter "
+            "bank fails here (RFFT input must be float32 or float64); filter "
+            "in float32, or pass apply_filter=False with pre-filtered data")
+    if xcorr_method == "fused":
+        raise ValueError(
+            f"dtype={dtype} with xcorr_method='fused': the JAX package's fused "
+            "kernel fails here (Invalid dtype for swap); use 'mxu' or 'pallas'")
+    if xcorr_method == "fft":
+        raise ValueError(
+            f"dtype={dtype} with xcorr_method='fft': the JAX package fails here "
+            "(RFFT input must be float32 or float64); use 'mxu' or 'pallas'")
+    return dtype
 
 
 class NarrowBandPipeline:
@@ -151,10 +183,20 @@ class NarrowBandPipeline:
       ``c_steps``, ``max_lts_candidates``, ``lts_candidate_chunk`` (set to
       4096 when there are more candidates) and ``lts_funnel_k`` (``'auto'``:
       ``max(16, ceil(Q/24))`` for Q candidates) as in the JAX package;
-    - ``window_method='patches'`` and ``subsample_delays=True`` with 'mxu'
-      raise ``NotImplementedError``; with 'pallas' and 'fused' the JAX
-      package ignores ``subsample_delays`` with a warning, and so does the
-      port;
+    - ``subsample_delays=True`` with 'mxu' refines every integer-lag peak
+      with the three-point parabola through its two neighbouring
+      correlations, which the lag-search kernel returns beside the peak
+      (`ops.xcorr.subsample_frac`); with 'pallas' and 'fused' the JAX
+      package ignores it with a warning and 'fft' ignores it silently, and
+      so does the port;
+    - ``window_method='patches'`` (`ops.windows.extract_windows_patches`)
+      turns bucketing off, as in the JAX package;
+    - ``dtype`` (`check_dtype`): float64 warns and computes float32;
+      bfloat16 and float16 need ``apply_filter=False`` and 'mxu' or
+      'pallas'.  The step then holds the samples, windows, their
+      energies, the DFT tables, the delays and the solve in that dtype, as
+      the JAX step does; the spectra and the lag search run in float32 on
+      the rounded windows and tables, and MdCCM is float32;
     - ``xcorr_method='fft'`` (`ops.xcorr.cross_correlate`, unbucketed, at
       ``nfft_corr = next_pow2(2 Lmax)``) with ``max_lag_s`` raises
       ``ValueError``: the JAX package fails there (its capped lag mask does
@@ -214,20 +256,15 @@ class NarrowBandPipeline:
                 "xcorr_method='fft' with max_lag_s: the JAX package fails here "
                 "(its capped lag mask does not broadcast against the FFT's "
                 "2*Lmax-1 lags); use xcorr_method='mxu' to cap the lags")
-        if subsample_delays:
-            if xcorr_method == "mxu":
-                raise _not_ported("subsample_delays=True", "Queue 1 item 8")
+        if subsample_delays and xcorr_method in ("pallas", "fused"):
             logger.warning(
                 "subsample_delays is ignored with xcorr_method=%r (the kernel "
                 "returns integer-lag peaks); use xcorr_method='mxu' for "
                 "parabolic sub-sample refinement", xcorr_method,
             )
-        if window_method == "patches":
-            raise _not_ported("window_method='patches'", "Queue 1 item 8")
-        if window_method not in ("strided", "gather"):
+        if window_method not in ("strided", "gather", "patches"):
             raise ValueError(f"unknown window_method {window_method!r}")
-        if dtype != torch.float32:
-            raise _not_ported(f"dtype={dtype}", "Queue 1 item 8")
+        dtype = check_dtype(dtype, apply_filter, xcorr_method)
         XP.check_precision(matmul_precision)
         del bucket_ratio, xcorr_chunk_mb, xcorr_lag_tile
 
@@ -244,6 +281,7 @@ class NarrowBandPipeline:
         self.filter_order = filter_order
         self.filter_ripple = filter_ripple
         self.dtype = dtype
+        self.subsample_delays = bool(subsample_delays) and xcorr_method == "mxu"
         self.xcorr_method = xcorr_method
         self.window_method = window_method
         self.max_lag_s = max_lag_s
@@ -347,9 +385,10 @@ class NarrowBandPipeline:
             return out, tab["lag_min"]
 
         # the fused kernel works per bucket, so 'fused' always buckets;
-        # 'fft' never does (as in the JAX package)
+        # 'fft' and 'patches' never do (as in the JAX package)
         self.nfft_corr = F.next_pow2(2 * grid.Lmax)
-        self.bucket_bands = ((bool(bucket_bands) and xcorr_method in ("mxu", "pallas"))
+        self.bucket_bands = ((bool(bucket_bands) and xcorr_method in ("mxu", "pallas")
+                              and window_method != "patches")
                              or xcorr_method == "fused")
         self._buckets: List[dict] = []
         if self.bucket_bands:
@@ -431,10 +470,12 @@ class NarrowBandPipeline:
         self._state = {k: v.to(self.device) for k, v in state.items()}
         self._geometry = self._solve_constants(self._state)
         self._fused_rows = {}   # per (bucket, arrays), see _fused_inputs
-        # the inverse-DFT operand of icorr_peak, derived from Ec/Es ('mxu'),
-        # and per table prefix, on the card only, what the kernel of the
+        # per table prefix, the lag search's tables: Cf/Sf and the
+        # inverse-DFT operand e2 of icorr_peak (derived from Ec/Es with
+        # 'mxu'), rounded to a narrow dtype's values where the JAX step
+        # holds them in it; on the card only, what the kernel of the
         # precision's route reads (its module's `prepare`)
-        self._e2, self._prepared = {}, {}
+        self._xtab, self._prepared = {}, {}
         card = self.device.type == "cuda"
         prec = self.matmul_precision
         if self.xcorr_method == "fused":
@@ -442,18 +483,21 @@ class NarrowBandPipeline:
                 self._prepared[pre] = FX.prepare(
                     *(self._state[pre + k] for k in ("Cf", "Sf", "Ec", "Es")), prec)
             return
+        if self.xcorr_method == "fft":
+            return
+        narrow = self.dtype in LOW_DTYPES
+        rnd = (lambda t: t.to(self.dtype).to(t.dtype)) if narrow else (lambda t: t)
         for pre in ([b["prefix"] for b in self._buckets]
                     if self.bucket_bands else ["tables."]):
-            if self.xcorr_method == "fft":
-                continue
-            if self.xcorr_method == "mxu":
-                self._e2[pre] = XC.stack_inverse_table(
-                    self._state[pre + "Ec"], self._state[pre + "Es"]
-                )
+            s = self._state
+            e2 = (s[pre + "e2"] if self.xcorr_method == "pallas" else
+                  XC.stack_inverse_table(s[pre + "Ec"], s[pre + "Es"]))
+            tab = {"Cf": rnd(s[pre + "Cf"]), "Sf": rnd(s[pre + "Sf"]), "e2": rnd(e2)}
+            if self.xcorr_method == "pallas":
+                tab.update(lo=s[pre + "lo"], hi=s[pre + "hi"])
+            self._xtab[pre] = tab
             if card:
-                e2 = self._e2.get(pre)
-                self._prepared[pre] = XP.prepare(
-                    self._state[pre + "e2"] if e2 is None else e2, prec)
+                self._prepared[pre] = XP.prepare(tab["e2"], prec)
 
     # ------------------------------------------------------------------
     def _xcorr(self, win: torch.Tensor, pre: str, lag_min: int):
@@ -462,22 +506,22 @@ class NarrowBandPipeline:
         if self.xcorr_method == "fft":
             return XC.cross_correlate(win, self._pairs, s[pre + "lag_mask"],
                                       self.nfft_corr, self.plan.fs)
-        if self.xcorr_method == "pallas":
-            tab = {k: s[pre + k] for k in ("Cf", "Sf", "e2", "lo", "hi")}
-        else:
-            tab = {"Cf": s[pre + "Cf"], "Sf": s[pre + "Sf"], "e2": self._e2[pre]}
-        tab["lag_min"] = lag_min
-        tab["prepared"] = self._prepared.get(pre)
+        tab = dict(self._xtab[pre], lag_min=lag_min,
+                   prepared=self._prepared.get(pre))
         if self.xcorr_method == "pallas":
             return XC.cross_correlate_pallas(win, self._pairs, tab, self.plan.fs,
                                              precision=prec)
         return XC.cross_correlate_mxu(win, self._pairs, s[pre + "lag_mask"],
-                                      tab, self.plan.fs, precision=prec)
+                                      tab, self.plan.fs, precision=prec,
+                                      subsample=self.subsample_delays)
 
     def _extract(self, y: torch.Tensor, bk: Optional[dict] = None):
         """Windows of one array's filtered bank (B, C, T): over the global
         grid, or over bucket ``bk``'s compact (Bg, Wg, C, Lg) grid."""
         s, pre = self._state, "tables." if bk is None else bk["prefix"]
+        if self.window_method == "patches":      # never bucketed
+            return extract_windows_patches(y, self.plan, s[pre + "len_mask"],
+                                           s[pre + "lengths"])
         if self.window_method == "strided":
             if bk is None:
                 return extract_windows_strided(y, self.plan, s[pre + "len_mask"],
@@ -603,10 +647,11 @@ class NarrowBandPipeline:
     def _solve_constants(self, s: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
         """One array's solve constants from state-named tensors ``s``:
         X, pinv, XtX_inv and, with LTS, cand (int64 for indexing), Ainv,
-        cand_ok."""
-        g = {k: s[k] for k in ("X", "pinv", "XtX_inv")}
+        cand_ok; the floats in the pipeline's dtype."""
+        g = {k: s[k].to(self.dtype) for k in ("X", "pinv", "XtX_inv")}
         if self.alpha < 1.0:
-            g.update(cand=s["cand"].long(), Ainv=s["Ainv"], cand_ok=s["cand_ok"])
+            g.update(cand=s["cand"].long(), Ainv=s["Ainv"].to(self.dtype),
+                     cand_ok=s["cand_ok"])
         return g
 
     def _solve_masked(self, tau, mdccm, geometry=None, win_mask=None):
@@ -688,7 +733,7 @@ class NarrowBandPipeline:
 
         def dense(name):
             a = np.zeros((B, width))
-            a[:, :Wmax] = dev[name].detach().cpu().numpy().astype(np.float64)
+            a[:, :Wmax] = dev[name].detach().cpu().double().numpy()
             return a
 
         t_array = epoch_to_datenum(

@@ -6,6 +6,10 @@ exact frequency-domain IIR: each band's SOS cascade is tabulated as a
 truncated impulse response, the raw waveform is FFT'd once and multiplied
 by every band's response, and the zero-phase (butter) mode is the finite
 two-pass of ObsPy's ``zerophase=True``.  The FFTs are ``torch.fft`` calls.
+
+`sosfilt_scan` / `filter_stream_scan` are the exact time-domain recurrence
+that the JAX package keeps as the cross-check of `filter_bank_fft`; on the
+card they run the port's own kernel (`ops.kernels.sosfilt`).
 """
 
 from __future__ import annotations
@@ -15,6 +19,8 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 from scipy import signal
+
+from narrow_band_least_squares_tpu_torch.ops.kernels.sosfilt import sosfilt
 
 
 # --------------------------------------------------------------------------
@@ -151,3 +157,23 @@ def filter_bank_fft(
     if taper is not None:
         y = y * taper[None, None, :]
     return y
+
+
+def sosfilt_scan(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """Exact SOS recurrence (transposed direct-form II) over the last axis.
+
+    ``sos``: (S, 6); ``x``: (..., T).  Matches ``scipy.signal.sosfilt`` up
+    to dtype.  On the card the `ops.kernels.sosfilt` kernel (float32), on
+    the CPU its plain loop; the JAX package's ``lax.scan`` order of
+    operations in both."""
+    return sosfilt(sos, x)
+
+
+def filter_stream_scan(
+    x: torch.Tensor, sos: torch.Tensor, taper: torch.Tensor, zerophase: bool
+) -> torch.Tensor:
+    """Single-band exact filtering via the scan recurrence + taper."""
+    y = sosfilt_scan(sos, x)
+    if zerophase:
+        y = sosfilt_scan(sos, y.flip(-1)).flip(-1)
+    return y * taper

@@ -17,8 +17,17 @@ at the caller's ``precision``, mapped from the TPU's as follows:
   taken as ``lo.hi + hi.lo + hi.hi`` in fp32, ``csrc/xcorr_peak_tc.cu``;
 - ``'default'`` (one bf16 pass): 1xTF32, ``hi.hi``, the same kernel.
 
+With ``neighbours=True`` (sub-sample delays) each row also gets the
+correlations at ``idx - 1`` and ``idx + 1``, taken from the same product
+as the peak, unmasked (they may lie outside ``[lo, hi]``), and 0 where the
+neighbour is not a lag of the table (``idx`` 0 or ``nlag - 1``) or the row
+has no valid lag.  On the card they come from the tile's own accumulators
+(the neighbour epilogue of both routes), so they carry the peak's rounding,
+and ``(peak, idx)`` are those of the integer search.
+
 A CUDA tensor always goes to a kernel, and each route counts its launches
-(``launches``: fp32; ``launches_tc``: tensor cores).  Each route reads e2
+(``launches``: fp32; ``launches_tc``: tensor cores; ``launches_nb`` and
+``launches_nb_tc``: the same routes with neighbours).  Each route reads e2
 in its own layout, built once by `prepare` when the pipeline is built and
 passed to every call as ``prepared``.  A CPU tensor goes to
 ``icorr_peak_reference`` in IEEE fp32 whatever the precision, as XLA on the
@@ -50,8 +59,10 @@ LAG_TILE_F32 = 128
 K_CHUNK_F32 = 16
 
 # Launches of each CUDA route since the count was last set to 0.
-launches = 0      # 'highest': the fp32 CUDA-core kernel
-launches_tc = 0   # 'high' / 'default': the tensor-core kernel
+launches = 0         # 'highest': the fp32 CUDA-core kernel
+launches_tc = 0      # 'high' / 'default': the tensor-core kernel
+launches_nb = 0      # 'highest' with neighbours
+launches_nb_tc = 0   # 'high' / 'default' with neighbours
 
 _bound = None
 _bound_tc = None
@@ -135,12 +146,15 @@ def icorr_peak_reference(
     lo: torch.Tensor,        # (R,) int32
     hi: torch.Tensor,        # (R,) int32
     precision: str = "highest",
-) -> Tuple[torch.Tensor, torch.Tensor]:
+    neighbours: bool = False,
+) -> Tuple[torch.Tensor, ...]:
     """Plain version: the product at ``precision`` (fp32 matmuls, the tf32
-    split emulated bit for bit), a [lo, hi] mask, max, first argmax."""
+    split emulated bit for bit), a [lo, hi] mask, max, first argmax; with
+    ``neighbours`` also (cm, cp), gathered from the unmasked product."""
     check_precision(precision)
     cc = _product(cs2, e2, precision)
-    col = torch.arange(cc.shape[1], device=cc.device, dtype=torch.int32)
+    nlag = cc.shape[1]
+    col = torch.arange(nlag, device=cc.device, dtype=torch.int32)
     valid = (col[None, :] >= lo[:, None]) & (col[None, :] <= hi[:, None])
     ccm = torch.where(valid, cc, torch.tensor(-torch.inf, dtype=cc.dtype,
                                               device=cc.device))
@@ -148,8 +162,17 @@ def icorr_peak_reference(
     first = torch.where(ccm == peak[:, None], col[None, :],
                         torch.iinfo(torch.int32).max)
     idx = first.amin(dim=1)
-    idx = torch.where(torch.isneginf(peak), torch.zeros_like(idx), idx)
-    return peak, idx
+    empty = torch.isneginf(peak)
+    idx = torch.where(empty, torch.zeros_like(idx), idx)
+    if not neighbours:
+        return peak, idx
+    zero = torch.zeros((), dtype=cc.dtype, device=cc.device)
+
+    def at(k, ok):
+        v = torch.gather(cc, 1, k.clamp(0, nlag - 1).long()[:, None])[:, 0]
+        return torch.where(ok & ~empty, v, zero)
+
+    return peak, idx, at(idx - 1, idx > 0), at(idx + 1, idx < nlag - 1)
 
 
 def _check(cs2, e2, lo, hi) -> None:
@@ -182,6 +205,8 @@ def _lib():
         p, i = ctypes.c_void_p, ctypes.c_int
         lib.nbls_icorr_peak_f32.argtypes = [p, p, p, p, p, p, p, p, i, i, i, i, p]
         lib.nbls_icorr_peak_f32.restype = ctypes.c_int
+        lib.nbls_icorr_peak_f32_nb.argtypes = [p] * 11 + [i, i, i, i, p]
+        lib.nbls_icorr_peak_f32_nb.restype = ctypes.c_int
         for fn, want in ((lib.nbls_icorr_peak_lag_tile, LAG_TILE_F32),
                          (lib.nbls_icorr_peak_k_chunk, K_CHUNK_F32)):
             fn.argtypes, fn.restype = [], ctypes.c_int
@@ -202,6 +227,8 @@ def _lib_tc():
         lib.nbls_icorr_peak_tc.argtypes = [p, p, p, p, p, p, p, p, p,
                                            i, i, i, i, i, p]
         lib.nbls_icorr_peak_tc.restype = ctypes.c_int
+        lib.nbls_icorr_peak_tc_nb.argtypes = [p] * 12 + [i, i, i, i, i, p]
+        lib.nbls_icorr_peak_tc_nb.restype = ctypes.c_int
         lib.nbls_icorr_peak_tc_lag_tile.argtypes = []
         lib.nbls_icorr_peak_tc_lag_tile.restype = ctypes.c_int
         lib.nbls_icorr_peak_tc_smem_bytes.argtypes = [i]
@@ -220,7 +247,7 @@ def _check_aligned(name, t):
         raise ValueError(f"icorr_peak needs a 16-byte aligned {name}")
 
 
-def _launch_f32(cs2, e2, e2p, lo, hi, peak, idx):
+def _launch_f32(cs2, e2, e2p, lo, hi, peak, idx, nb=None):
     nlag = e2.shape[1]
     K2 = _round_up(cs2.shape[1], K_CHUNK_F32)
     if K2 != cs2.shape[1]:   # whole K chunks; zero columns add nothing
@@ -243,6 +270,14 @@ def _launch_f32(cs2, e2, e2p, lo, hi, peak, idx):
     part_val = torch.empty((ntiles, R), dtype=torch.float32, device=cs2.device)
     part_idx = torch.empty((ntiles, R), dtype=torch.int32, device=cs2.device)
     stream = torch.cuda.current_stream(cs2.device).cuda_stream
+    if nb is not None:
+        part_nb = torch.empty((4, ntiles, R), dtype=torch.float32, device=cs2.device)
+        return lib.nbls_icorr_peak_f32_nb(
+            cs2.data_ptr(), e2p.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+            peak.data_ptr(), idx.data_ptr(), nb[0].data_ptr(), nb[1].data_ptr(),
+            part_val.data_ptr(), part_idx.data_ptr(), part_nb.data_ptr(),
+            R, K2, nlag, nlag_p, stream,
+        )
     return lib.nbls_icorr_peak_f32(
         cs2.data_ptr(), e2p.data_ptr(), lo.data_ptr(), hi.data_ptr(),
         peak.data_ptr(), idx.data_ptr(), part_val.data_ptr(),
@@ -250,7 +285,7 @@ def _launch_f32(cs2, e2, e2p, lo, hi, peak, idx):
     )
 
 
-def _launch_tc(cs2, e2, e2t, lo, hi, peak, idx, nprod):
+def _launch_tc(cs2, e2, e2t, lo, hi, peak, idx, nprod, nb=None):
     nlag = e2.shape[1]
     K2 = _round_up(cs2.shape[1], K_BLOCK_TC)
     if K2 != cs2.shape[1]:   # whole K blocks; zero columns add nothing
@@ -274,6 +309,14 @@ def _launch_tc(cs2, e2, e2t, lo, hi, peak, idx, nprod):
     part_val = torch.empty((ntiles, R), dtype=torch.float32, device=dev)
     part_idx = torch.empty((ntiles, R), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
+    if nb is not None:
+        part_nb = torch.empty((4, ntiles, R), dtype=torch.float32, device=dev)
+        return lib.nbls_icorr_peak_tc_nb(
+            cs2.data_ptr(), a_split.data_ptr(), e2t.data_ptr(), lo.data_ptr(),
+            hi.data_ptr(), peak.data_ptr(), idx.data_ptr(), nb[0].data_ptr(),
+            nb[1].data_ptr(), part_val.data_ptr(), part_idx.data_ptr(),
+            part_nb.data_ptr(), R, K2, nlag, nlag_p, nprod, stream,
+        )
     return lib.nbls_icorr_peak_tc(
         cs2.data_ptr(), a_split.data_ptr(), e2t.data_ptr(), lo.data_ptr(),
         hi.data_ptr(), peak.data_ptr(), idx.data_ptr(), part_val.data_ptr(),
@@ -289,8 +332,11 @@ def icorr_peak(
     *,
     precision: str = "highest",
     prepared: Optional[torch.Tensor] = None,   # prepare(e2, precision)
-) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Fused ``argmax_l (cs2 @ e2)[:, lo:hi]``.  Returns (peak (R,) f32, idx (R,) i32).
+    neighbours: bool = False,
+) -> Tuple[torch.Tensor, ...]:
+    """Fused ``argmax_l (cs2 @ e2)[:, lo:hi]``.  Returns (peak (R,) f32, idx
+    (R,) i32), and with ``neighbours`` also (cm (R,), cp (R,)) f32, the
+    correlations at idx -/+ 1 (module docstring).
 
     Rows are masked by [lo, hi] only; zero-padded K2 columns are harmless.
     A row with no valid lag gives (-inf, 0).  ``precision`` picks the CUDA
@@ -298,12 +344,12 @@ def icorr_peak(
     it says.  On the card ``prepared`` must be ``prepare(e2, precision)``;
     off it, it is ignored.
     """
-    global launches, launches_tc
+    global launches, launches_tc, launches_nb, launches_nb_tc
     check_precision(precision)
     _check(cs2, e2, lo, hi)
     dev = cs2.device
     if dev.type == "cpu":
-        return icorr_peak_reference(cs2, e2, lo, hi)
+        return icorr_peak_reference(cs2, e2, lo, hi, neighbours=neighbours)
     if dev.type != "cuda":
         raise ValueError(f"icorr_peak runs on cuda or cpu tensors, not {dev}")
     for name, t in (("cs2", cs2), ("e2", e2), ("lo", lo), ("hi", hi)):
@@ -312,8 +358,11 @@ def icorr_peak(
     R = cs2.shape[0]
     peak = torch.empty(R, dtype=torch.float32, device=dev)
     idx = torch.empty(R, dtype=torch.int32, device=dev)
+    nb = (torch.empty((2, R), dtype=torch.float32, device=dev)
+          if neighbours else None)
+    out = (peak, idx) if nb is None else (peak, idx, nb[0], nb[1])
     if R == 0:
-        return peak, idx
+        return out
     if e2.shape[1] == 0:
         raise ValueError("icorr_peak needs at least one lag column")
     if prepared is None:
@@ -321,10 +370,10 @@ def icorr_peak(
                          f"{precision!r}), built once with the tables")
     with torch.cuda.device(dev):
         if precision == "highest":
-            err = _launch_f32(cs2, e2, prepared, lo, hi, peak, idx)
+            err = _launch_f32(cs2, e2, prepared, lo, hi, peak, idx, nb)
         else:
             err = _launch_tc(cs2, e2, prepared, lo, hi, peak, idx,
-                             TF32_PRODUCTS[precision])
+                             TF32_PRODUCTS[precision], nb)
     if err != 0:
         raise RuntimeError(
             f"icorr_peak ({precision}) kernel launch failed: "
@@ -332,7 +381,12 @@ def icorr_peak(
                -2: "a TMA tensor map was refused"}.get(err, f"CUDA error {err}")
         )
     if precision == "highest":
-        launches += 1
+        if neighbours:
+            launches_nb += 1
+        else:
+            launches += 1
+    elif neighbours:
+        launches_nb_tc += 1
     else:
         launches_tc += 1
-    return peak, idx
+    return out

@@ -31,6 +31,7 @@ import torch
 
 from narrow_band_least_squares_tpu_torch.ops.solve import (
     SIGMA_TAU_DOF_SHIFT,
+    degrees,
     masked_refit,
     tree_sum_last,
     vel_baz_from_slowness,
@@ -78,9 +79,10 @@ def precompute_candidates(
 def _rank_keys(x: torch.Tensor) -> torch.Tensor:
     """int64 keys (..., P), all distinct, whose order is that of (value,
     index): x_j before x_i when x_j < x_i, or x_j == x_i and j < i.  NaN
-    counts as +inf and -0.0 as +0.0; the bits of float32 ``x`` map to a
+    counts as +inf and -0.0 as +0.0; the bits of ``x`` as float32 map to a
     monotone int32 (negative values flip their magnitude bits), times P,
     plus the index."""
+    x = x.float()    # a narrower float widens exactly, keeping its order
     x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x) + 0.0
     b = x.contiguous().view(torch.int32)
     b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
@@ -263,7 +265,7 @@ def lts_solve(
         "baz": baz,
         "sig_tau": sig_tau,
         "vel_uncert": torch.sqrt(torch.clamp(var_v, min=0.0)),
-        "baz_uncert": torch.rad2deg(torch.sqrt(torch.clamp(var_t, min=0.0))),
+        "baz_uncert": degrees(torch.sqrt(torch.clamp(var_t, min=0.0))),
         "s": s_fin,
         "retained": retained,
         "objective": obj_best,

@@ -28,6 +28,13 @@ def precompute_lstsq(X: np.ndarray) -> Dict[str, np.ndarray]:
     return {"X": X, "pinv": pinv, "XtX_inv": XtX_inv}
 
 
+def degrees(x: torch.Tensor) -> torch.Tensor:
+    """Radians -> degrees in ``x``'s dtype, computed in float32: for a
+    narrower dtype CUDA would round the factor 180/pi to that dtype and the
+    CPU would not."""
+    return torch.rad2deg(x.float()).to(x.dtype)
+
+
 def vel_baz_from_slowness(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """s: (..., 2) slowness [s/km] -> (trace velocity [km/s], back-azimuth [deg]).
 
@@ -38,8 +45,16 @@ def vel_baz_from_slowness(s: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     smag = torch.sqrt(sx * sx + sy * sy)
     vel = torch.where(smag > 0, 1.0 / torch.clamp(smag, min=1e-30),
                       torch.full_like(smag, float("nan")))
-    baz = torch.remainder(torch.rad2deg(torch.atan2(-sx, -sy)), 360.0)
+    baz = torch.remainder(degrees(torch.atan2(-sx, -sy)), 360.0)
     return vel, baz
+
+
+def _dot(eq: str, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``einsum`` summed in float32, in ``b``'s dtype: a narrower dtype's
+    products are summed in float32 and rounded once, on every device (as
+    the JAX step's dots do; cuBLAS may otherwise reduce bfloat16 in part
+    in bfloat16)."""
+    return torch.einsum(eq, a.float(), b.float()).to(b.dtype)
 
 
 def ols_solve(
@@ -50,8 +65,8 @@ def ols_solve(
 ) -> Dict[str, torch.Tensor]:
     """Batched OLS.  Returns vel, baz, sig_tau, vel_uncert, baz_uncert, s, resid."""
     P = tau.shape[-1]
-    s = torch.einsum("kp,...p->...k", pinv, tau)
-    resid = tau - torch.einsum("pk,...k->...p", X, s)
+    s = _dot("kp,...p->...k", pinv, tau)
+    resid = tau - _dot("pk,...k->...p", X, s)
     dof = max(P - SIGMA_TAU_DOF_SHIFT, 1)
     sigma2 = torch.sum(resid * resid, dim=-1) / dof
     sig_tau = torch.sqrt(sigma2)
@@ -85,7 +100,7 @@ def uncertainties(
     var_t = sigma2 * (a * gtx * gtx + 2 * b_ * gtx * gty + c * gty * gty)
 
     return (torch.sqrt(torch.clamp(var_v, min=0.0)),
-            torch.rad2deg(torch.sqrt(torch.clamp(var_t, min=0.0))))
+            degrees(torch.sqrt(torch.clamp(var_t, min=0.0))))
 
 
 def chi2_ellipse_uncertainties(

@@ -182,7 +182,9 @@ def mask_demean(
     len_mask: torch.Tensor,  # (B, 1, 1, Lmax)
     lengths: torch.Tensor,   # (B,) float — winlensamp per band
 ) -> torch.Tensor:
-    """Shared tail of every extractor: zero-pad + per-window demean."""
+    """Shared tail of every extractor: zero-pad + per-window demean, in the
+    windows' dtype (the mask and lengths are cast to it)."""
+    len_mask, lengths = len_mask.to(win.dtype), lengths.to(win.dtype)
     win = win * len_mask
     mean = torch.sum(win, dim=-1, keepdim=True) / lengths[:, None, None, None]
     return (win - mean) * len_mask
@@ -234,6 +236,29 @@ def extract_windows_strided_rows(
         dim=0,
     )
     return mask_demean(win, len_mask, lengths)
+
+
+def extract_windows_patches(
+    y: torch.Tensor,         # (B, C, T) filtered waveforms
+    plan: NarrowBandPlan,
+    len_mask: torch.Tensor,  # (B, 1, 1, Lmax)
+    lengths: torch.Tensor,   # (B,) float
+) -> torch.Tensor:
+    """Im2col extraction (``window_method='patches'``): each band's rows,
+    zero-padded by Lmax at the end, cut into Lmax-wide patches every hop
+    samples (``Tensor.unfold``, the JAX package's
+    ``conv_general_dilated_patches`` with VALID padding), the first Wmax
+    kept (zero patches past the last).  Same demean/mask contract as
+    `extract_windows`; equal to `extract_windows_strided` on every window."""
+    Wmax, Lmax = plan.max_windows, plan.max_winlensamp
+    ypad = Fnn.pad(y, (0, Lmax))
+    per_band = []
+    for b, wp in enumerate(plan.windows):
+        pats = ypad[b].unfold(-1, Lmax, wp.hop)[:, :Wmax]     # (C, W', Lmax)
+        if pats.shape[1] < Wmax:
+            pats = Fnn.pad(pats, (0, 0, 0, Wmax - pats.shape[1]))
+        per_band.append(pats.transpose(0, 1))                # (Wmax, C, Lmax)
+    return mask_demean(torch.stack(per_band, dim=0), len_mask, lengths)
 
 
 def extract_windows(

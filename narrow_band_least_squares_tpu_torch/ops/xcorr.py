@@ -187,11 +187,12 @@ def median_last(x: torch.Tensor) -> torch.Tensor:
 
 
 def _cross_spectra(win, pairs, Cf, Sf):
-    """Energies (B, W, C) and stacked cross-spectra (B*W*P, 2K); the
-    spectra matmuls are IEEE fp32 whatever ``matmul_precision`` says."""
+    """Energies (B, W, C) in the windows' dtype and stacked cross-spectra
+    (B*W*P, 2K); the spectra matmuls are IEEE fp32 (on narrower windows,
+    their exact float32 values) whatever ``matmul_precision`` says."""
     B, W, C, Lmax = win.shape
     energy = torch.sum(win * win, dim=-1)
-    flat = win.reshape(B * W * C, Lmax)
+    flat = win.reshape(B * W * C, Lmax).to(Cf.dtype)
     with fp32_matmul():
         ReF = torch.matmul(flat, Cf).reshape(B, W, C, -1)
         ImF = (-torch.matmul(flat, Sf)).reshape(B, W, C, -1)
@@ -206,34 +207,62 @@ def _cross_spectra(win, pairs, Cf, Sf):
 
 
 def lag_seconds(lag: torch.Tensor, fs: float) -> torch.Tensor:
-    """Integer lags (float tensor, samples) -> delays in seconds, as
-    ``lag * (1/fs)`` with the reciprocal rounded to the tensor's dtype.
+    """Lags (float tensor, samples) -> delays in seconds, as
+    ``lag * (1/fs)`` with the reciprocal rounded to float32 and the product
+    to the tensor's dtype.
 
     PyTorch on CUDA divides by a host scalar by multiplying with its
     reciprocal and on the CPU divides, so ``lag / fs`` differs in the last
     bit between the two; the jitted JAX step multiplies too.  The LTS flags
-    depend on those bits, so every device computes this product.
+    depend on those bits, so every device computes this product, in
+    float32: for a narrower dtype, CUDA would round the reciprocal itself
+    to that dtype and the CPU would not.
     """
-    return lag * (1.0 / fs)
+    return (lag.float() * (1.0 / fs)).to(lag.dtype)
+
+
+def add_lag(lag: torch.Tensor, offset: int) -> torch.Tensor:
+    """``lag + offset`` in ``lag``'s dtype, the offset rounded to it first
+    (what the JAX package's weakly typed integer does) and the sum in
+    float32, on every device."""
+    off = torch.tensor(offset, dtype=lag.dtype).float().item()
+    return (lag.float() + off).to(lag.dtype)
+
+
+def subsample_frac(peak, cm, cp, idx, nlag: int) -> torch.Tensor:
+    """The three-point parabola's vertex offset from the integer peak:
+    ``0.5 (cm - cp) / (cm - 2 peak + cp)`` where the denominator's magnitude
+    exceeds 1e-20 and ``0 < idx < nlag - 1`` (``nlag``: the table's lag
+    count), else 0; clipped to [-0.5, 0.5] (the JAX package's rule)."""
+    denom = cm - 2.0 * peak + cp
+    ok = (denom.abs() > 1e-20) & (idx > 0) & (idx < nlag - 1)
+    safe = torch.where(ok, denom, torch.ones_like(denom))
+    frac = torch.where(ok, 0.5 * (cm - cp) / safe, torch.zeros_like(denom))
+    return frac.clamp(-0.5, 0.5)
 
 
 def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
-                 precision="highest", prepared=None):
+                 precision="highest", prepared=None, subsample=False):
     """``icorr_peak`` over every (band, window, pair) row at ``precision``
     (``prepared``: e2's operand for the card, `xcorr_peak.prepare`), then
-    tau/rho/MdCCM."""
+    tau/rho/MdCCM.  ``subsample`` takes the peak's neighbours from the
+    kernel and refines each delay by `subsample_frac`."""
     B, W = win.shape[:2]
     P = pairs.shape[0]
     cs2 = Fnn.pad(cs2, (0, e2.shape[0] - cs2.shape[1])).contiguous()
     lo = lo_b[:, None].expand(B, W * P).reshape(-1).contiguous()
     hi = hi_b[:, None].expand(B, W * P).reshape(-1).contiguous()
-    peak, idx = icorr_peak(cs2, e2, lo, hi, precision=precision,
-                           prepared=prepared)
+    found = icorr_peak(cs2, e2, lo, hi, precision=precision, prepared=prepared,
+                       neighbours=subsample)
+    peak, idx = found[0], found[1]
+    lag = idx.to(win.dtype)
+    if subsample:   # a float32 frac promotes a narrower lag, as in JAX
+        lag = lag + subsample_frac(peak, found[2], found[3], idx, e2.shape[1])
+    tau = lag_seconds(add_lag(lag.reshape(B, W, P), lag_min), fs)
     peak = peak.reshape(B, W, P)
-    tau = lag_seconds(idx.reshape(B, W, P).to(win.dtype) + lag_min, fs)
     Ei = energy[:, :, pairs[:, 0]]
     Ej = energy[:, :, pairs[:, 1]]
-    denom = torch.sqrt(Ei * Ej)
+    denom = torch.sqrt(Ei * Ej).to(peak.dtype)
     rho = torch.where(denom > 0, peak / denom, torch.zeros_like(peak))
     return tau, rho, median_last(rho)
 
@@ -256,20 +285,19 @@ def cross_correlate_mxu(
     (`stack_inverse_table`) is used when present and built from Ec/Es
     otherwise; ``tables["prepared"]``, its operand for the card
     (`xcorr_peak.prepare` at ``precision``), is needed on the card.
-    ``lag_tile`` is accepted for signature parity and changes nothing: the
-    kernel never forms the (rows, lags) correlation that the JAX path tiles.
+    ``subsample=True`` refines each integer-lag peak with the parabola
+    through it and its two neighbouring correlations (`subsample_frac`),
+    which the kernel returns beside the peak.  ``lag_tile`` is accepted for
+    signature parity and changes nothing: the kernel never forms the
+    (rows, lags) correlation that the JAX path tiles.
     """
-    if subsample:
-        raise NotImplementedError(
-            "subsample_delays=True is not ported yet (ROADMAP.md, Queue 1 "
-            "item 8)"
-        )
     del lag_tile
     nlag = lag_mask.shape[-1]
     m = lag_mask.to(torch.int32)
     lo = m.argmax(dim=-1).to(torch.int32)
     hi = (nlag - 1 - m.flip(-1).argmax(dim=-1)).to(torch.int32)
-    return cross_correlate_bounds(win, pairs, lo, hi, tables, fs, precision)
+    return cross_correlate_bounds(win, pairs, lo, hi, tables, fs, precision,
+                                  subsample)
 
 
 def cross_correlate_bounds(
@@ -280,6 +308,7 @@ def cross_correlate_bounds(
     tables: Dict,
     fs: float,
     precision: str = "highest",
+    subsample: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """`cross_correlate_mxu` with each band's lag columns ``[lo, hi]``
     given instead of read from a mask (the sharded pipeline's per-row
@@ -290,7 +319,7 @@ def cross_correlate_bounds(
     energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
     lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
     return _peak_search(win, pairs, energy, cs2, e2, lo, hi, lag_min, fs,
-                        precision, tables.get("prepared"))
+                        precision, tables.get("prepared"), subsample)
 
 
 def cross_correlate_pallas(

@@ -103,6 +103,8 @@ class ShardedNarrowBandPipeline:
         becomes 'strided' (logged), as in the JAX package; 'fused' and
         'fft' run `ops.xcorr.cross_correlate` there, and with ``max_lag_s``
         raise ``ValueError`` (the JAX package fails there).
+        ``subsample_delays`` refines the delays wherever the lag search is
+        'mxu' (the base's, each slot bucket's and the global grid's).
     """
 
     # outputs stacked into one tensor before leaving the device: one copy
@@ -197,7 +199,7 @@ class ShardedNarrowBandPipeline:
             device=self.device if self._mode == "core" else "cpu",
         )
         self.plan = plan
-        self.transfer_dtype = wire_dtype(transfer_dtype, dtype)
+        self.transfer_dtype = wire_dtype(transfer_dtype, self.base.dtype)
 
         L = self.base.state_dict()["h_bank"].shape[1]
         if halo is None:
@@ -406,7 +408,7 @@ class ShardedNarrowBandPipeline:
             pad = Wmax - W
             return Fnn.pad(t, (0, 0) * (t.dim() - 3) + (0, pad)) if pad else t
 
-        prec = base.matmul_precision
+        prec, sub = base.matmul_precision, base.subsample_delays
         if self._mode == "bucket":
             taus, mds = [], []
             for bk, tab, bc in zip(self._slot_buckets, self._bucket_tables, v["buckets"]):
@@ -420,7 +422,7 @@ class ShardedNarrowBandPipeline:
                             for y in ys]
                 win = wins[0] if S == 1 else torch.cat(wins, dim=1)
                 tau, _, md = XC.cross_correlate_bounds(win, self._pairs, bc["lo"], bc["hi"],
-                                                       tab, plan.fs, prec)
+                                                       tab, plan.fs, prec, sub)
                 taus.append(split(tau, Wg))
                 mds.append(split(md, Wg))
             tau = torch.cat(taus, dim=1)[:, v["inv"]]
@@ -430,7 +432,8 @@ class ShardedNarrowBandPipeline:
             win = wins[0] if S == 1 else torch.cat(wins, dim=1)
             if base.xcorr_method == "mxu":
                 tau, _, md = XC.cross_correlate_bounds(win, self._pairs, v["lo"], v["hi"],
-                                                       self._global_tables, plan.fs, prec)
+                                                       self._global_tables, plan.fs, prec,
+                                                       sub)
             else:
                 tau, _, md = XC.cross_correlate(win, self._pairs, v["lag_mask"],
                                                 base.nfft_corr, plan.fs)

@@ -205,6 +205,7 @@ def run_pipeline(args, mesh, stats) -> dict:
     stats["launches"] = launches()
     st_ = mesh.stats
     stats.update(halo_bytes=st_.halo_bytes, gather_bytes=st_.gather_bytes,
+                 broadcast_bytes=st_.broadcast_bytes, host_copy_kinds=sorted(st_.kinds),
                  host_copy_bytes=st_.host_copy_bytes, host_copy_s=st_.host_copy_s,
                  segments=int(segs.shape[0]), mode=pipe._mode, buckets=buckets(pipe))
     # every rank's delays, in the device band layout, for rank 0

@@ -224,3 +224,60 @@ def test_importing_the_mesh_modules_starts_nothing():
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr
+
+
+def test_oracle_imports_neither_torch_nor_jax():
+    """The port's NumPy oracle runs where there is neither torch nor JAX:
+    importing it (and running its smallest piece) loads neither, nor the
+    JAX package."""
+    code = (
+        "import sys\n"
+        "import numpy as np\n"
+        "from narrow_band_least_squares_tpu_torch import oracle\n"
+        "from narrow_band_least_squares_tpu_torch.oracle import ltsva, pipeline\n"
+        "assert oracle.ltsva_oracle is ltsva.ltsva_oracle\n"
+        "assert oracle.narrow_band_least_squares_oracle is "
+        "pipeline.narrow_band_least_squares_oracle\n"
+        "sos = oracle.design_sos('cheby1', 0.5, 2.0, 2, 0.01, 10.0)\n"
+        "assert sos.shape == (2, 6)\n"
+        "bad = sorted(m for m in sys.modules if m.split('.')[0] in "
+        "('torch', 'jax', 'jaxlib', 'narrow_band_least_squares_tpu'))\n"
+        "assert not bad, bad[:5]\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_new_kernel_module_imports_build_nothing():
+    """The sosfilt kernel's module and the filters and windows that use it
+    import without building; the package namespace ``ops.kernels.sosfilt``
+    is the module (its launch count lives there)."""
+    code = (
+        "import sys\n"
+        "from narrow_band_least_squares_tpu_torch.ops import filters, windows, xcorr\n"
+        "from narrow_band_least_squares_tpu_torch.ops.kernels import _build, sosfilt\n"
+        "from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak\n"
+        "assert sosfilt._bound is None and not _build._libs\n"
+        "assert sosfilt.launches == 0 and callable(sosfilt.sosfilt)\n"
+        "assert xcorr_peak.launches_nb == 0 and xcorr_peak.launches_nb_tc == 0\n"
+        "assert callable(filters.sosfilt_scan) and callable(filters.filter_stream_scan)\n"
+        "assert callable(windows.extract_windows_patches)\n"
+        "assert callable(xcorr.subsample_frac)\n"
+        "assert not any(m.split('.')[0] in ('jax', 'narrow_band_least_squares_tpu')"
+        " for m in sys.modules)\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+
+
+def test_chip_smoke_runs_the_options_phase():
+    tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+    phases = next(ast.literal_eval(node.value) for node in ast.walk(tree)
+                  if isinstance(node, ast.Assign)
+                  and any(getattr(t, "id", None) == "PHASES" for t in node.targets))
+    assert "options" in phases and phases.index("options") < phases.index("timing")
+    names = {node.name for node in ast.walk(tree) if isinstance(node, ast.FunctionDef)}
+    assert {"phase_options", "options_kernel", "options_subsample", "options_sosfilt",
+            "options_oracle", "options_timing"} <= names

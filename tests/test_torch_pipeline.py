@@ -6,6 +6,9 @@ agree within 1e-4 (rtol and atol) on every window: no lag flips between
 the two FFT libraries showed up on these inputs, so no window is excused.
 """
 
+import warnings
+
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -212,14 +215,26 @@ def test_performance_defaults_reach_the_pipeline(small_stream):
     assert not tapi._PERF_DEFAULTS
 
 
-@pytest.mark.parametrize("kw,item", [
-    ({"dtype": torch.float64}, "Queue 1 item 8"),
-    ({"subsample_delays": True}, "Queue 1 item 8"),
-    ({"window_method": "patches"}, "Queue 1 item 8"),
-])
-def test_unported_options_raise(small_stream, kw, item):
+@pytest.mark.parametrize("kw,same_as", [
+    ({"dtype": torch.float64}, {}),
+    ({"subsample_delays": True}, None),
+    ({"window_method": "patches"}, {"bucket_bands": False}),
+], ids=["float64", "subsample", "patches"])
+def test_unported_options_raise(small_stream, kw, same_as):
+    """The options the port once refused now run: each within 1e-4 of the
+    JAX pipeline with the same option, and float64 (computed as float32)
+    and 'patches' (bucketing off) bit for bit the port's run with
+    ``same_as`` instead."""
     st = small_stream
-    _, tp = _plans(st, 2, "constant")
+    jp, tp = _plans(st, 2, "constant")
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
-    with pytest.raises(NotImplementedError, match=item):
-        TPipe(tp, rij, device="cpu", **kw)
+    jkw = dict(kw, dtype=jnp.float64) if "dtype" in kw else kw
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)   # JAX's float64 truncation
+        want = JPipe(jp, rij, **jkw).run_raw(st.data)
+    got = TPipe(tp, rij, device="cpu", **kw).run_raw(st.data)
+    _close(got, want, OUTS)
+    if same_as is not None:
+        ref = TPipe(tp, rij, device="cpu", **same_as).run_raw(st.data)
+        for k in ref:
+            assert got[k].dtype == torch.float32 and torch.equal(got[k], ref[k]), k

@@ -82,6 +82,8 @@ CASES = {
     "funnel": ((2, 4), {"alpha": 0.75, "lts_funnel_k": 8}),
     "global-mxu": ((2, 4), {"bucket_bands": False}),
     "gather": ((2, 2), {"window_method": "gather"}),
+    "patches-2x1": ((2, 1), {"window_method": "patches"}),
+    "patches-2x2": ((2, 2), {"window_method": "patches"}),
 }
 
 
@@ -164,9 +166,10 @@ def test_band_shards_switch_options_as_jax(long_stream, caplog):
     with pytest.raises(ValueError, match="max_lag_s"):
         ShardedNarrowBandPipeline(tp, rij, None, mesh_shape=(1, 2), device="cpu",
                                   xcorr_method="fused", max_lag_s=8.0)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        ShardedNarrowBandPipeline(tp, rij, None, mesh_shape=(2, 1), device="cpu",
+    # at one band shard 'patches' reaches the base pipeline, unbucketed
+    p = ShardedNarrowBandPipeline(tp, rij, None, mesh_shape=(2, 1), device="cpu",
                                   window_method="patches")
+    assert p.base.window_method == "patches" and not p.base.bucket_bands
 
 
 def test_rank_holds_only_its_shard(long_stream):

@@ -130,11 +130,17 @@ def test_host_tables_equal_jax():
 
 
 def test_subsample_raises():
+    """``subsample=True``, once refused, against JAX's: tau within 2e-4
+    samples (``tests/test_xcorr_methods.py:285``), rho and MdCCM within
+    1e-5, on bands with their own lag ranges."""
     win, pairs, lag_mask, lengths, Lmax = _batch(4)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TXC.cross_correlate_mxu(
-            torch.from_numpy(win), torch.from_numpy(pairs).long(),
-            torch.from_numpy(lag_mask),
-            _torch_tables(TXC.precompute_dft_tables(Lmax)), 10.0,
-            subsample=True,
-        )
+    tab = JXC.precompute_dft_tables(Lmax, np.float32)
+    want = _jit(JXC.cross_correlate_mxu, win, jnp.asarray(pairs), jnp.asarray(lag_mask),
+                _jax_tables(tab), 10.0, subsample=True)
+    got = TXC.cross_correlate_mxu(
+        torch.from_numpy(win), torch.from_numpy(pairs).long(),
+        torch.from_numpy(lag_mask), _torch_tables(tab), 10.0, subsample=True,
+    )
+    np.testing.assert_allclose(got[0].numpy(), np.asarray(want[0]), atol=2e-4 / 10.0)
+    np.testing.assert_allclose(got[1].numpy(), np.asarray(want[1]), rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(got[2].numpy(), np.asarray(want[2]), rtol=1e-5, atol=1e-5)

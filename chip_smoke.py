@@ -47,14 +47,21 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   against the one-process monitor; ``MultiArrayPipeline`` on (time=2)
   against single arrays.  Launches per rank per route, wall times, halo
   bytes and host-copy times;
-- ``lts``: exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
+- ``lts``: the LTS sweep's kernels (``csrc/lts_sweep.cu``: elemental
+  solves, residuals, refit) bit for bit against their plain versions on
+  the canonical sweep's shapes, in bfloat16 and at P = 120, and timed;
+  exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
   with one incoherent element, through the API on the card and on the CPU,
   exhaustive and with ``PRODUCTION_DEFAULTS``: flags equal on every window
   whose delays are bit-identical (at least 99% of them), ground truth, the
-  outlier most flagged; the sweep's rank against its pairwise definition;
+  outlier most flagged, every sweep kernel launched; the capped-candidate
+  stream (``max_lts_candidates=5``) card against CPU, ``lts_solve`` bit
+  for bit; the sweep's rank against its pairwise definition;
   four merged arrays ('fused') against single-array
   runs bit for bit; a 16-element array (7,140 candidates, chunked) against
-  a smaller chunk bit for bit; the LTS step, the sweep and peak memory on
+  a smaller chunk bit for bit; the LTS step and the sweep's kernels with
+  the sweep's arithmetic as eager operations and through its kernels, in
+  turns; the LTS step, the sweep and peak memory on
   the canonical and dense50 plans beside the OLS step;
 - ``monitor``: ``examples/example_monitoring.py``'s workload (6 h in 1200 s
   segments, batches of 4) through ``StreamingMonitor(..., device="cuda")``
@@ -1153,18 +1160,29 @@ def lag_search_launches():
 
 def zero_launches():
     from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
     XP.launches = XP.launches_tc = FX.launches = FX.launches_tc = 0
     XP.launches_nb = XP.launches_nb_tc = 0
+    LS.launches_residuals2 = LS.launches_refit = LS.launches_elemental = 0
+
+
+def lts_sweep_launches():
+    """{entry point: launches} of the LTS sweep's kernels (csrc/lts_sweep.cu)."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+    return {"residuals2": LS.launches_residuals2, "refit": LS.launches_refit,
+            "elemental": LS.launches_elemental}
 
 
 def run_api_lts(st, freqlist, winlens, device, production):
     """The canonical API run at ALPHA = LTS_ALPHA on ``device``, exhaustive
     or with ``PRODUCTION_DEFAULTS``; returns (outputs, delays, seconds of
-    the first call, host set-up included).  On the card the run must
-    launch icorr_peak's tensor-core route once per bucket and nothing else
-    of the lag search ('mxu' at 'high')."""
+    the first call, host set-up included, the LTS sweep's launches).  On
+    the card the run must launch icorr_peak's tensor-core route once per
+    bucket and nothing else of the lag search ('mxu' at 'high'), and every
+    kernel of csrc/lts_sweep.cu at least once."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
 
@@ -1178,6 +1196,7 @@ def run_api_lts(st, freqlist, winlens, device, production):
                 torch.cuda.synchronize()
             secs = time.perf_counter() - t0
             counts = lag_search_launches()
+            sweep = lts_sweep_launches()
     finally:
         api.set_performance_defaults(**{k: None for k in api.PRODUCTION_DEFAULTS})
         api.set_performance_defaults(**prev)
@@ -1186,12 +1205,18 @@ def run_api_lts(st, freqlist, winlens, device, production):
     if device == "cuda":
         log(f"LTS API run ({'production' if production else 'exhaustive'}): "
             f"icorr_peak launches fp32 route {counts[0]}, tensor-core route "
-            f"{counts[1]}; fused_xcorr_bucket {counts[2] + counts[3]}")
+            f"{counts[1]}; fused_xcorr_bucket {counts[2] + counts[3]}; lts_sweep "
+            f"{sweep}")
         if counts != (0, CANONICAL_BUCKETS, 0, 0):
             fail(f"the LTS API run on the card must launch only icorr_peak's "
                  f"tensor-core route, once per bucket ({CANONICAL_BUCKETS}); "
                  f"launches {counts}")
-    return out, rec.taus[0], secs
+        if min(sweep.values()) < 1:
+            fail(f"the LTS API run on the card did not go through every lts_sweep "
+                 f"kernel: {sweep}")
+    elif any(sweep.values()):
+        fail(f"the LTS API run on the CPU launched lts_sweep kernels: {sweep}")
+    return out, rec.taus[0], secs, sweep
 
 
 def compare_lts(gpu, cpu, tau_g, tau_c, ncl, label):
@@ -1447,15 +1472,275 @@ def lts_timing(label, st):
             torch.cuda.empty_cache()
 
 
+LTS_SWEEP_SOURCE = "narrow_band_least_squares_tpu_torch/csrc/lts_sweep.cu"
+# What each entry point replaces: XLA's compiled arithmetic, no TPU kernel.
+LTS_SWEEP_REPLACES = {
+    "residuals2": "none: the port's own kernel for XLA's contracted einsum at "
+                  "narrow_band_least_squares_tpu/ops/lts.py:92 (and :224, :230)",
+    "refit": "none: the port's own kernel for XLA's contracted trees of "
+             "narrow_band_least_squares_tpu/ops/solve.py:196 (masked_refit)",
+    "elemental": "none: the port's own kernel for XLA's contracted einsum at "
+                 "narrow_band_least_squares_tpu/ops/lts.py:132",
+}
+# The capped-candidate stream on which the port and the JAX package once kept
+# different subsets (ROADMAP.md Queue 3, fixed): 4 log bands over 0.2-1.6 Hz,
+# adaptive 30/40/20 s windows, max_lts_candidates = 5.
+LTS_CAPPED_STREAM = dict(nchans=6, duration_s=300.0, fs=10.0, baz_deg=200.0,
+                         trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=10.0, seed=3,
+                         outlier_channels=(2,))
+
+
+def lts_sweep_work(name, rows, Q, P, itemsize=4):
+    """(operations, bytes) of one launch of an lts_sweep entry point: each
+    input read once, each output written once, float operations counted as
+    written in csrc/lts_sweep.cu (a fused multiply-add as two)."""
+    half = 1 << max(P - 1, 0).bit_length() >> 1
+    if name == "residuals2":      # rows windows x Q fits x P: mul, fma, sub, mul
+        n = rows * Q * P
+        return 5.0 * n, itemsize * (rows * P + 2 * P + 2 * rows * Q + n)
+    if name == "refit":           # rows x Q rows of P weights, one tau row a window
+        n = rows * Q
+        # a tree: P leaf products (w X or w tau), P - half rounded products,
+        # half fused multiply-adds, half - 1 adds; then det, numerators, divisions
+        tree = P + (P - half) + 2 * half + (half - 1)
+        return float(n * (5 * tree + 12)), itemsize * (n * P + rows * P + 2 * P + 2 * n)
+    n = rows * Q                  # elemental: two mul + two fma a candidate
+    return 6.0 * n, itemsize * (rows * P + 4 * Q + 2 * n) + 8 * 2 * Q
+
+
+def lts_kernel_check(label, st, freqlist, winlens):
+    """Each lts_sweep entry point against its plain version on the card,
+    bit for bit: on the canonical LTS sweep's shapes (632 windows x 378
+    candidates x 28 equations: the elemental solves, the residuals of those
+    fits, the refit of their h smallest with every first level contracted
+    and with b0 and b1 not, and the one-fit-a-row layout of the final refit),
+    in bfloat16 on a slice, and at P = 120 (16 elements, 1,024 candidates).
+    Times each at the canonical shapes; returns the kernels-line records
+    (launches filled in by the API run)."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+
+    def same(name, got, want):
+        if not torch.equal(got, want):
+            bad = int((got != want).sum())
+            err = float((got.float() - want.float()).abs().max())
+            fail(f"lts_sweep {name}: {bad} of {got.numel()} values differ from the "
+                 f"plain version (max {err:.3e})")
+
+    def check(tag, tau, X, cand, Ainv, h, contracts):
+        s = LS.elemental(tau, cand, Ainv)
+        same(f"elemental {tag}", s, LS.elemental_reference(tau, cand, Ainv))
+        r2 = LS.residuals2(tau, X, s)
+        same(f"residuals2 {tag}", r2, LS.residuals2_reference(tau, X, s))
+        w = (LTS._rank_along_last(r2) < h).to(tau.dtype)
+        for c in contracts:
+            got = LS.refit(tau[..., None, :], X, w, contract=c)
+            same(f"refit {tag} contract {c:05b}", got,
+                 LS.refit_reference(tau[..., None, :], X, w, contract=c))
+        w1 = w[..., 0, :]             # one fit a row, as the final refit
+        same(f"refit {tag} one row a window", LS.refit(tau, X, w1),
+             LS.refit_reference(tau, X, w1))
+        same(f"residuals2 {tag} one fit a row", LS.residuals2(tau, X, s[..., :1, :]),
+             LS.residuals2_reference(tau, X, s[..., :1, :]))
+        return s, r2, w
+
+    plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
+    pipe = NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
+                              alpha=LTS_ALPHA, device="cuda")
+    g = pipe._geometry
+    tau = pipe._delays(pipe._filter(pipe._to_device(st.data)))[0]
+    X, cand, Ainv = g["X"], g["cand"], g["Ainv"]
+    P, Q = tau.shape[-1], cand.shape[0]
+    contracts = (LS.ALL_CONTRACTED, LTS.refit_contractions(28, "final"))
+    s, r2, w = check("canonical", tau, X, cand, Ainv, pipe.h, contracts)
+    torch.cuda.synchronize()
+    bf = lambda t: t.to(torch.bfloat16)
+    check("bfloat16", bf(tau[:2]), bf(X), cand, bf(Ainv), pipe.h, contracts)
+
+    big = synthetic_plane_wave(nchans=16, duration_s=160.0, fs=10.0, baz_deg=285.0,
+                               trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=12.0,
+                               aperture_km=3.0, seed=5, outlier_channels=(11,))
+    from narrow_band_least_squares_tpu_torch.utils import get_freqlist, get_winlenlist
+
+    fl, nb, _ = get_freqlist(0.3, 1.2, "log", 2)
+    bplan = make_plan(fl, "log", get_winlenlist("constant", nb, 30, 0, 0), 0.5,
+                      big.npts, big.fs)
+    bpipe = NarrowBandPipeline(bplan, get_rij(big.latitudes, big.longitudes, big.nchans),
+                               alpha=LTS_ALPHA, max_lts_candidates=1024, device="cuda")
+    bg = bpipe._geometry
+    btau = bpipe._delays(bpipe._filter(bpipe._to_device(big.data)))[0]
+    check("P=120", btau, bg["X"], bg["cand"], bg["Ainv"], bpipe.h,
+          (LS.ALL_CONTRACTED, LTS.refit_contractions(120, "loop")))
+    torch.cuda.synchronize()
+    log(f"[{label}] lts_sweep: elemental, residuals2 and refit bit for bit their plain "
+        f"versions on the card: canonical {tuple(tau.shape)} x {Q} candidates, "
+        f"bfloat16, P=120 {tuple(btau.shape)} x {bg['cand'].shape[0]} candidates; "
+        f"refit contract masks {[f'{c:05b}' for c in contracts]}")
+
+    rows = tau[..., 0].numel()
+    calls = {
+        "elemental": (lambda: LS.elemental(tau, cand, Ainv),
+                      lambda: LS.elemental_reference(tau, cand, Ainv)),
+        "residuals2": (lambda: LS.residuals2(tau, X, s),
+                       lambda: LS.residuals2_reference(tau, X, s)),
+        "refit": (lambda: LS.refit(tau[..., None, :], X, w),
+                  lambda: LS.refit_reference(tau[..., None, :], X, w)),
+    }
+    recs = []
+    for name, (kern, plain) in calls.items():
+        ms = device_ms(kern, reps=20)
+        pms = device_ms(plain, reps=3)
+        flops, nbytes = lts_sweep_work(name, rows, Q, P)
+        ops_ms, mem_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+        bound, by = max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
+        log(f"[{label}] lts_sweep {name} at the canonical sweep's shapes ({rows} windows "
+            f"x {Q} candidates x {P}): kernel {ms:.4f} ms a launch, plain version on the "
+            f"card {pms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e6:.1f} MFLOP, "
+            f"{nbytes / 1e6:.2f} MB)")
+        recs.append({"name": f"lts_sweep.{name}", "route": "cuda", "per": "launch",
+                     "source": LTS_SWEEP_SOURCE, "replaces": LTS_SWEEP_REPLACES[name],
+                     "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
+                     "bound_ms": bound, "bound_by": by, "library_ms": None})
+    return recs
+
+
+def lts_capped_case(label):
+    """The capped-candidate stream (LTS_CAPPED_STREAM, max_lts_candidates =
+    5) on the card ('mxu' at 'highest') and the CPU: flags equal on every
+    valid window whose delays are bit-identical (at least LTS_SAME_MIN of
+    them), and lts_solve on the CPU's delays on the card equal to the CPU's,
+    objective, s and retained, bit for bit."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    st = synthetic_plane_wave(**LTS_CAPPED_STREAM)
+    fl, nb, _ = get_freqlist(0.2, 1.6, "log", 4)
+    plan = make_plan(fl, "log", get_winlenlist("adaptive", nb, 30, 40, 20), 0.5,
+                     st.npts, st.fs)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        pipe = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, max_lts_candidates=5,
+                                  matmul_precision="highest", device=dev)
+        with LtsRecorder() as rec:
+            out = pipe.run_raw(st.data)
+        runs[dev] = (pipe, {k: v.cpu() for k, v in out.items()}, rec.taus[0])
+    pipe, gpu, tau_g = runs["cuda"]
+    cpipe, cpu, tau_c = runs["cpu"]
+    wm = pipe.state_dict()["win_mask"].cpu().numpy()
+    same = (tau_g == tau_c).all(-1) & wm
+    if same.sum() < LTS_SAME_MIN * wm.sum():
+        fail(f"lts capped: delays differ card against CPU on {int(wm.sum() - same.sum())} "
+             f"of {int(wm.sum())} valid windows")
+    differ = (gpu["flags"] != cpu["flags"]).any(-1).numpy() & same
+    if differ.any():
+        fail(f"lts capped: the card's flags differ from the CPU's on windows with "
+             f"bit-identical delays {np.argwhere(differ).tolist()}")
+    g, cg = pipe._geometry, cpipe._geometry
+    args = lambda geo: (geo["X"], geo["cand"], geo["Ainv"], geo["cand_ok"], pipe.h,
+                        pipe.c_steps)
+    on_card = LTS.lts_solve(torch.as_tensor(tau_c).cuda(), *args(g))
+    on_cpu = LTS.lts_solve(torch.as_tensor(tau_c), *args(cg))
+    for k in ("objective", "s", "retained"):
+        if not torch.equal(on_card[k].cpu(), on_cpu[k]):
+            fail(f"lts capped: lts_solve's {k} on the card differs from the CPU's")
+    obj = on_cpu["objective"].numpy()
+    log(f"[{label}] lts capped (max_lts_candidates=5): flags card = CPU on "
+        f"{int(same.sum())} of {int(wm.sum())} valid windows (those with bit-identical "
+        f"delays); lts_solve objective, s and "
+        f"retained bit for bit the CPU's; window (band 1, window 4) objective "
+        f"{float(obj[1, 4]):.4f}, vel {float(cpu['vel'][1, 4]):.4f}")
+
+
+def _eager_residuals2(tau, X, s):
+    """The sweep's residuals as eager PyTorch operations, each rounded on its
+    own (the port's code before csrc/lts_sweep.cu): the "before" of
+    `lts_before_after`."""
+    r = tau[..., None, :] - (X[:, 0] * s[..., 0, None] + X[:, 1] * s[..., 1, None])
+    return r * r
+
+
+def _eager_elemental(tau, cand, Ainv):
+    import torch
+
+    tp = tau[..., cand]
+    t0, t1 = tp[..., 0], tp[..., 1]
+    return torch.stack([Ainv[:, 0, 0] * t0 + Ainv[:, 0, 1] * t1,
+                        Ainv[:, 1, 0] * t0 + Ainv[:, 1, 1] * t1], dim=-1)
+
+
+def _eager_refit(tau, X, weight, eps=1e-12, contract=None):
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops.solve import tree_sum_last
+
+    Xw = weight[..., None] * X
+    m00 = tree_sum_last(Xw[..., 0] * X[..., 0])
+    m01 = tree_sum_last(Xw[..., 0] * X[..., 1])
+    m11 = tree_sum_last(Xw[..., 1] * X[..., 1])
+    b0 = tree_sum_last(weight * tau * X[..., 0])
+    b1 = tree_sum_last(weight * tau * X[..., 1])
+    det = m00 * m11 - m01 * m01
+    ok = torch.abs(det) > eps
+    safe = torch.where(ok, det, torch.ones_like(det))
+    zero = torch.zeros_like(det)
+    return torch.stack([torch.where(ok, (b0 * m11 - b1 * m01) / safe, zero),
+                        torch.where(ok, (b1 * m00 - b0 * m01) / safe, zero)], dim=-1)
+
+
+def lts_before_after(label, st, freqlist, winlens):
+    """The canonical LTS step (exhaustive) with the sweep's arithmetic as
+    eager PyTorch operations (before) and through csrc/lts_sweep.cu (after),
+    in turns before, after, after, before: step ms by CUDA events over 20
+    steps, and the sweep's device time and kernel count in one profiled
+    solve."""
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+
+    plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
+    pipe = NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
+                              alpha=LTS_ALPHA, device="cuda")
+    tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
+    kernels = (LS.residuals2, LS.refit, LS.elemental)
+    eager = (_eager_residuals2, _eager_refit, _eager_elemental)
+    out = {"before": [], "after": []}
+    try:
+        for tag in ("before", "after", "after", "before"):
+            LS.residuals2, LS.refit, LS.elemental = eager if tag == "before" else kernels
+            step = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+            busy, rows = profile_once(lambda: pipe._solve_masked(tau, md))
+            out[tag].append((step, busy, sum(r[2] for r in rows)))
+    finally:
+        LS.residuals2, LS.refit, LS.elemental = kernels
+    for tag, vals in out.items():
+        log(f"[{label}] lts canonical exhaustive step, sweep {tag} its kernels: "
+            + "; ".join(f"{a:.4f} ms a step (CUDA events, 20 steps), sweep {b:.4f} ms "
+                        f"of device time in {c} kernels (one profiled solve)"
+                        for a, b, c in vals))
+
+
 def phase_lts(label):
     """Canonical LTS with one incoherent element through the API, card
-    against CPU, exhaustive and with PRODUCTION_DEFAULTS; multi-array and
-    large-array LTS; the LTS timings."""
+    against CPU, exhaustive and with PRODUCTION_DEFAULTS; the lts_sweep
+    kernels against their plain versions; the capped-candidate case card
+    against CPU; multi-array and large-array LTS; the LTS timings, the
+    sweep before and after its kernels.  Returns the kernels-line records
+    of lts_sweep."""
     st, freqlist, winlens = canonical_inputs(outlier_channels=(LTS_OUTLIER,))
+    recs = lts_kernel_check(label, st, freqlist, winlens)
     for production in (False, True):
         tag = "lts production" if production else "lts exhaustive"
-        gpu, tau_g, secs = run_api_lts(st, freqlist, winlens, "cuda", production)
-        cpu, tau_c, secs_cpu = run_api_lts(st, freqlist, winlens, "cpu", production)
+        gpu, tau_g, secs, sweep = run_api_lts(st, freqlist, winlens, "cuda", production)
+        cpu, tau_c, secs_cpu, _ = run_api_lts(st, freqlist, winlens, "cpu", production)
         log(f"{tag}: first API call {secs:.3f} s on the card, {secs_cpu:.3f} s on "
             f"the CPU (host set-up included)")
         ncl = gpu[6]
@@ -1463,10 +1748,16 @@ def phase_lts(label):
         compare_lts(gpu, cpu, tau_g, tau_c, ncl, tag)
         ground_truth(gpu, ncl, label=f"{tag} ")
         check_outlier(gpu[4], NCHANS, LTS_OUTLIER, tag)
+        if not production:
+            for r in recs:
+                r["launches"] = sweep[r["name"].split(".")[1]]
+    lts_capped_case(label)
     lts_rank_check(label, st, freqlist, winlens)
     lts_multiarray()
     lts_large_array()
+    lts_before_after(label, st, freqlist, winlens)
     lts_timing(label, st)
+    return recs
 
 
 # --------------------------------------------------------------------------
@@ -2668,6 +2959,14 @@ NB_EDGE_BLOCKS = ((0, 50, 0),        # lo = 0: cm is the placeholder 0
 BF16_VEL_RTOL = 2.0 ** -8
 BF16_BAZ_DEG = 1.0
 BF16_MDCCM_ATOL = 1e-5
+# The recurrence's loop-carried chain in csrc/sosfilt.cu, a sample and a
+# section: z1 -> ys = b0 y + z1 (add) -> a1 ys (multiply) -> b1 y - a1 ys
+# (subtract) -> + z2 (add) -> z1: four dependent float operations.
+SOSFILT_CHAIN_OPS = 4
+# Cycles of one dependent FP32 add or multiply on an SM: the latency that
+# microbenchmark studies report for Volta through Hopper (an assumption of
+# the bound, not measured here).
+FP32_LATENCY_CYCLES = 4
 SOSFILT_RTOL = 1e-3        # tests/test_jax_pipeline.py:231, against scipy in float64
 # the canonical runs against the port's NumPy oracle (tests/test_jax_pipeline.py)
 ORACLE_MDCCM_ATOL = 1e-2
@@ -2968,17 +3267,26 @@ def options_sosfilt(label, st, plan):
     bound, by = (max(nbytes / PEAK_HBM_BYTES, flops / PEAK_FP32_FLOPS) * 1e3,
                  "bytes" if nbytes / PEAK_HBM_BYTES >= flops / PEAK_FP32_FLOPS
                  else "operations")
+    # the rows run in parallel, each a chain of T samples of SOSFILT_CHAIN_OPS
+    # dependent operations, at the card's highest SM clock
+    clock_mhz = float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+        capture_output=True, text=True, timeout=60).stdout.split()[0])
+    chain_ms = T * SOSFILT_CHAIN_OPS * FP32_LATENCY_CYCLES / (clock_mhz * 1e6) * 1e3
     log(f"[{label}] sosfilt: {launches} launches ({plan.nbands} bands x {N} rows x "
         f"{T} samples, {S} sections); bit for bit its plain version on band 0 "
         f"and with {sos4.shape[0]} sections; worst {worst_scipy:.3e} of the peak from scipy "
         f"float64; one launch: kernel {kt:.4f} ms, plain (a loop over samples on "
-        f"the card) {pt:.1f} ms, bound {bound * 1e3:.3f} us by {by}; library: none")
+        f"the card) {pt:.1f} ms, bound {bound * 1e3:.3f} us by {by}; the dependent "
+        f"chain: {T} samples x {SOSFILT_CHAIN_OPS} operations x {FP32_LATENCY_CYCLES} "
+        f"cycles at {clock_mhz:.0f} MHz = {chain_ms:.4f} ms; library: none")
     return {"name": "sosfilt", "route": "cuda", "per": "launch",
             "source": "narrow_band_least_squares_tpu_torch/csrc/sosfilt.cu",
             "replaces": "none: the port's own kernel for "
                         "narrow_band_least_squares_tpu/ops/filters.py:164 (lax.scan)",
             "launches": launches, "max_abs_err": max_err, "ms": kt, "plain_ms": pt,
-            "bound_ms": bound, "bound_by": by, "library_ms": None}
+            "bound_ms": bound, "bound_by": by, "latency_bound_ms": chain_ms,
+            "library_ms": None}
 
 
 def oracle_compare(label, gpu, orc, ncl, lts):
@@ -3610,8 +3918,9 @@ def main() -> int:
     if "sharded" in phases:
         phase_sharded(label)
         phase_done("sharded")
+    lrecs = []
     if "lts" in phases:
-        phase_lts(label)
+        lrecs = phase_lts(label)
         phase_done("lts")
     if "monitor" in phases:
         phase_monitor(label)
@@ -3636,6 +3945,7 @@ def main() -> int:
         phase_done("timing (fused)")
     if "options" in phases:
         recs += orecs
+    recs += lrecs
     if recs:
         log(f"[{label}]")
         log(json.dumps({"kernels": recs}))

@@ -12,13 +12,38 @@ Retained-set size: ``h = clamp(floor(ALPHA * P), 3, P)`` equations.  The
 equations outside the optimal subset are the flagged pairs of the
 reference's stdict.
 
-The flags must not depend on the device or the batch shape, so the sweep
-computes the same bits on the card and on the CPU: every two-term product
-sum is written out as multiplies and adds in the JAX package's order
-(never ``einsum``/``matmul``, which may reorder, use TF32 or fuse into a
-multiply-add on the card), every compared sum is a fixed tree
+The flags hang on the last bits of the squared residuals at the h
+boundary, so the sweep computes the float32 bits of the JAX package's
+``lts_solve`` as XLA compiles it on the CPU, on the card and on the CPU
+alike.  XLA's CPU backend lets LLVM contract a multiply into an add or a
+subtract of the same basic block whose only use it is (one rounding), and
+the sweep's programs contract at these sites, the product named first
+left unrounded:
+
+- the residuals, ``_residuals2`` and the final subset (``einsum`` over k =
+  2): ``r = tau - fma(X[p,1], s1, X[p,0] * s0)``, then ``r * r``;
+- the elemental solves (``einsum`` over j = 2): ``fma(Ainv[q,i,1], t1,
+  Ainv[q,i,0] * t0)``;
+- the refit (`ops.solve.masked_refit`): the first level of each halving
+  tree, ``fma(u[i], v[i], u[i+h] * v[i+h])`` (later levels add sums),
+  except the sums `UNCONTRACTED` lists; then ``det = fma(m00, m11, -(m01
+  m01))`` and the two numerators alike;
+- the objective's tree over ``sel * r2``: its first level contracts too,
+  but ``sel`` is 0 or 1, so each product is exact and a plain tree gives
+  the same bits.
+
+Everything else rounds each operation, and a dtype narrower than float32
+contracts nothing.  `ops.kernels.lts_sweep` computes the contracted sites,
+with a kernel on the card (``csrc/lts_sweep.cu``) and an exact float32
+fused multiply-add on the CPU; compared sums are fixed trees
 (`ops.solve.tree_sum_last`), ranks are comparison counts and ties resolve
-by index.
+by index.  The model holds in ``lts_solve`` jitted alone and in the
+pipeline's step, the chunked ``lax.map`` sweep, the funnel, the merged
+multi-array program and the sharded step.  In the one-band programs of
+``ltsva``, ``narrow_band_loop`` and the broadband pipeline XLA also fuses
+the delays' ``lag * (1/fs)`` into the residual and contracts it there; the
+port holds to the jitted ``lts_solve``, which takes the rounded delays
+(ROADMAP.md Queue 3 counts the windows this moves).
 """
 
 from __future__ import annotations
@@ -29,6 +54,7 @@ from typing import Dict
 import numpy as np
 import torch
 
+from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
 from narrow_band_least_squares_tpu_torch.ops.solve import (
     SIGMA_TAU_DOF_SHIFT,
     degrees,
@@ -36,6 +62,35 @@ from narrow_band_least_squares_tpu_torch.ops.solve import (
     tree_sum_last,
     vel_baz_from_slowness,
 )
+
+# The refit sums whose first tree level the JAX package's jitted lts_solve
+# does not contract, by P and site, as jaxlib 0.9.0 compiles it for an x86
+# CPU with FMA: there XLA fused the padded products into the tree's first
+# level, whose add then sits in another basic block than the product.  A
+# site is "loop" (C-steps of a fori_loop of two steps or more), "single" (a
+# C-step alone: the funnel's first) or "final" (the refit of the retained
+# subset).  Read from the optimized LLVM IR of lts_solve jitted alone
+# (exhaustive, chunked, funnel) for 3 to 16 elements and 20
+# (`scripts/xla_contractions.py`, which also checks this table against the
+# installed jaxlib), and of the pipeline's step and the merged multi-array
+# program at 6, 8 and 16 elements and the sharded step at 6 and 8, which
+# agree; every other site of those P contracts, and so does any P not read.
+UNCONTRACTED = {
+    28: {"single": ("b0", "b1"), "final": ("b0", "b1")},
+    78: {"loop": ("m01",)},
+    91: {"loop": ("m01",)},
+    105: {"loop": ("m01",)},
+    120: {"loop": ("m01",)},
+    190: {"loop": ("m00", "m11", "b0", "b1")},
+}
+
+
+def refit_contractions(P: int, site: str) -> int:
+    """The ``contract`` bits of `masked_refit` at a site of the sweep."""
+    off = UNCONTRACTED.get(P, {}).get(site, ())
+    return LS.ALL_CONTRACTED & ~sum(1 << LS.SUMS.index(k) for k in off)
+
+
 # Byte budget of the (rows, P, P) boolean temporary of one
 # `_rank_along_last` chunk: the canonical plan's sweep (632 windows x 378
 # candidates, P = 28) takes one chunk, a 50-band plan two.
@@ -115,23 +170,23 @@ def _rank_along_last(x: torch.Tensor) -> torch.Tensor:
     return out.reshape(x.shape)
 
 
-def _xs(X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """X s for s (..., 2) -> (..., P), as ``X[p,0] s0 + X[p,1] s1``."""
-    return X[:, 0] * s[..., 0, None] + X[:, 1] * s[..., 1, None]
-
-
 def _residuals2(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
     """Squared residuals (..., Q, P) of the candidate fits s (..., Q, 2)."""
-    r = tau[..., None, :] - _xs(X, s)
-    return r * r
+    return LS.residuals2(tau, X, s)
+
+
+def _residuals2_one(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
+    """Squared residuals (..., P) of one fit s (..., 2) a row."""
+    return LS.residuals2(tau, X, s[..., None, :])[..., 0, :]
 
 
 def _c_steps(tau, X, s, h, n_steps):
     """``n_steps`` concentration steps on a candidate block s (..., Q, 2)."""
+    contract = refit_contractions(tau.shape[-1], "single" if n_steps == 1 else "loop")
     for _ in range(n_steps):
         r2 = _residuals2(tau, X, s)
         weight = (_rank_along_last(r2) < h).to(tau.dtype)
-        s = masked_refit(tau[..., None, :], X, weight)
+        s = masked_refit(tau[..., None, :], X, weight, contract=contract)
     return s
 
 
@@ -164,10 +219,7 @@ def _candidate_sweep(tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k=0):
     best by trimmed objective (`_survivors`).  Returns (obj (..., K),
     s (..., K, 2)).
     """
-    tp = tau[..., cand]                               # (..., Q, 2)
-    t0, t1 = tp[..., 0], tp[..., 1]
-    s = torch.stack([Ainv[:, 0, 0] * t0 + Ainv[:, 0, 1] * t1,
-                     Ainv[:, 1, 0] * t0 + Ainv[:, 1, 1] * t1], dim=-1)
+    s = LS.elemental(tau, cand, Ainv)                 # (..., Q, 2)
     inf = torch.full((), float("inf"), dtype=tau.dtype, device=tau.device)
 
     if funnel_k and funnel_k < cand.shape[0] and c_steps > 1:
@@ -233,13 +285,12 @@ def lts_solve(
             tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k))
 
     # final subset + refit (idempotent when converged, like the oracle)
-    r_best = tau - _xs(X, s_best)
-    retained = _rank_along_last(r_best * r_best) < h   # (..., P) bool
+    retained = _rank_along_last(_residuals2_one(tau, X, s_best)) < h   # (..., P)
     weight = retained.to(tau.dtype)
-    s_fin = masked_refit(tau, X, weight)
+    s_fin = masked_refit(tau, X, weight, contract=refit_contractions(tau.shape[-1], "final"))
 
-    r_fin = tau - _xs(X, s_fin)
-    sigma2 = torch.sum(weight * r_fin * r_fin, dim=-1) / dof
+    # weight is 0 or 1: weight * r2 is JAX's weight * r * r, bit for bit
+    sigma2 = torch.sum(weight * _residuals2_one(tau, X, s_fin), dim=-1) / dof
     sig_tau = torch.sqrt(sigma2)
 
     # per-cell (Xs^T Xs)^-1 for the uncertainty ellipse

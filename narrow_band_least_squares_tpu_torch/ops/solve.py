@@ -17,6 +17,8 @@ import numpy as np
 import torch
 import torch.nn.functional as Fnn
 
+from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
 SIGMA_TAU_DOF_SHIFT = 2  # matches oracle.ltsva.SIGMA_TAU_DOF_SHIFT
 
 
@@ -205,27 +207,27 @@ def masked_refit(
     X: torch.Tensor,         # (P, 2)
     weight: torch.Tensor,    # (..., P) 0/1 subset weights
     eps: float = 1e-12,
+    contract: int = LS.ALL_CONTRACTED,
 ) -> torch.Tensor:
     """Weighted 2x2 normal-equation solve, the LTS C-step refit.
 
-    Returns s (..., 2).  Degenerate subsets (``|det| <= eps`` on the
-    float32 determinant) return zeros; callers mask them out through the
-    objective.  The products keep the JAX package's order, one multiply or
-    add per operation (no fused multiply-add), and the sums are fixed
-    trees (`tree_sum_last`).
+    Returns s (..., 2); ``tau`` broadcasts against ``weight``.  Degenerate
+    subsets (``|det| <= eps`` on the float32 determinant) return zeros;
+    callers mask them out through the objective.  The bits are those of the
+    JAX package's ``masked_refit`` inside its jitted ``lts_solve``, where
+    XLA's CPU backend contracts multiply-adds: each of the five sums
+    (m00 = sum w X0 X0, m01 = sum w X0 X1, m11 = sum w X1 X1, b0 = sum
+    w tau X0, b1 = sum w tau X1) is a halving tree over the next power of
+    two, zero-padded (`tree_sum_last`), whose first level is ``fma(u[i],
+    v[i], u[i+h] * v[i+h])`` with ``u = w X0`` (or ``w X1``, ``w tau``) and
+    ``v`` the co-array column, its later levels plain adds.  Where XLA's
+    fusion puts that add in another basic block than the product, it is not
+    contracted: ``contract`` has a bit for each sum
+    (`ops.kernels.lts_sweep.SUMS`), set where the first level is a fused
+    multiply-add (`ops.lts.refit_contractions` says where).  ``det =
+    fma(m00, m11, -(m01 * m01))``, ``s0 = fma(b0, m11, -(b1 * m01)) / det``
+    and ``s1 = fma(b1, m00, -(b0 * m01)) / det``; every other operation is
+    rounded on its own.  On the card one kernel computes it
+    (`ops.kernels.lts_sweep.refit`), on the CPU its plain version.
     """
-    Xw = weight[..., None] * X                          # (..., P, 2)
-    m00 = tree_sum_last(Xw[..., 0] * X[..., 0])
-    m01 = tree_sum_last(Xw[..., 0] * X[..., 1])
-    m11 = tree_sum_last(Xw[..., 1] * X[..., 1])
-    b0 = tree_sum_last(weight * tau * X[..., 0])
-    b1 = tree_sum_last(weight * tau * X[..., 1])
-    det = m00 * m11 - m01 * m01
-    ok = torch.abs(det) > eps
-    one = torch.ones((), dtype=det.dtype, device=det.device)
-    zero = torch.zeros((), dtype=det.dtype, device=det.device)
-    safe = torch.where(ok, det, one)
-    s0 = (b0 * m11 - b1 * m01) / safe
-    s1 = (b1 * m00 - b0 * m01) / safe
-    return torch.stack([torch.where(ok, s0, zero), torch.where(ok, s1, zero)],
-                       dim=-1)
+    return LS.refit(tau, X, weight, eps, contract)

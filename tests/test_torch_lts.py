@@ -7,6 +7,8 @@ within 1e-5 (rtol and atol), the JAX xcorr-level tolerance.  Within the
 port, chunking (of the rank rows or of the candidates) must change no bit.
 """
 
+import ctypes
+import ctypes.util
 import math
 
 import jax
@@ -21,6 +23,7 @@ from narrow_band_least_squares_tpu.utils.geometry import coarray as jcoarray
 from narrow_band_least_squares_tpu.utils.geometry import get_rij
 from narrow_band_least_squares_tpu_torch.ops import lts as TL
 from narrow_band_least_squares_tpu_torch.ops import solve as TS
+from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
 from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
 
 TOL = 1e-5
@@ -262,3 +265,203 @@ def test_lts_solve_batch_shape_is_bitwise(geom):
     one = TL.lts_solve(torch.as_tensor(tau[2, 5]), *args, h, funnel_k=16)
     for k, v in one.items():
         torch.testing.assert_close(v, full[k][2, 5], rtol=0, atol=0, msg=k)
+
+
+# --------------------------------------------------------------------------
+# the contracted arithmetic (ops/kernels/lts_sweep.py) against jax.jit
+# --------------------------------------------------------------------------
+
+_LIBM = ctypes.CDLL(ctypes.util.find_library("m"))
+_LIBM.fmaf.argtypes = [ctypes.c_float] * 3
+_LIBM.fmaf.restype = ctypes.c_float
+
+
+def _fmaf(a, b, c):
+    """libm's fmaf, one triple at a time."""
+    return np.array([_LIBM.fmaf(x, y, z) for x, y, z in zip(a.tolist(), b.tolist(),
+                                                              c.tolist())], np.float32)
+
+
+def _bits(x):
+    """float32 bits, every NaN as one pattern."""
+    x = np.asarray(x, np.float32)
+    return np.where(np.isnan(x), np.float32(np.nan), x).view(np.int32)
+
+
+_F = np.float32
+FMA_HARD = {
+    # a * b + c exactly halfway between two float32 values plus less than a
+    # float64 ulp: rounding through float64 lands on the midpoint
+    "midpoints": [(_F(1 + 2**-23), _F(64 * (1 - 2**-23)), _F(2**30 + 128)),
+                  (_F(1 + 2**-23), _F(-64 * (1 - 2**-23)), _F(-(2**30 + 128))),
+                  (_F(1 + 2**-23), _F(64 * (1 - 2**-23)), _F(2**30)),
+                  (_F(1 - 2**-24), _F(1 - 2**-24), _F(-1.0))],
+    "cancellation": [(_F(1 + 2**-12), _F(1 + 2**-12), _F(-(1 + 2**-11))),
+                     (_F(3.0), _F(1 / 3), _F(-1.0)), (_F(2.0), _F(3.0), _F(-6.0)),
+                     (_F(-2.0), _F(3.0), _F(6.0)), (_F(0.0), _F(-1.0), _F(-0.0)),
+                     (_F(-0.0), _F(1.0), _F(-0.0)), (_F(3e38), _F(2.0), _F(-3e38))],
+    "subnormals": [(_F(1e-30), _F(1e-15), _F(0.0)), (_F(1e-20), _F(1e-20), _F(1e-45)),
+                   (_F(1.5), _F(2**-149), _F(0.0)), (_F(2**-126), _F(0.75), _F(-2**-149)),
+                   (_F(2**-75), _F(2**-75), _F(-2**-149))],
+    "inf-nan": [(_F(np.inf), _F(0.0), _F(1.0)), (_F(np.inf), _F(1.0), _F(-np.inf)),
+                (_F(np.nan), _F(1.0), _F(1.0)), (_F(1.0), _F(1.0), _F(np.inf)),
+                (_F(3e38), _F(3e38), _F(-np.inf)), (_F(-3e38), _F(10.0), _F(0.0))],
+}
+
+
+@pytest.mark.parametrize("group", list(FMA_HARD))
+def test_exact_fma_on_hard_cases(group):
+    """The plain versions' fused multiply-add equals libm's fmaf, where a
+    float64 sum rounded to float32 would not (the midpoints)."""
+    a, b, c = (np.array(v, np.float32) for v in zip(*FMA_HARD[group]))
+    got = LS.fma(*(torch.as_tensor(v) for v in (a, b, c))).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(_fmaf(a, b, c)))
+    if group == "midpoints":
+        twice = (a.astype(np.float64) * b + c).astype(np.float32)
+        assert (_bits(twice) != _bits(_fmaf(a, b, c))).sum() >= 2
+
+
+@pytest.mark.parametrize("scale", [1.0, 1e-20, 1e20])
+def test_exact_fma_on_random_triples(scale):
+    rng = np.random.default_rng(int(np.log10(scale)) + 30)
+    n = 20000
+    a = (rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n)) * scale).astype(np.float32)
+    b = (rng.standard_normal(n) * np.exp(rng.uniform(-20, 20, n))).astype(np.float32)
+    c = (-(a.astype(np.float64) * b) * (1 + rng.standard_normal(n) * 1e-6)).astype(np.float32)
+    c[::2] = (rng.standard_normal(n // 2) * np.exp(rng.uniform(-40, 40, n // 2))
+              * scale).astype(np.float32)
+    got = LS.fma(torch.as_tensor(a), torch.as_tensor(b), torch.as_tensor(c)).numpy()
+    np.testing.assert_array_equal(_bits(got), _bits(_fmaf(a, b, c)))
+
+
+def test_narrow_dtype_contracts_nothing():
+    """bfloat16 and float16 round the multiply and the add each to the dtype,
+    as PyTorch does and as the port did before it contracted float32."""
+    rng = np.random.default_rng(9)
+    for dt in (torch.bfloat16, torch.float16):
+        a, b, c = (torch.as_tensor(rng.standard_normal(4000), dtype=torch.float32).to(dt)
+                   for _ in range(3))
+        got = LS.fma(a, b, c)
+        assert got.dtype == dt and torch.equal(got, (a * b).to(dt) + c)
+        assert not torch.equal(got, LS.fma(a.float(), b.float(), c.float()).to(dt))
+
+
+def _geometry(nchans, seed):
+    """A random co-array of ``nchans`` elements, its candidates (1,024 at
+    most) and seeded plane-wave delays with a fifth of the equations hit by
+    outliers (3 bands x 5 windows)."""
+    theta = np.linspace(0, 2 * np.pi, nchans, endpoint=False)
+    rng = np.random.default_rng(seed)
+    rij = np.stack([np.cos(theta) * rng.uniform(0.5, 1.5, nchans),
+                    np.sin(theta) * rng.uniform(0.5, 1.5, nchans)])
+    X, _ = coarray(rij)
+    P = X.shape[0]
+    ci = TL.precompute_candidates(X, max_candidates=1024)
+    s_true = rng.standard_normal((3, 5, 2))
+    tau = X @ s_true[..., None] + 0.05 * rng.standard_normal((3, 5, P, 1))
+    tau = tau[..., 0].astype(np.float32)
+    tau[..., :P // 5] += rng.standard_normal((3, 5, P // 5)).astype(np.float32)
+    return X, ci, tau
+
+
+GEOMETRIES = {"P15": 6, "P28": 8, "P120": 16}
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_residuals2_bitwise_jitted_jax(name):
+    X, ci, tau = _geometry(GEOMETRIES[name], 1)
+    s = np.random.default_rng(2).standard_normal(tau.shape[:-1] + (40, 2)).astype(np.float32)
+    got = TL._residuals2(*(torch.as_tensor(v) for v in (tau, X.astype(np.float32), s)))
+    want = jax.jit(JL._residuals2)(tau, X.astype(np.float32), s)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_elemental_solve_bitwise_jitted_jax(name):
+    """The JAX package's elemental solve (``_candidate_sweep``'s einsum,
+    jitted) against `lts_sweep.elemental`."""
+    X, ci, tau = _geometry(GEOMETRIES[name], 3)
+    A = ci["Ainv"].astype(np.float32)
+    got = LS.elemental(torch.as_tensor(tau), torch.as_tensor(ci["cand"]), torch.as_tensor(A))
+    want = jax.jit(lambda t, c, a: jnp.einsum("qij,...qj->...qi", a, t[..., c]))(
+        tau, ci["cand"], A)
+    np.testing.assert_array_equal(_bits(got.numpy()), _bits(want))
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_masked_refit_bitwise_jitted_jax(name):
+    """``masked_refit`` jitted alone, with singular subsets (no row kept: zeros;
+    one row kept, whose contracted determinant is the rounding error of
+    m01 * m01, not 0) and all rows kept.  At P = 120 that program leaves
+    m01's first tree level uncontracted, as the sweep's C-step loop does."""
+    X, _, tau = _geometry(GEOMETRIES[name], 4)
+    P = X.shape[0]
+    w = (np.random.default_rng(5).random(tau.shape) < 0.7).astype(np.float32)
+    w[0, 0] = 0.0
+    w[0, 1] = 0.0
+    w[0, 1, 3] = 1.0
+    w[1, 2] = 1.0
+    Xf = X.astype(np.float32)
+    contract = TL.refit_contractions(P, "loop") if P == 120 else LS.ALL_CONTRACTED
+    got = TS.masked_refit(torch.as_tensor(tau), torch.as_tensor(Xf), torch.as_tensor(w),
+                          contract=contract).numpy()
+    want = np.asarray(jax.jit(JS.masked_refit)(tau, Xf, w))
+    np.testing.assert_array_equal(_bits(got), _bits(want))
+    assert (got[0, 0] == 0).all()
+
+
+@pytest.mark.parametrize("funnel_k", [0, 8])
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_candidate_sweep_bitwise_jitted_jax(name, funnel_k):
+    X, ci, tau = _geometry(GEOMETRIES[name], 6)
+    P = X.shape[0]
+    h = TL.lts_h(0.75, P)
+    args = (X.astype(np.float32), ci["cand"], ci["Ainv"].astype(np.float32), ci["ok"])
+    obj_t, s_t = TL._candidate_sweep(torch.as_tensor(tau),
+                                     *(torch.as_tensor(a) for a in args), h, 4, funnel_k)
+    obj_j, s_j = jax.jit(lambda t, *a: JL._candidate_sweep(t, *a, h, 4, funnel_k))(
+        tau, *args)
+    np.testing.assert_array_equal(_bits(obj_t.numpy()), _bits(obj_j))
+    np.testing.assert_array_equal(_bits(s_t.numpy()), _bits(s_j))
+
+
+BITWISE_SOLVES = [
+    ("P28-exhaustive", 8, {}),
+    ("P28-chunk100", 8, {"candidate_chunk": 100}),
+    ("P28-funnel16", 8, {"funnel_k": 16}),
+    ("P28-funnel16-chunk100", 8, {"funnel_k": 16, "candidate_chunk": 100}),
+    ("P15-funnel8", 6, {"funnel_k": 8}),
+    ("P120-chunk512", 16, {"candidate_chunk": 512}),
+    ("P120-chunk512-funnel64", 16, {"candidate_chunk": 512, "funnel_k": 64}),
+]
+
+
+@pytest.mark.parametrize("nchans,kw", [c[1:] for c in BITWISE_SOLVES],
+                         ids=[c[0] for c in BITWISE_SOLVES])
+def test_lts_solve_bitwise_jitted_jax(nchans, kw):
+    """The port's sweep computes the float32 bits of the JAX package's
+    jitted ``lts_solve``: objective, s and the retained sets are equal bit for
+    bit, funnel and candidate chunks included (`refit_contractions` holds the
+    sites XLA leaves uncontracted at P = 28 and P = 120)."""
+    X, ci, tau = _geometry(nchans, 7)
+    h = TL.lts_h(0.75, X.shape[0])
+    args = (X.astype(np.float32), ci["cand"], ci["Ainv"].astype(np.float32), ci["ok"])
+    got = TL.lts_solve(torch.as_tensor(tau), *(torch.as_tensor(a) for a in args), h, 4, **kw)
+    want = jax.jit(lambda t, *a: JL.lts_solve(t, *a, h, 4, **kw))(tau, *args)
+    np.testing.assert_array_equal(got["retained"].numpy(), np.asarray(want["retained"]))
+    for k in ("objective", "s"):
+        np.testing.assert_array_equal(_bits(got[k].numpy()), _bits(want[k]), err_msg=k)
+
+
+def test_refit_contractions_table():
+    """Every first level contracted except where the table says; the CPU
+    wrappers launch nothing."""
+    assert TL.refit_contractions(15, "final") == LS.ALL_CONTRACTED == 0b11111
+    assert TL.refit_contractions(28, "loop") == LS.ALL_CONTRACTED
+    assert TL.refit_contractions(28, "final") == TL.refit_contractions(28, "single") == 0b00111
+    assert TL.refit_contractions(120, "loop") == 0b11101
+    assert TL.refit_contractions(120, "final") == LS.ALL_CONTRACTED
+    before = (LS.launches_residuals2, LS.launches_refit, LS.launches_elemental)
+    X, ci, tau = _geometry(6, 8)
+    TL.lts_solve(torch.as_tensor(tau), *_args(X, ci, "torch"), TL.lts_h(0.75, X.shape[0]))
+    assert (LS.launches_residuals2, LS.launches_refit, LS.launches_elemental) == before

@@ -5,18 +5,20 @@ The same stream goes through the JAX package and the port (kernels' plain
 versions).  Flags are exact, in two ways (`_check`):
 
 - given the same delays, the port's sweep flags exactly what JAX's
-  ``lts_solve``, jitted alone, does, on every window: the port's
-  `lts_solve` runs on the delays recorded inside the JAX step.  With the
-  FAST-LTS funnel a window may differ where its LTS criterion lies within
-  FUNNEL_RTOL of JAX's (`_differ`);
+  ``lts_solve``, jitted alone, does, on every window, with the FAST-LTS
+  funnel too: the port's `lts_solve` runs on the delays recorded inside the
+  JAX step and computes the jitted solve's float32 bits (its multiply-adds
+  contracted where XLA contracts them, `ops.kernels.lts_sweep`);
 - the two whole runs flag the same pairs on every valid window whose P
   delays are bit-identical between them, and those windows are nearly all
   (`MIN_SAME`).  Elsewhere an integer lag moved: the jitted JAX
   correlation and the port's sum in other orders, and on incoherent pairs
   (the outlier element) the correlation peak can be a near-tie.  Where the
   JAX step's program keeps a worse subset than its own ``lts_solve``, a
-  window may differ if the port's subset is the better one (`_differ`,
-  ROADMAP.md Queue 3 counts them per test).
+  window may differ if the port's subset is the better one (`_differ`): in
+  the one-band programs of ``ltsva``, ``narrow_band_loop`` and the
+  broadband pipeline XLA fuses the delays' ``lag * (1/fs)`` into the
+  residuals and contracts it there (ROADMAP.md Queue 3 counts them).
 
 vel/baz/sig_tau and the ``conf=`` intervals agree within 1e-4 (rtol and
 atol), the JAX pipeline tolerance, on the windows whose delays and flags
@@ -61,12 +63,6 @@ from test_torch_pipeline import OUTS, _jax_state, _tstream
 _JAX_LTS_SOLVE, _TORCH_LTS_SOLVE = JL.lts_solve, TL.lts_solve
 TOL = 1e-4
 MIN_SAME = 0.9   # share of valid windows whose delays must be bit-identical
-# With the FAST-LTS funnel, a last-bit difference in a one-step objective
-# (a rank near-tie at the h boundary in one C-step) can pick other
-# survivors among near-degenerate optima, on any window and on every window
-# of a stationary input.  There the JAX package's own bound applies: LTS
-# criteria within 15% of each other (tests/test_multiarray.py:148-160).
-FUNNEL_RTOL = 0.15
 
 
 def _np(v):
@@ -165,34 +161,28 @@ def _trimmed(tau, X, keep, h):
 def _differ(pipe, ours, theirs, tau, where, X):
     """Windows in ``where`` whose flags differ, each checked: the port's
     retained set is no worse an LTS solution than JAX's (float64
-    criteria), and without the funnel at most one window in 50 (at least
-    one) differs; with the funnel the criteria lie within FUNNEL_RTOL.
-    Returns them."""
+    criteria), and at most one window in 50 (at least one) differs, with
+    the funnel too.  Returns them."""
     out = []
-    funnel = bool(pipe.lts_funnel_k)
     for b, w in np.argwhere(where & (ours != theirs).any(-1)):
         a = _trimmed(tau[b, w], X, ~ours[b, w], pipe.h)
         c = _trimmed(tau[b, w], X, ~theirs[b, w], pipe.h)
-        assert a <= c * (1 + (FUNNEL_RTOL if funnel else 1e-6)), (
-            f"window {(b, w)}: LTS criterion {a} against JAX's {c}")
+        assert a <= c * (1 + 1e-6), f"window {(b, w)}: LTS criterion {a} against JAX's {c}"
         out.append((int(b), int(w)))
-    assert funnel or len(out) <= max(1, where.sum() // 50), out
+    assert len(out) <= max(1, where.sum() // 50), out
     return out
 
 
 def _compare_flags(pipe, gf, wf, tau_t, tau_j, geometry=None):
     """Flags (B, Wmax, P) of the port run ``gf`` and the JAX run ``wf``:
     the two checks of the module docstring.  On the same delays the sweeps
-    agree exactly without the funnel (with it: `_differ`); the whole runs
-    may differ only as `_differ` allows.  Returns the valid windows whose
-    delays are bit-identical and whose flags agree."""
+    agree exactly, funnel or not; the whole runs may differ only as
+    `_differ` allows.  Returns the valid windows whose delays are
+    bit-identical and whose flags agree."""
     wm = pipe.state_dict()["win_mask"].numpy()
     X = (geometry or pipe._geometry)["X"].numpy().astype(np.float64)
     ours, theirs = _sweeps(pipe, tau_j, geometry)
-    if pipe.lts_funnel_k:
-        _differ(pipe, ours, theirs, tau_j, wm, X)
-    else:
-        np.testing.assert_array_equal(ours, theirs)
+    np.testing.assert_array_equal(ours, theirs)
     same = (tau_t == tau_j).all(-1) & wm
     share = same.sum() / wm.sum()
     assert share >= MIN_SAME, f"only {share:.3f} of the valid windows have equal delays"
@@ -407,6 +397,43 @@ def test_lts_funnel_matches_full_sweep(delays):
     same = (f0 == f1).all(axis=-1)
     np.testing.assert_allclose(runs[0]["vel"].numpy()[same], runs[16]["vel"].numpy()[same],
                                rtol=1e-5, atol=1e-6)
+
+
+def test_capped_candidates_match_jax(delays):
+    """The capped candidate set on which the port once kept a worse subset
+    than JAX (ROADMAP.md Queue 3, fixed: window (band 1, window 4), where
+    the port's float32 residuals tied at the h boundary and JAX's, with
+    XLA's fused multiply-adds, did not).  Through `_check`, the sweeps equal
+    JAX's jitted ``lts_solve`` exactly; the whole runs flag the same pairs
+    on every valid window with equal delays; and on JAX's delays the port's
+    objective and s are the jitted solve's float32 bits."""
+    st = synthetic_plane_wave(
+        nchans=6, duration_s=300.0, fs=10.0, baz_deg=200.0, trace_vel_kms=0.33,
+        f0=0.6, bandwidth=0.8, snr=10.0, seed=3, outlier_channels=(2,),
+    )
+    fl, nb, _ = get_freqlist(0.2, 1.6, "log", 4)
+    args = (fl, "log", get_winlenlist("adaptive", nb, 30, 40, 20), 0.5, st.npts, st.fs)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    want = JPipe(make_plan(*args), rij, alpha=0.75, max_lts_candidates=5).run_raw(st.data)
+    pipe = NarrowBandPipeline(tplan.make_plan(*args), rij, alpha=0.75, max_lts_candidates=5,
+                              device="cpu")
+    got = pipe.run_raw(st.data)
+    _check(pipe, got, want, delays, keys=OUTS)
+    tau_t, tau_j = _taus(delays, pipe)
+    same = (tau_t == tau_j).all(-1) & pipe.state_dict()["win_mask"].numpy()
+    assert same[1, 4]
+    np.testing.assert_array_equal(_np(got["flags"])[same], _np(want["flags"])[same])
+    g = pipe._geometry
+    consts = tuple(g[k] for k in ("X", "cand", "Ainv", "cand_ok"))
+    port = _TORCH_LTS_SOLVE(torch.as_tensor(tau_j.copy()), *consts, pipe.h, pipe.c_steps)
+    ref = jax.jit(lambda t, *a: _JAX_LTS_SOLVE(t, *a, pipe.h, pipe.c_steps))(
+        tau_j, *(c.numpy() for c in consts))
+    for k in ("objective", "s"):
+        np.testing.assert_array_equal(port[k].numpy().view(np.int32),
+                                      np.asarray(ref[k]).view(np.int32), err_msg=k)
+    X = g["X"].numpy().astype(np.float64)
+    crit = _trimmed(tau_j[1, 4], X, port["retained"].numpy()[1, 4], pipe.h)
+    assert abs(crit - 2.06056) < 1e-4, crit
 
 
 def test_state_round_trip_with_jax_constants(outlier_stream):

@@ -56,7 +56,10 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   whose delays are bit-identical (at least 99% of them), ground truth, the
   outlier most flagged, every sweep kernel launched; the capped-candidate
   stream (``max_lts_candidates=5``) card against CPU, ``lts_solve`` bit
-  for bit; the sweep's rank against its pairwise definition;
+  for bit; one-band ``ltsva`` (its JAX program fuses the delays into the
+  sweep) card against CPU, launching ``residuals2_lag``, which is held bit
+  for bit to its plain version at P = 15, 28 and 120 and timed;
+  the sweep's rank against its pairwise definition;
   four merged arrays ('fused') against single-array
   runs bit for bit; a 16-element array (7,140 candidates, chunked) against
   a smaller chunk bit for bit; the LTS step and the sweep's kernels with
@@ -100,7 +103,9 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   CPU on windows with equal integer lags, the truth); ``window_method=
   'patches'`` bit for bit 'gather'; float64 bit for bit float32; a
   bfloat16 ``ltsva`` against the CPU's; ``sosfilt`` (the port's own
-  kernel, ``filter_stream_scan``) against its plain version and scipy;
+  kernel, ``filter_stream_scan``, with the JAX package's scan
+  contractions) bit for bit its plain version with 2 and 4 sections, and
+  against scipy;
   the canonical OLS and LTS runs against the port's NumPy oracle; the
   neighbour route's times beside the integer route's, and peak memory;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
@@ -1130,16 +1135,19 @@ def phase_sharded(label):
 
 class LtsRecorder:
     """While installed (``with``), records the delays (B, Wmax, P) every LTS
-    solve of the port receives, as NumPy arrays.  It wraps
+    solve of the port receives, and the lags beside them where the pipeline
+    passes them (the one-band programs), as NumPy arrays.  It wraps
     ``ops.lts.lts_solve`` and launches nothing of its own."""
 
     def __enter__(self):
         from narrow_band_least_squares_tpu_torch.ops import lts as LTS
 
-        self.taus, self._mod, self._real = [], LTS, LTS.lts_solve
+        self.taus, self.lags, self._mod, self._real = [], [], LTS, LTS.lts_solve
 
         def rec(tau, *args, **kw):
             self.taus.append(tau.detach().cpu().numpy().copy())
+            lag = kw.get("lag")
+            self.lags.append(None if lag is None else lag.detach().cpu().numpy().copy())
             return self._real(tau, *args, **kw)
 
         LTS.lts_solve = rec
@@ -1166,6 +1174,7 @@ def zero_launches():
     XP.launches = XP.launches_tc = FX.launches = FX.launches_tc = 0
     XP.launches_nb = XP.launches_nb_tc = 0
     LS.launches_residuals2 = LS.launches_refit = LS.launches_elemental = 0
+    LS.launches_residuals2_lag = 0
 
 
 def lts_sweep_launches():
@@ -1173,7 +1182,8 @@ def lts_sweep_launches():
     from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
 
     return {"residuals2": LS.launches_residuals2, "refit": LS.launches_refit,
-            "elemental": LS.launches_elemental}
+            "elemental": LS.launches_elemental,
+            "residuals2_lag": LS.launches_residuals2_lag}
 
 
 def run_api_lts(st, freqlist, winlens, device, production):
@@ -1182,7 +1192,8 @@ def run_api_lts(st, freqlist, winlens, device, production):
     the first call, host set-up included, the LTS sweep's launches).  On
     the card the run must launch icorr_peak's tensor-core route once per
     bucket and nothing else of the lag search ('mxu' at 'high'), and every
-    kernel of csrc/lts_sweep.cu at least once."""
+    kernel of csrc/lts_sweep.cu at least once but residuals2_lag: the
+    8-band program fuses no delay into the sweep."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
 
@@ -1211,9 +1222,12 @@ def run_api_lts(st, freqlist, winlens, device, production):
             fail(f"the LTS API run on the card must launch only icorr_peak's "
                  f"tensor-core route, once per bucket ({CANONICAL_BUCKETS}); "
                  f"launches {counts}")
-        if min(sweep.values()) < 1:
+        if min(v for k, v in sweep.items() if k != "residuals2_lag") < 1:
             fail(f"the LTS API run on the card did not go through every lts_sweep "
                  f"kernel: {sweep}")
+        if sweep["residuals2_lag"]:
+            fail(f"the 8-band LTS API run took the one-band programs' contracted "
+                 f"delays: {sweep}")
     elif any(sweep.values()):
         fail(f"the LTS API run on the CPU launched lts_sweep kernels: {sweep}")
     return out, rec.taus[0], secs, sweep
@@ -1481,6 +1495,9 @@ LTS_SWEEP_REPLACES = {
              "narrow_band_least_squares_tpu/ops/solve.py:196 (masked_refit)",
     "elemental": "none: the port's own kernel for XLA's contracted einsum at "
                  "narrow_band_least_squares_tpu/ops/lts.py:132",
+    "residuals2_lag": "none: the port's own kernel for XLA's delays fused and "
+                      "contracted into narrow_band_least_squares_tpu/ops/lts.py:92 "
+                      "(and :224, :230) in the one-band programs",
 }
 # The capped-candidate stream on which the port and the JAX package once kept
 # different subsets (ROADMAP.md Queue 3, fixed): 4 log bands over 0.2-1.6 Hz,
@@ -1504,6 +1521,9 @@ def lts_sweep_work(name, rows, Q, P, itemsize=4):
         # half fused multiply-adds, half - 1 adds; then det, numerators, divisions
         tree = P + (P - half) + 2 * half + (half - 1)
         return float(n * (5 * tree + 12)), itemsize * (n * P + rows * P + 2 * P + 2 * n)
+    if name == "residuals2_lag":  # as residuals2, the delay's product in an fma
+        n = rows * Q * P
+        return 6.0 * n, itemsize * (rows * P + 2 * P + 2 * rows * Q + n)
     n = rows * Q                  # elemental: two mul + two fma a candidate
     return 6.0 * n, itemsize * (rows * P + 4 * Q + 2 * n) + 8 * 2 * Q
 
@@ -1661,6 +1681,127 @@ def lts_capped_case(label):
         f"{float(obj[1, 4]):.4f}, vel {float(cpu['vel'][1, 4]):.4f}")
 
 
+def lts_one_band(label, st):
+    """One-band ltsva, the vendored entry point, whose JAX program fuses the
+    delays into the sweep (ops/lts.py::delay_contracted): the canonical
+    stream with its incoherent element band-passed to FMIN-FMAX, card
+    against CPU.  The run is driven with the counts at 0 and must launch
+    residuals2_lag; the stdicts are equal on every window whose delays are
+    bit-identical (at least LTS_SAME_MIN of them) and lts_solve on the CPU's
+    delays and lags is on the card the CPU's bit for bit.  residuals2_lag
+    is held bit for bit against its plain version on the card at P = 15, 28
+    (this run's shapes) and 120, and timed; the one-band solve is timed with
+    the lags and without them (CUDA events).  Returns the kernels-line
+    record of lts_sweep.residuals2_lag."""
+    import torch
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+    from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
+
+    stf, _, _ = api.filter_data(st, "cheby1", FMIN, FMAX, 2, 0.01, device="cpu")
+    args = (stf.latitudes, stf.longitudes, WINLEN, WINOVER, LTS_ALPHA)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        with LtsRecorder() as rec:
+            zero_launches()
+            out = api.ltsva(stf, *args, device=dev)
+            if dev == "cuda":
+                torch.cuda.synchronize()
+            launches = lts_sweep_launches()
+        if len(rec.taus) != 1 or rec.lags[0] is None:
+            fail(f"one-band ltsva on {dev}: {len(rec.taus)} solves, lags passed: "
+                 f"{[lag is not None for lag in rec.lags]}")
+        runs[dev] = (out, rec.taus[0], rec.lags[0], launches)
+    (gpu, tau_g, lag_g, sweep), (cpu, tau_c, lag_c, sweep_c) = runs["cuda"], runs["cpu"]
+    if min(sweep.values()) < 1 or any(sweep_c.values()):
+        fail(f"one-band ltsva: lts_sweep launches {sweep} on the card, {sweep_c} on "
+             f"the CPU (every kernel on the card, none on the CPU)")
+    n = len(gpu[0])
+    keys_g = [k for k in gpu[4] if k != "size"]
+    keys_c = [k for k in cpu[4] if k != "size"]
+    if keys_g != keys_c or len(keys_g) != n:
+        fail("one-band ltsva: the card's stdict keys differ from the CPU's")
+    same = (tau_g == tau_c).all(-1)[0, :n]
+    if same.sum() < LTS_SAME_MIN * n:
+        fail(f"one-band ltsva: delays differ card against CPU on {int(n - same.sum())} "
+             f"of {n} windows")
+    differ = [w for w in np.flatnonzero(same)
+              if not np.array_equal(np.asarray(gpu[4][keys_g[w]]),
+                                    np.asarray(cpu[4][keys_c[w]]))]
+    if differ:
+        fail(f"one-band ltsva: the card's stdict differs from the CPU's on windows "
+             f"with bit-identical delays {differ}")
+    rij = get_rij(stf.latitudes, stf.longitudes, stf.nchans)
+    plan = make_plan([0.0, stf.fs / 2], "linear", [WINLEN], WINOVER, stf.npts, stf.fs)
+    pipe = api._get_pipeline(plan, rij, alpha=LTS_ALPHA, apply_filter=False, device="cuda")
+    cpipe = api._get_pipeline(plan, rij, alpha=LTS_ALPHA, apply_filter=False, device="cpu")
+    P, Q = tau_g.shape[-1], pipe._geometry["cand"].shape[0]
+    sites = pipe._delay_sites
+    if sites != LTS.delay_contracted(P, "exhaustive"):
+        fail(f"one-band ltsva: the pipeline's delay sites {sorted(sites)}")
+
+    def solve(geo, dev):
+        return LTS.lts_solve(torch.as_tensor(tau_c).to(dev), *(geo[k] for k in (
+            "X", "cand", "Ainv", "cand_ok")), pipe.h, pipe.c_steps,
+            lag=torch.as_tensor(lag_c).to(dev), inv_fs=1.0 / stf.fs, delay_sites=sites)
+
+    on_card, on_cpu = solve(pipe._geometry, "cuda"), solve(cpipe._geometry, "cpu")
+    for k in ("objective", "s", "retained"):
+        if not torch.equal(on_card[k].cpu(), on_cpu[k]):
+            fail(f"one-band ltsva: lts_solve's {k} on the card differs from the CPU's")
+
+    def same_bits(tag, lag, X, s_):
+        got = LS.residuals2_lag(lag, 1.0 / stf.fs, X, s_)
+        want = LS.residuals2_lag_reference(lag, float(np.float32(1.0 / stf.fs)), X, s_)
+        if not torch.equal(got, want):
+            fail(f"lts_sweep residuals2_lag {tag}: {int((got != want).sum())} of "
+                 f"{got.numel()} values differ from the plain version")
+
+    g = pipe._geometry
+    tau, _, md = pipe._delays(pipe._filter(pipe._to_device(stf.data)))
+    lag = torch.round(tau.double() * stf.fs).float()
+    s = LS.elemental(tau, g["cand"], g["Ainv"])
+    same_bits(f"P={P}", lag, g["X"], s)
+    rng = np.random.default_rng(SEED)
+    for nch in (6, 16):
+        theta = np.linspace(0, 2 * np.pi, nch, endpoint=False)
+        Xn = torch.as_tensor(coarray(np.stack([np.cos(theta), np.sin(theta)]))[0],
+                             dtype=torch.float32, device="cuda")
+        Pn = Xn.shape[0]
+        lag_n = torch.as_tensor(rng.integers(-400, 400, (47, Pn)), dtype=torch.float32,
+                                device="cuda")
+        s_n = torch.as_tensor(rng.standard_normal((47, 1024, 2)) * 0.5,
+                              dtype=torch.float32, device="cuda")
+        same_bits(f"P={Pn}", lag_n, Xn, s_n)
+    rows = tau[..., 0].numel()
+    ms = device_ms(lambda: LS.residuals2_lag(lag, 1.0 / stf.fs, g["X"], s), reps=20)
+    pms = device_ms(lambda: LS.residuals2_lag_reference(
+        lag, float(np.float32(1.0 / stf.fs)), g["X"], s), reps=3)
+    flops, nbytes = lts_sweep_work("residuals2_lag", rows, Q, P)
+    ops_ms, mem_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+    bound, by = max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
+    zero_launches()
+    with_lag = cuda_time_ms(lambda: pipe._solve_masked(tau, md), reps=20)
+    per_solve = {k: v // 22 for k, v in lts_sweep_launches().items()}
+    without = cuda_time_ms(lambda: pipe._solve_masked(tau, md, fused=False), reps=20)
+    log(f"[{label}] one-band ltsva ({n} windows of {WINLEN} s, P = {P}, {Q} candidates, "
+        f"delay sites {sorted(sites)}): lts_sweep launches {sweep} on the card; stdict "
+        f"card = CPU on the {int(same.sum())} of {n} windows with bit-identical delays; "
+        f"lts_solve on the CPU's delays and lags bit for bit the CPU's; residuals2_lag "
+        f"bit for bit its plain version at P = 15, {P}, 120; a launch at this run's "
+        f"shapes ({rows} x {Q} x {P}) {ms:.4f} ms, plain version on the card "
+        f"{pms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e6:.1f} MFLOP, "
+        f"{nbytes / 1e6:.2f} MB); the one-band solve {with_lag:.4f} ms with the lags "
+        f"({per_solve} launches a solve), {without:.4f} ms without (CUDA events, "
+        f"20 solves)")
+    return {"name": "lts_sweep.residuals2_lag", "route": "cuda", "per": "launch",
+            "source": LTS_SWEEP_SOURCE, "replaces": LTS_SWEEP_REPLACES["residuals2_lag"],
+            "launches": sweep["residuals2_lag"], "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": pms, "bound_ms": bound, "bound_by": by, "library_ms": None}
+
+
 def _eager_residuals2(tau, X, s):
     """The sweep's residuals as eager PyTorch operations, each rounded on its
     own (the port's code before csrc/lts_sweep.cu): the "before" of
@@ -1732,9 +1873,9 @@ def phase_lts(label):
     """Canonical LTS with one incoherent element through the API, card
     against CPU, exhaustive and with PRODUCTION_DEFAULTS; the lts_sweep
     kernels against their plain versions; the capped-candidate case card
-    against CPU; multi-array and large-array LTS; the LTS timings, the
-    sweep before and after its kernels.  Returns the kernels-line records
-    of lts_sweep."""
+    against CPU; one-band ltsva card against CPU (`lts_one_band`);
+    multi-array and large-array LTS; the LTS timings, the sweep before and
+    after its kernels.  Returns the kernels-line records of lts_sweep."""
     st, freqlist, winlens = canonical_inputs(outlier_channels=(LTS_OUTLIER,))
     recs = lts_kernel_check(label, st, freqlist, winlens)
     for production in (False, True):
@@ -1752,6 +1893,7 @@ def phase_lts(label):
             for r in recs:
                 r["launches"] = sweep[r["name"].split(".")[1]]
     lts_capped_case(label)
+    recs.append(lts_one_band(label, st))
     lts_rank_check(label, st, freqlist, winlens)
     lts_multiarray()
     lts_large_array()
@@ -2960,8 +3102,11 @@ BF16_VEL_RTOL = 2.0 ** -8
 BF16_BAZ_DEG = 1.0
 BF16_MDCCM_ATOL = 1e-5
 # The recurrence's loop-carried chain in csrc/sosfilt.cu, a sample and a
-# section: z1 -> ys = b0 y + z1 (add) -> a1 ys (multiply) -> b1 y - a1 ys
-# (subtract) -> + z2 (add) -> z1: four dependent float operations.
+# section: z1 -> ys = fma(b0, y, z1) -> a1 ys (multiply) -> fma(b1, y,
+# -(a1 ys)) -> + z2 (add) -> z1: four dependent float operations, as before
+# the kernel took the JAX package's contractions (an add, a multiply, a
+# subtract and an add): the fused multiply-adds take off the path only the
+# products with y, which never were on it.
 SOSFILT_CHAIN_OPS = 4
 # Cycles of one dependent FP32 add or multiply on an SM: the latency that
 # microbenchmark studies report for Volta through Hopper (an assumption of

@@ -8,12 +8,18 @@
 // multiply-add.  LTS flags hang on the last bits of the squared residuals,
 // so these kernels compute the same roundings: __fmaf_rn where XLA
 // contracts, __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn everywhere else
-// (nvcc never contracts those).  Three entry points:
+// (nvcc never contracts those).  Four entry points:
 //
 //   nbls_lts_residuals2  r2[row, p] = r * r,  r = tau[trow, p] -
 //                        fma(X[p,1], s[row,1], X[p,0] * s[row,0]),
 //                        trow = row / Q (the candidates of one window share
 //                        its delays); one thread an output;
+//   nbls_lts_residuals2_lag  the same with r = fma(lag[trow, p], inv_fs,
+//                        -fma(X[p,1], s[row,1], X[p,0] * s[row,0])): the
+//                        delay lag * inv_fs unrounded, where the JAX
+//                        package's one-band programs fuse the delays'
+//                        product into the residual
+//                        (ops/lts.py::delay_contracted); float32 only;
 //   nbls_lts_refit       the masked 2x2 normal-equation solve of the 0/1
 //                        weights w (rows, P): five halving trees over the
 //                        next power of two, zero-padded (m00 = w X0 . X0,
@@ -113,6 +119,20 @@ residuals2_kernel(const T* __restrict__ tau, const T* __restrict__ X,
                             O::mul(N::ld(X[2 * p]), N::ld(s[2 * row])));
     const float r = O::sub(N::ld(tau[(row / Q) * P + p]), xs);
     out[i] = N::st(O::mul(r, r));
+  }
+}
+
+__global__ void __launch_bounds__(THREADS)
+residuals2_lag_kernel(const float* __restrict__ lag, float inv_fs,
+                      const float* __restrict__ X, const float* __restrict__ s,
+                      float* __restrict__ out, long long n, int Q, int P) {
+  for (long long i = blockIdx.x * (long long)blockDim.x + threadIdx.x; i < n;
+       i += (long long)gridDim.x * blockDim.x) {
+    const int p = (int)(i % P);
+    const long long row = i / P;
+    const float xs = __fmaf_rn(X[2 * p + 1], s[2 * row + 1], __fmul_rn(X[2 * p], s[2 * row]));
+    const float r = __fmaf_rn(lag[(row / Q) * P + p], inv_fs, -xs);
+    out[i] = __fmul_rn(r, r);
   }
 }
 
@@ -275,6 +295,18 @@ int nbls_lts_residuals2(int dtype, const void* tau, const void* X, const void* s
     case 2: return residuals2<__half>(tau, X, s, out, rows_tau, Q, P, stream);
   }
   return (int)cudaErrorInvalidValue;
+}
+
+// r2 (rows_tau, Q, P) as nbls_lts_residuals2 for the delays lag (rows_tau,
+// P) * inv_fs, the product contracted into each residual; float32.
+int nbls_lts_residuals2_lag(const float* lag, float inv_fs, const float* X, const float* s,
+                            float* out, long long rows_tau, int Q, int P,
+                            cudaStream_t stream) {
+  if (rows_tau <= 0 || Q <= 0 || P <= 0) return (int)cudaErrorInvalidValue;
+  const long long n = rows_tau * Q * P;
+  residuals2_lag_kernel<<<grid_for(n), THREADS, 0, stream>>>(lag, inv_fs, X, s, out, n, Q,
+                                                             P);
+  return (int)cudaGetLastError();
 }
 
 // s (rows, 2) of the weights w (rows, P); row r takes tau row r / q of tau

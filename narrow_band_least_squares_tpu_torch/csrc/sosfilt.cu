@@ -9,20 +9,25 @@
 // (10^5 and more a row of 24,000 samples), so the loop runs here instead.
 //
 // For every row r of x (N, T) and sample t, sections s = 0 .. S-1 in turn,
-// transposed direct-form II, in the JAX package's order of operations:
-//     ys       = b0 * y + z1[s]
-//     z1[s]    = (b1 * y - a1 * ys) + z2[s]
-//     z2[s]    = b2 * y - a2 * ys
+// transposed direct-form II, in the JAX package's order of operations and
+// with the roundings of its compiled lax.scan:
+//     ys       = fma(b0, y, z1[s])
+//     z1[s]    = fma(b1, y, -(a1 * ys)) + z2[s]
+//     z2[s]    = fma(b2, y, -(a2 * ys))
 //     y        = ys
-// with every multiply and add rounded on its own (__fmul_rn, __fadd_rn,
-// __fsub_rn: no fused multiply-add), so the result equals the plain
-// PyTorch loop on the CPU bit for bit.  sos rows are (b0, b1, b2, a0, a1,
-// a2) with a0 = 1.
+// XLA's CPU backend contracts each statement's first product (the one with
+// the section's input y) into the add or subtract that takes it; a1 * ys
+// and a2 * ys are rounded (scripts/xla_contractions.py --sosfilt reads
+// this from the optimized IR for 1, 2 and 4 sections and the zero-phase
+// pair).  __fmaf_rn there, __fmul_rn / __fadd_rn elsewhere (nvcc never
+// contracts those), so the result equals the plain PyTorch loop on the CPU
+// bit for bit.  sos rows are (b0, b1, b2, a0, a1, a2) with a0 = 1.
 //
 // What bounds it: latency.  The recurrence is sequential in t, so a row is
-// a chain of T * S dependent steps of a few floating-point operations each
-// (~4 cycles apiece); the bytes (x read once, y written once) and the
-// operations are tiny for the card.  Rows run in parallel threads.  The
+// a chain of T * S dependent steps; the chain through a section is
+// z1 -> ys (one fma) -> a1 * ys (a multiply) -> z1' (an fma and an add):
+// four dependent operations of ~4 cycles each.  The bytes (x read once, y
+// written once) and the operations are tiny for the card.  Rows run in parallel threads.  The
 // section count is a template parameter (one kernel per count up to
 // MAX_SECTIONS), so the coefficients and the state of every section sit in
 // registers and no instruction is spent on sections that do not exist;
@@ -42,17 +47,16 @@ constexpr int MAX_SECTIONS = 16;
 constexpr int THREADS = 128;
 constexpr int CHUNK = 16;  // samples a thread loads ahead
 
-// One sample through the cascade: the JAX package's order of operations,
-// every multiply and add rounded on its own.
+// One sample through the cascade: the JAX package's order of operations
+// and contractions.
 template <int S>
 __device__ __forceinline__ float cascade(float v, const float (&c)[S][6],
                                          float (&z1)[S], float (&z2)[S]) {
 #pragma unroll
   for (int s = 0; s < S; ++s) {
-    const float ys = __fadd_rn(__fmul_rn(c[s][0], v), z1[s]);
-    z1[s] = __fadd_rn(__fsub_rn(__fmul_rn(c[s][1], v), __fmul_rn(c[s][4], ys)),
-                      z2[s]);
-    z2[s] = __fsub_rn(__fmul_rn(c[s][2], v), __fmul_rn(c[s][5], ys));
+    const float ys = __fmaf_rn(c[s][0], v, z1[s]);
+    z1[s] = __fadd_rn(__fmaf_rn(c[s][1], v, -__fmul_rn(c[s][4], ys)), z2[s]);
+    z2[s] = __fmaf_rn(c[s][2], v, -__fmul_rn(c[s][5], ys));
     v = ys;
   }
   return v;

@@ -119,7 +119,9 @@ class MultiArrayPipeline:
         ca = self.merge_chunk_arrays
         outs = [base._delays_batched(y[i:i + ca]) for i in range(0, A_loc, ca)]
         tau, _, mdccm = (torch.cat(v) for v in zip(*outs))
-        res = [base._solve_masked(tau[a], mdccm[a], self._geometry[a])
+        # the JAX program fuses the delays into the sweep only from one merge
+        # chunk: it concatenates several chunks' delays first
+        res = [base._solve_masked(tau[a], mdccm[a], self._geometry[a], fused=len(outs) == 1)
                for a in range(A_loc)]
         out = {k: torch.stack([r[k] for r in res]) for k in res[0]}
         if self.mesh is None or self.mesh.nt == 1:

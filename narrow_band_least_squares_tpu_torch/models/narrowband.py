@@ -182,7 +182,11 @@ class NarrowBandPipeline:
     - ``alpha < 1`` runs exact-enumeration LTS on the same device, with
       ``c_steps``, ``max_lts_candidates``, ``lts_candidate_chunk`` (set to
       4096 when there are more candidates) and ``lts_funnel_k`` (``'auto'``:
-      ``max(16, ceil(Q/24))`` for Q candidates) as in the JAX package;
+      ``max(16, ceil(Q/24))`` for Q candidates) as in the JAX package; at
+      one band (float32, four C-steps, integer lags) the sweep takes the
+      lags of the delays where the JAX package's one-band program contracts
+      the delays' product into a residual (`_delay_sites`,
+      `ops.lts.delay_contracted`);
     - ``subsample_delays=True`` with 'mxu' refines every integer-lag peak
       with the three-point parabola through its two neighbouring
       correlations, which the lag-search kernel returns beside the peak
@@ -309,6 +313,15 @@ class NarrowBandPipeline:
                 self.lts_candidate_chunk = 4096
         elif self.lts_funnel_k == "auto":
             self.lts_funnel_k = 0      # OLS: no LTS sweep to funnel
+        # the sweep's sites whose residuals the JAX package's program takes
+        # from the unrounded delays: its one-band programs fuse the delays'
+        # product into the sweep (ops.lts, module docstring); read for four
+        # C-steps in float32, without sub-sample delays
+        self._delay_sites = frozenset()
+        if (self.alpha < 1.0 and plan.nbands == 1 and dtype == torch.float32
+                and self.c_steps == 4 and not self.subsample_delays):
+            self._delay_sites = LTS.delay_contracted(X.shape[0], LTS.lts_schedule(
+                Q, self.lts_candidate_chunk, self.lts_funnel_k, self.c_steps))
 
         # ---- filter bank ----
         self.zerophase = filter_type == "butter"
@@ -654,17 +667,26 @@ class NarrowBandPipeline:
                      cand_ok=s["cand_ok"])
         return g
 
-    def _solve_masked(self, tau, mdccm, geometry=None, win_mask=None):
+    def _solve_masked(self, tau, mdccm, geometry=None, win_mask=None, fused=True):
         """Slowness solve + window-validity masking; ``geometry`` is an
         array's `_solve_constants` and ``win_mask`` (B, Wmax) its valid
-        windows, the pipeline's own by default.  With LTS the result also
-        holds ``flags`` (B, Wmax, P): the dropped pairs of valid windows."""
+        windows, the pipeline's own by default.  ``fused``: tau comes
+        straight from the delay stage, so the JAX program fuses its product
+        into the sweep at `_delay_sites` (False: the merged multi-array
+        program's delays of several merge chunks, concatenated first).
+        With LTS the result also holds ``flags`` (B, Wmax, P): the dropped
+        pairs of valid windows."""
         g = geometry or self._geometry
         if self.alpha < 1.0:
+            sites, lag = self._delay_sites if fused else frozenset(), None
+            if sites:
+                # integer lags: tau = lag * (1/fs) rounded, so this is exact
+                lag = torch.round(tau.double() * self.plan.fs).to(tau.dtype)
             out = LTS.lts_solve(
                 tau, g["X"], g["cand"], g["Ainv"], g["cand_ok"], self.h,
                 self.c_steps, candidate_chunk=self.lts_candidate_chunk,
-                funnel_k=self.lts_funnel_k,
+                funnel_k=self.lts_funnel_k, lag=lag, inv_fs=1.0 / self.plan.fs,
+                delay_sites=sites,
             )
         else:
             out = SOLVE.ols_solve(tau, g["X"], g["pinv"], g["XtX_inv"])

@@ -9,7 +9,13 @@ two-pass of ObsPy's ``zerophase=True``.  The FFTs are ``torch.fft`` calls.
 
 `sosfilt_scan` / `filter_stream_scan` are the exact time-domain recurrence
 that the JAX package keeps as the cross-check of `filter_bank_fft`; on the
-card they run the port's own kernel (`ops.kernels.sosfilt`).
+card they run the port's own kernel (`ops.kernels.sosfilt`).  They compute
+the float32 bits of the JAX package's compiled ``lax.scan``, whose body XLA
+contracts: per section ``ys = fma(b0, y, z1)``, ``z1 = fma(b1, y, -(a1
+ys)) + z2``, ``z2 = fma(b2, y, -(a2 ys))``, the products with the
+section's input y unrounded and those with ys rounded (read from the
+optimized IR for 1, 2 and 4 sections and the zero-phase pair,
+``scripts/xla_contractions.py --sosfilt``).
 """
 
 from __future__ import annotations

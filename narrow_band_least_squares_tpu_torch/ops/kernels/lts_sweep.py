@@ -6,10 +6,14 @@ package's sweep (``narrow_band_least_squares_tpu/ops/lts.py``) is plain
 XLA, and XLA's CPU backend contracts a multiply whose product feeds an add
 inside one fusion into a fused multiply-add (one rounding).  The flags
 hang on the last bits of the squared residuals, so the port computes the
-same roundings, in three entry points:
+same roundings, in four entry points:
 
 - `residuals2` (``_residuals2`` and the final subset): ``r = tau -
   fma(X[p,1], s1, X[p,0] * s0)``, ``r2 = r * r``;
+- `residuals2_lag` (the sites where the one-band programs fuse the delays'
+  product into the residual, `ops.lts.delay_contracted`; float32 only):
+  ``r = fma(lag, inv_fs, -fma(X[p,1], s1, X[p,0] * s0))``, the delay ``lag
+  * inv_fs`` unrounded, ``r2 = r * r``;
 - `refit` (``masked_refit``): five halving trees over the next power of
   two, zero-padded (``u = w X0, v = X0`` for m00; ``w X0, X1`` for m01;
   ``w X1, X1`` for m11; ``w tau, X0`` and ``w tau, X1`` for b0 and b1),
@@ -29,7 +33,8 @@ narrow dtypes round where XLA's fusions end, which the port matches only
 within their rounding, ``tests/test_torch_dtypes.py``).
 
 A CUDA tensor goes to the kernel of its entry point, which counts a launch
-in ``launches_residuals2``, ``launches_refit`` or ``launches_elemental``; a
+in ``launches_residuals2``, ``launches_residuals2_lag``, ``launches_refit``
+or ``launches_elemental``; a
 CPU tensor goes to its plain version (``*_reference``), which the kernels
 equal bit for bit.  The plain versions build on `fma`, an exact float32
 fused multiply-add: the float32 product is exact in float64, and the
@@ -47,6 +52,7 @@ import torch.nn.functional as Fnn
 
 # Launches of each kernel since its count was last set to 0.
 launches_residuals2 = 0
+launches_residuals2_lag = 0
 launches_refit = 0
 launches_elemental = 0
 
@@ -70,9 +76,11 @@ def _lib():
         lib = load_library("lts_sweep")
         p, i, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
         lib.nbls_lts_residuals2.argtypes = [i, p, p, p, p, ll, i, i, p]
+        lib.nbls_lts_residuals2_lag.argtypes = [p, ctypes.c_float, p, p, p, ll, i, i, p]
         lib.nbls_lts_refit.argtypes = [i, p, p, p, p, ll, i, i, ctypes.c_float, i, p]
         lib.nbls_lts_elemental.argtypes = [i, p, p, p, p, ll, i, i, p]
-        for fn in (lib.nbls_lts_residuals2, lib.nbls_lts_refit, lib.nbls_lts_elemental):
+        for fn in (lib.nbls_lts_residuals2, lib.nbls_lts_residuals2_lag, lib.nbls_lts_refit,
+                   lib.nbls_lts_elemental):
             fn.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -104,6 +112,17 @@ def residuals2_reference(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) ->
     """Squared residuals (..., Q, P) of the fits s (..., Q, 2) to tau (..., P)."""
     xs = fma(X[:, 1], s[..., 1, None], X[:, 0] * s[..., 0, None])
     r = tau[..., None, :] - xs
+    return r * r
+
+
+def residuals2_lag_reference(lag: torch.Tensor, inv_fs: float, X: torch.Tensor,
+                             s: torch.Tensor) -> torch.Tensor:
+    """Squared residuals (..., Q, P) of the fits s (..., Q, 2) to the delays
+    ``lag * inv_fs`` (lag (..., P), float32), each ``fma(lag, inv_fs,
+    -xs)``: the delay's product unrounded."""
+    xs = fma(X[:, 1], s[..., 1, None], X[:, 0] * s[..., 0, None])
+    inv = torch.tensor(inv_fs, dtype=torch.float32, device=lag.device)
+    r = fma(lag[..., None, :], inv, -xs)
     return r * r
 
 
@@ -195,6 +214,36 @@ def residuals2(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Ten
             code, tau_c.data_ptr(), X_c.data_ptr(), s_c.data_ptr(), out.data_ptr(),
             tau_c.numel() // P, Q, P, torch.cuda.current_stream(tau.device).cuda_stream))
     launches_residuals2 += 1
+    return out
+
+
+def residuals2_lag(lag: torch.Tensor, inv_fs: float, X: torch.Tensor,
+                   s: torch.Tensor) -> torch.Tensor:
+    """Squared residuals (..., Q, P) of the fits s (..., Q, 2) to the delays
+    ``lag * inv_fs`` (lag (..., P), inv_fs rounded to float32), the delay's
+    product contracted into the residual: on the card the kernel, on the
+    CPU `residuals2_lag_reference`."""
+    global launches_residuals2_lag
+    inv_fs = float(torch.tensor(inv_fs, dtype=torch.float32))
+    if lag.dtype != torch.float32:
+        raise TypeError(f"lts_residuals2_lag takes float32 (only float32 programs "
+                        f"contract); got {lag.dtype}")
+    if lag.device.type == "cpu":
+        return residuals2_lag_reference(lag, inv_fs, X, s)
+    _check_cuda("lts_residuals2_lag", lag, X, s)
+    P, Q = lag.shape[-1], s.shape[-2]
+    if s.shape[:-2] != lag.shape[:-1] or s.shape[-1] != 2 or X.shape != (P, 2):
+        raise ValueError(f"lts_residuals2_lag needs lag (..., P), X (P, 2), s (..., Q, 2); "
+                         f"got {tuple(lag.shape)}, {tuple(X.shape)}, {tuple(s.shape)}")
+    lag_c, X_c, s_c = lag.contiguous(), X.contiguous(), s.contiguous()
+    out = torch.empty(s.shape[:-1] + (P,), dtype=lag.dtype, device=lag.device)
+    if out.numel() == 0:
+        return out
+    with torch.cuda.device(lag.device):
+        _launched("lts_residuals2_lag", _lib().nbls_lts_residuals2_lag(
+            lag_c.data_ptr(), inv_fs, X_c.data_ptr(), s_c.data_ptr(), out.data_ptr(),
+            lag_c.numel() // P, Q, P, torch.cuda.current_stream(lag.device).cuda_stream))
+    launches_residuals2_lag += 1
     return out
 
 

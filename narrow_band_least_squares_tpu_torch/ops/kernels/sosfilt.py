@@ -5,14 +5,25 @@ package runs this recurrence with ``lax.scan``
 (``narrow_band_least_squares_tpu/ops/filters.py::sosfilt_scan``) as the
 cross-check of its frequency-domain filter bank.  For every row of x and
 every sample, the second-order sections are cascaded in turn (transposed
-direct-form II), each multiply and add rounded on its own, in the JAX
-package's order of operations:
+direct-form II), in the JAX package's order of operations and with the
+roundings of its compiled scan:
 
-    ys = b0 * y + z1;  z1 = (b1 * y - a1 * ys) + z2;  z2 = b2 * y - a2 * ys
+    ys = fma(b0, y, z1)
+    z1 = fma(b1, y, -(a1 * ys)) + z2
+    z2 = fma(b2, y, -(a2 * ys))
+
+XLA's CPU backend contracts each statement's first product, the one with
+the section's input y, into the add or subtract that takes it (one
+rounding); ``a1 * ys`` and ``a2 * ys`` are rounded (read from the
+optimized IR of ``lax.scan`` for 1, 2 and 4 sections and the zero-phase
+pair, ``scripts/xla_contractions.py --sosfilt``).  In float64, which the
+JAX package never scans (it runs float32), every multiply and add is
+rounded on its own, as scipy's ``sosfilt`` does.
 
 A CUDA tensor goes to the kernel (float32, one thread per row) and counts
 a launch in ``launches``; a CPU tensor goes to ``sosfilt_reference``, a
-loop over the samples that the kernel equals bit for bit.
+loop over the samples on the exact float32 fused multiply-add of
+`ops.kernels.lts_sweep.fma`, which the kernel equals bit for bit.
 """
 
 from __future__ import annotations
@@ -20,6 +31,8 @@ from __future__ import annotations
 import ctypes
 
 import torch
+
+from narrow_band_least_squares_tpu_torch.ops.kernels.lts_sweep import fma
 
 # Launches of the kernel since the count was last set to 0.
 launches = 0
@@ -44,7 +57,9 @@ def _lib():
 
 def sosfilt_reference(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     """Plain version: the recurrence as a loop over samples, the rows of
-    ``x`` (..., T) at once; ``sos`` (S, 6) cast to x's dtype."""
+    ``x`` (..., T) at once; ``sos`` (S, 6) cast to x's dtype.  float32
+    contracts the products with y (the module docstring), any other dtype
+    rounds every operation."""
     sos = sos.to(dtype=x.dtype, device=x.device)
     T = x.shape[-1]
     xf = x.reshape(-1, T)
@@ -53,12 +68,18 @@ def sosfilt_reference(sos: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     z1 = [torch.zeros(N, dtype=x.dtype, device=x.device) for _ in range(S)]
     z2 = [torch.zeros(N, dtype=x.dtype, device=x.device) for _ in range(S)]
     out = torch.empty_like(xf)
+    contract = x.dtype == torch.float32
     for t in range(T):
         y = xf[:, t]
         for s in range(S):
-            ys = b0[s] * y + z1[s]
-            z1[s] = (b1[s] * y - a1[s] * ys) + z2[s]
-            z2[s] = b2[s] * y - a2[s] * ys
+            if contract:
+                ys = fma(b0[s], y, z1[s])
+                z1[s] = fma(b1[s], y, -(a1[s] * ys)) + z2[s]
+                z2[s] = fma(b2[s], y, -(a2[s] * ys))
+            else:
+                ys = b0[s] * y + z1[s]
+                z1[s] = (b1[s] * y - a1[s] * ys) + z2[s]
+                z2[s] = b2[s] * y - a2[s] * ys
             y = ys
         out[:, t] = y
     return out.reshape(x.shape)

@@ -39,11 +39,36 @@ fused multiply-add on the CPU; compared sums are fixed trees
 (`ops.solve.tree_sum_last`), ranks are comparison counts and ties resolve
 by index.  The model holds in ``lts_solve`` jitted alone and in the
 pipeline's step, the chunked ``lax.map`` sweep, the funnel, the merged
-multi-array program and the sharded step.  In the one-band programs of
-``ltsva``, ``narrow_band_loop`` and the broadband pipeline XLA also fuses
-the delays' ``lag * (1/fs)`` into the residual and contracts it there; the
-port holds to the jitted ``lts_solve``, which takes the rounded delays
-(ROADMAP.md Queue 3 counts the windows this moves).
+multi-array program and the sharded step.
+
+The one-band programs (``ltsva``, ``narrow_band_loop``, the broadband
+pipeline, a one-band pipeline, merged multi-array program or sharded step)
+also fuse the delays' product ``lag * (1/fs)`` into the sweep's fusions
+that follow the candidate loop, and where the product and the residual's
+subtraction share a basic block XLA contracts them: the residual is
+``fma(lag, 1/fs, -xs)``, from the unrounded delay.  Which residuals do is
+a property of the program's loops, so it is a table (`delay_contracted`),
+read from the optimized IR of those programs for 3 to 16 elements and 20
+on streams of 15 windows, and for 4 to 11 elements on streams of 27 and
+39 windows compiled for 3 and 8 CPUs, where it is the same
+(``scripts/xla_contractions.py --ltsva [--duration S] [--threads N]``,
+which checks the table against the installed jaxlib).  Its sites:
+
+- ``objective``: the trimmed objective of the candidates after their
+  C-steps (with the funnel: after the lone first step), as the rank keys
+  ``i`` (the key ranked: ``x_j < x_i`` counts against i) and ``j`` (the
+  keys it is counted against, the diagonal included) and the halves ``lo``
+  and ``hi`` of the objective tree's first level ``v[k] + v[k + half]``;
+- ``single``: the rank keys of the funnel's lone first C-step;
+- ``survivors``: the funnel's objective over its survivors;
+- ``final``: the ranks of the retained subset;
+- ``sigma2``: the retained subset's residuals in ``sigma_tau``.
+
+The C-steps inside a ``fori_loop`` and every site of a chunked sweep
+(inside ``lax.map``) take the rounded delays: there the delays enter as a
+loop operand.  A pipeline passes the lags only where the JAX program fuses
+them (`NarrowBandPipeline`'s one-band rule), recovered from its integer-lag
+delays; ``lts_solve`` without them is the jitted solve's model.
 """
 
 from __future__ import annotations
@@ -83,6 +108,47 @@ UNCONTRACTED = {
     120: {"loop": ("m01",)},
     190: {"loop": ("m00", "m11", "b0", "b1")},
 }
+
+
+# The roles of the one-band programs' objective whose residuals take the
+# unrounded delay, by P: the rank keys "i" and "j" and the tree halves "lo"
+# and "hi" (`delay_contracted` gives every site).  Read with jaxlib 0.9.0
+# for 3 to 14 elements and, with the candidates capped at 2048 (more than
+# 4096 are chunked), 16; any other P takes the entry of the largest P
+# below it, which the readings at 15 and 20 elements (capped) confirm.
+DELAY_OBJECTIVE = {
+    3: "i", 6: "i", 10: "i", 15: "i",
+    21: "i lo hi", 28: "i lo hi",
+    36: "i j lo", 45: "i j lo", 55: "i j lo",
+    66: "i j lo hi", 78: "i j lo hi", 91: "i j lo hi", 120: "i j lo hi",
+}
+
+
+def lts_schedule(Q: int, candidate_chunk: int, funnel_k: int, c_steps: int) -> str:
+    """"chunk" (candidate blocks in a loop, funnel or not), "funnel" or
+    "exhaustive": how the JAX package sweeps Q candidates with these
+    options."""
+    if candidate_chunk and candidate_chunk < Q:
+        return "chunk"
+    return "funnel" if funnel_k and funnel_k < Q and c_steps > 1 else "exhaustive"
+
+
+def delay_contracted(P: int, schedule: str) -> frozenset:
+    """The sites (``"site.role"``, the module docstring's names) whose
+    residuals the JAX package's one-band program at P and ``schedule``
+    computes from the unrounded delay, with four C-steps: the retained
+    subset's ranks and ``sigma2`` always; unchunked, the objective's roles
+    of `DELAY_OBJECTIVE`, and with the funnel the same for its survivors
+    and the rank keys among them for its lone first C-step."""
+    out = {"final.i", "final.j", "sigma2"}
+    if schedule == "chunk":
+        return frozenset(out)
+    roles = DELAY_OBJECTIVE[max(k for k in DELAY_OBJECTIVE if k <= max(P, 3))].split()
+    out |= {f"objective.{r}" for r in roles}
+    if schedule == "funnel":
+        out |= {f"survivors.{r}" for r in roles}
+        out |= {f"single.{r}" for r in roles if r in ("i", "j")}
+    return frozenset(out)
 
 
 def refit_contractions(P: int, site: str) -> int:
@@ -145,7 +211,7 @@ def _rank_keys(x: torch.Tensor) -> torch.Tensor:
     return b.to(torch.int64) * P + torch.arange(P, device=x.device)
 
 
-def _rank_along_last(x: torch.Tensor) -> torch.Tensor:
+def _rank_along_last(x: torch.Tensor, against: torch.Tensor = None) -> torch.Tensor:
     """Stable rank of each element along the last axis (0 = smallest).
 
     Pairwise comparison counts: NaNs rank last (as +inf), exact ties break
@@ -156,15 +222,20 @@ def _rank_along_last(x: torch.Tensor) -> torch.Tensor:
     fit `RANK_CHUNK_BYTES`.  Rows are independent and counts are integers,
     so the chunking changes no result.  Counts are uint8 where P <= 255: no
     wider copy of the booleans is made to sum them.
+
+    ``against`` (x's shape) holds the values x_j is read from where they
+    differ from the ranked x_i (the one-band programs' objective, module
+    docstring): then element i counts itself when against_i < x_i.
     """
     P = x.shape[-1]
     k = _rank_keys(x).reshape(-1, P)
+    kj = k if against is None or against is x else _rank_keys(against).reshape(-1, P)
     cdt = torch.uint8 if P <= 255 else torch.int32
     step = max(1, RANK_CHUNK_BYTES // (P * P))
     out = torch.empty(k.shape, dtype=cdt, device=x.device)
     for r0 in range(0, k.shape[0], step):
         kc = k[r0:r0 + step]
-        lt = kc[:, :, None] < kc[:, None, :]          # [r, j, i]: key_j < key_i
+        lt = kj[r0:r0 + step, :, None] < kc[:, None, :]   # [r, j, i]: key_j < key_i
         out[r0:r0 + step] = (lt.view(torch.uint8) if cdt == torch.uint8 else lt).sum(
             1, dtype=cdt)
     return out.reshape(x.shape)
@@ -175,27 +246,52 @@ def _residuals2(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Te
     return LS.residuals2(tau, X, s)
 
 
-def _residuals2_one(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
-    """Squared residuals (..., P) of one fit s (..., 2) a row."""
-    return LS.residuals2(tau, X, s[..., None, :])[..., 0, :]
+class _Delay:
+    """The lags (..., P) that the delays are ``lag * inv_fs`` of and the
+    sites (`delay_contracted`) whose residuals take them unrounded."""
+
+    def __init__(self, lag: torch.Tensor, inv_fs: float, sites):
+        self.lag, self.inv_fs, self.sites = lag, float(inv_fs), frozenset(sites)
+
+    def residuals2(self, keys, tau, X, s):
+        """The squared residuals (..., Q, P) of the fits s (..., Q, 2), one
+        a key (``"site.role"`` or ``"sigma2"``): from the lags where the key
+        is a site, else from the rounded delays; each computed once."""
+        un = (LS.residuals2_lag(self.lag, self.inv_fs, X, s)
+              if any(k in self.sites for k in keys) else None)
+        rounded = _residuals2(tau, X, s) if any(k not in self.sites for k in keys) else None
+        return tuple(un if k in self.sites else rounded for k in keys)
 
 
-def _c_steps(tau, X, s, h, n_steps):
-    """``n_steps`` concentration steps on a candidate block s (..., Q, 2)."""
+def _site_residuals2(tau, X, s, delay, site, roles=("i", "j", "lo", "hi")):
+    """The squared residuals of ``site`` for each of ``roles`` (an empty
+    role: the site itself), `_Delay.residuals2`; all rounded without
+    ``delay``."""
+    if delay is None:
+        return (_residuals2(tau, X, s),) * len(roles)
+    return delay.residuals2([f"{site}.{r}" if r else site for r in roles], tau, X, s)
+
+
+def _c_steps(tau, X, s, h, n_steps, delay=None, site=None):
+    """``n_steps`` concentration steps on a candidate block s (..., Q, 2);
+    ``site`` names a lone step's rank keys for ``delay``."""
     contract = refit_contractions(tau.shape[-1], "single" if n_steps == 1 else "loop")
     for _ in range(n_steps):
-        r2 = _residuals2(tau, X, s)
-        weight = (_rank_along_last(r2) < h).to(tau.dtype)
+        r2i, r2j = _site_residuals2(tau, X, s, delay if site else None, site, ("i", "j"))
+        weight = (_rank_along_last(r2i, r2j) < h).to(tau.dtype)
         s = masked_refit(tau[..., None, :], X, weight, contract=contract)
     return s
 
 
-def _trimmed_objective(tau, X, s, h):
+def _trimmed_objective(tau, X, s, h, delay=None, site="objective"):
     """Sum of the h smallest squared residuals of each candidate fit (a
-    fixed tree), NaN -> inf."""
-    r2 = _residuals2(tau, X, s)
-    sel = (_rank_along_last(r2) < h).to(tau.dtype)
-    obj = tree_sum_last(sel * r2)                     # (..., Q)
+    fixed tree, its first level's halves from ``site``'s lo and hi
+    residuals), NaN -> inf."""
+    r2i, r2j, lo, hi = _site_residuals2(tau, X, s, delay, site)
+    sel = (_rank_along_last(r2i, r2j) < h).to(tau.dtype)
+    half = (1 << max(lo.shape[-1] - 1, 0).bit_length()) // 2
+    v = lo if hi is lo else torch.cat([lo[..., :half], hi[..., half:]], dim=-1)
+    obj = tree_sum_last(sel * v)                      # (..., Q)
     return torch.where(torch.isnan(obj), torch.full_like(obj, float("inf")), obj)
 
 
@@ -211,25 +307,27 @@ def _survivors(obj: torch.Tensor, k: int) -> torch.Tensor:
     return torch.sort(obj, dim=-1, stable=True).indices[..., :k]
 
 
-def _candidate_sweep(tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k=0):
+def _candidate_sweep(tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k=0, delay=None):
     """Elemental solves + C-steps for one candidate block.
 
     ``funnel_k > 0`` applies the FAST-LTS funnel: one C-step on every
     candidate, then the remaining ``c_steps - 1`` only on the ``funnel_k``
-    best by trimmed objective (`_survivors`).  Returns (obj (..., K),
-    s (..., K, 2)).
+    best by trimmed objective (`_survivors`).  ``delay`` (`_Delay`) gives
+    the objective, lone-step and survivor sites' unrounded residuals.
+    Returns (obj (..., K), s (..., K, 2)).
     """
     s = LS.elemental(tau, cand, Ainv)                 # (..., Q, 2)
     inf = torch.full((), float("inf"), dtype=tau.dtype, device=tau.device)
 
     if funnel_k and funnel_k < cand.shape[0] and c_steps > 1:
-        s = _c_steps(tau, X, s, h, 1)
-        obj = torch.where(cand_ok, _trimmed_objective(tau, X, s, h), inf)
+        s = _c_steps(tau, X, s, h, 1, delay, "single")
+        obj = torch.where(cand_ok, _trimmed_objective(tau, X, s, h, delay), inf)
         s = _c_steps(tau, X, _take(s, _survivors(obj, funnel_k)), h, c_steps - 1)
-        return _trimmed_objective(tau, X, s, h), s   # survivors not re-masked
+        # survivors not re-masked
+        return _trimmed_objective(tau, X, s, h, delay, "survivors"), s
 
     s = _c_steps(tau, X, s, h, c_steps)
-    return torch.where(cand_ok, _trimmed_objective(tau, X, s, h), inf), s
+    return torch.where(cand_ok, _trimmed_objective(tau, X, s, h, delay), inf), s
 
 
 def _best(obj, s):
@@ -248,6 +346,9 @@ def lts_solve(
     c_steps: int = 4,
     candidate_chunk: int = 0,
     funnel_k: int = 0,
+    lag: torch.Tensor = None,
+    inv_fs: float = 0.0,
+    delay_sites=frozenset(),
 ) -> Dict[str, torch.Tensor]:
     """Batched exact-enumeration LTS.
 
@@ -258,12 +359,18 @@ def lts_solve(
     Without the funnel that equals the unchunked sweep; with it the funnel
     runs inside each block.
 
+    ``lag`` (tau's shape, ``tau = lag * inv_fs`` rounded) with
+    ``delay_sites`` (`delay_contracted`) computes those sites' residuals
+    from the unrounded delay, as the JAX package's one-band programs do;
+    without them every residual takes tau, as its jitted ``lts_solve``.
+
     Returns vel, baz, sig_tau, vel_uncert, baz_uncert, s, retained (..., P
     bool; True = equation kept) and objective.
     """
     Q = cand.shape[0]
     dof = max(h - SIGMA_TAU_DOF_SHIFT, 1)
     cand = cand.long()
+    delay = _Delay(lag, inv_fs, delay_sites) if lag is not None and delay_sites else None
 
     if candidate_chunk and candidate_chunk < Q:
         nchunk = -(-Q // candidate_chunk)
@@ -273,7 +380,7 @@ def lts_solve(
         cand_ok = torch.cat([cand_ok, cand_ok.new_zeros((pad,))])
         blocks = [
             _best(*_candidate_sweep(tau, X, cand[sl], Ainv[sl], cand_ok[sl],
-                                    h, c_steps, funnel_k))
+                                    h, c_steps, funnel_k))    # chunks take tau
             for sl in (slice(k * candidate_chunk, (k + 1) * candidate_chunk)
                        for k in range(nchunk))
         ]
@@ -282,15 +389,17 @@ def lts_solve(
         obj_best, s_best = _best(obj_blocks, s_blocks)
     else:
         obj_best, s_best = _best(*_candidate_sweep(
-            tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k))
+            tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k, delay))
 
     # final subset + refit (idempotent when converged, like the oracle)
-    retained = _rank_along_last(_residuals2_one(tau, X, s_best)) < h   # (..., P)
+    r2i, r2j = _site_residuals2(tau, X, s_best[..., None, :], delay, "final", ("i", "j"))
+    retained = _rank_along_last(r2i, r2j)[..., 0, :] < h                  # (..., P)
     weight = retained.to(tau.dtype)
     s_fin = masked_refit(tau, X, weight, contract=refit_contractions(tau.shape[-1], "final"))
 
     # weight is 0 or 1: weight * r2 is JAX's weight * r * r, bit for bit
-    sigma2 = torch.sum(weight * _residuals2_one(tau, X, s_fin), dim=-1) / dof
+    r2, = _site_residuals2(tau, X, s_fin[..., None, :], delay, "sigma2", ("",))
+    sigma2 = torch.sum(weight * r2[..., 0, :], dim=-1) / dof
     sig_tau = torch.sqrt(sigma2)
 
     # per-cell (Xs^T Xs)^-1 for the uncertainty ellipse

@@ -465,3 +465,116 @@ def test_refit_contractions_table():
     X, ci, tau = _geometry(6, 8)
     TL.lts_solve(torch.as_tensor(tau), *_args(X, ci, "torch"), TL.lts_h(0.75, X.shape[0]))
     assert (LS.launches_residuals2, LS.launches_refit, LS.launches_elemental) == before
+
+
+# --------------------------------------------------------------------------
+# the one-band programs: the delays' product contracted into the residual
+# --------------------------------------------------------------------------
+
+def _jax_residuals2_lag(lag, X, s):
+    """The final subset's residuals of the JAX package's ``lts_solve`` on
+    delays made in the same program (``(k + lag_min) / fs`` in its one-band
+    pipelines, at fs = 10)."""
+    r = lag / 10.0 - jnp.einsum("pk,...k->...p", X, s)
+    return r * r
+
+
+@pytest.mark.parametrize("name", list(GEOMETRIES))
+def test_residuals2_lag_bitwise_jitted_jax(name):
+    """`lts_sweep.residuals2_lag` against ``jax.jit`` of a function that
+    computes the delays and the residuals in one program: XLA fuses the
+    delays' ``lag * (1/fs)`` into the residual's fusion and contracts it
+    there (every residual subtraction of that fusion is a fused
+    multiply-add, as ``scripts/xla_contractions.py``'s reader shows for
+    jaxlib 0.9.0).  The rounded delays give other bits on a share of the
+    residuals, so the check sees the contraction; no launch is counted on
+    the CPU."""
+    X, _, tau = _geometry(GEOMETRIES[name], 1)
+    lag = np.round(tau * 40).astype(np.float32)           # samples at fs = 10
+    s = (np.random.default_rng(2).standard_normal(tau.shape[:-1] + (2,)) * 0.1
+         ).astype(np.float32)
+    Xf = X.astype(np.float32)
+    want = _bits(jax.jit(_jax_residuals2_lag)(lag, Xf, s))
+    before = LS.launches_residuals2_lag
+    lt, Xt, st = (torch.as_tensor(v) for v in (lag, Xf, s))
+    got = LS.residuals2_lag(lt, 0.1, Xt, st[..., None, :])[..., 0, :]
+    assert LS.launches_residuals2_lag == before
+    np.testing.assert_array_equal(_bits(got.numpy()), want)
+    rounded = LS.residuals2(lt * 0.1, Xt, st[..., None, :])[..., 0, :]
+    assert (_bits(rounded.numpy()) != want).mean() > 0.05
+
+
+def test_residuals2_lag_takes_float32():
+    """Only float32 programs contract: a narrower dtype is refused (the
+    pipelines pass lags in float32 only)."""
+    X, _, tau = _geometry(6, 1)
+    lag = torch.as_tensor(np.round(tau * 40)).to(torch.bfloat16)
+    s = torch.zeros(tau.shape[:-1] + (4, 2), dtype=torch.bfloat16)
+    with pytest.raises(TypeError, match="float32"):
+        LS.residuals2_lag(lag, 0.1, torch.as_tensor(X, dtype=torch.bfloat16), s)
+
+
+@pytest.mark.parametrize("P", [3, 15, 28])
+def test_rank_against_other_keys(P):
+    """The two-key rank: x_i ranked against the values of ``against`` (ties
+    by index, the diagonal included), as a brute-force count."""
+    rng = np.random.default_rng(P)
+    x = rng.integers(0, 6, (4, P)).astype(np.float32)
+    y = x + rng.choice([-1.0, 0.0, 1.0], x.shape).astype(np.float32)
+    got = TL._rank_along_last(torch.as_tensor(x), torch.as_tensor(y)).numpy()
+    i, j = np.meshgrid(np.arange(P), np.arange(P), indexing="ij")
+    want = ((y[:, None, :] < x[:, :, None]) | ((y[:, None, :] == x[:, :, None]) & (j < i))
+            ).sum(-1)
+    np.testing.assert_array_equal(got, want)
+    np.testing.assert_array_equal(TL._rank_along_last(torch.as_tensor(x), torch.as_tensor(x)),
+                                  TL._rank_along_last(torch.as_tensor(x)))
+
+
+def test_delay_contracted_table():
+    """The one-band table: the final subset and sigma2 always, the
+    objective's roles by P unchunked, the funnel's survivors and lone step
+    beside them; a P not read takes the largest read P below it."""
+    final = {"final.i", "final.j", "sigma2"}
+    assert TL.delay_contracted(120, "chunk") == final
+    assert TL.delay_contracted(15, "exhaustive") == final | {"objective.i"}
+    assert TL.delay_contracted(28, "exhaustive") == final | {
+        "objective.i", "objective.lo", "objective.hi"}
+    assert TL.delay_contracted(36, "funnel") == final | {
+        "objective.i", "objective.j", "objective.lo", "survivors.i", "survivors.j",
+        "survivors.lo", "single.i", "single.j"}
+    assert TL.delay_contracted(100, "exhaustive") == TL.delay_contracted(91, "exhaustive")
+    assert TL.lts_schedule(105, 0, 0, 4) == "exhaustive"
+    assert TL.lts_schedule(105, 17, 16, 4) == TL.lts_schedule(7140, 4096, 0, 4) == "chunk"
+    assert TL.lts_schedule(105, 0, 16, 4) == "funnel"
+    assert TL.lts_schedule(105, 0, 16, 1) == TL.lts_schedule(15, 0, 16, 4) == "exhaustive"
+
+
+def test_lts_solve_lag_needs_sites(geom):
+    """Lags without sites (or sites without lags) change no bit: the jitted
+    solve's model."""
+    X, ci, tau = geom
+    args = _args(X, ci, "torch")
+    h = TL.lts_h(0.75, X.shape[0])
+    lag = torch.as_tensor(np.round(tau * 10).astype(np.float32))
+    t = lag * 0.1
+    plain = TL.lts_solve(t, *args, h)
+    for kw in ({"lag": lag, "inv_fs": 0.1}, {"delay_sites": TL.delay_contracted(15, "exhaustive")}):
+        got = TL.lts_solve(t, *args, h, **kw)
+        for k, v in plain.items():
+            assert torch.equal(got[k], v), k
+
+
+def test_sigma2_takes_the_lags(geom):
+    """With "sigma2" a site, sigma_tau sums the retained subset's residuals
+    on the lags (`lts_sweep.residuals2_lag`); they differ from the rounded
+    delays' on these windows."""
+    X, ci, tau = geom
+    args = _args(X, ci, "torch")
+    h = TL.lts_h(0.75, X.shape[0])
+    lag = torch.as_tensor(np.round(tau * 10).astype(np.float32))
+    t = lag * 0.1
+    out = TL.lts_solve(t, *args, h, lag=lag, inv_fs=0.1, delay_sites={"sigma2"})
+    r2 = LS.residuals2_lag(lag, 0.1, args[0], out["s"][..., None, :])[..., 0, :]
+    w = out["retained"].to(torch.float32)
+    assert torch.equal(out["sig_tau"], torch.sqrt(torch.sum(w * r2, dim=-1) / (h - 2)))
+    assert not torch.equal(out["sig_tau"], TL.lts_solve(t, *args, h)["sig_tau"])

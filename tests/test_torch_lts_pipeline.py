@@ -13,12 +13,13 @@ versions).  Flags are exact, in two ways (`_check`):
   delays are bit-identical between them, and those windows are nearly all
   (`MIN_SAME`).  Elsewhere an integer lag moved: the jitted JAX
   correlation and the port's sum in other orders, and on incoherent pairs
-  (the outlier element) the correlation peak can be a near-tie.  Where the
-  JAX step's program keeps a worse subset than its own ``lts_solve``, a
-  window may differ if the port's subset is the better one (`_differ`): in
-  the one-band programs of ``ltsva``, ``narrow_band_loop`` and the
-  broadband pipeline XLA fuses the delays' ``lag * (1/fs)`` into the
-  residuals and contracts it there (ROADMAP.md Queue 3 counts them).
+  (the outlier element) the correlation peak can be a near-tie.  In the
+  one-band programs (``ltsva``, ``narrow_band_loop``, the broadband
+  pipeline) XLA fuses the delays' ``lag * (1/fs)`` into the sweep's
+  residuals and contracts it there; the port's one-band pipelines pass the
+  lags to `lts_solve` at the sites ``ops.lts.delay_contracted`` lists, and
+  on the JAX program's own delays compute its objective, s and retained
+  sets bit for bit (`test_one_band_solve_bitwise_jax_program`).
 
 vel/baz/sig_tau and the ``conf=`` intervals agree within 1e-4 (rtol and
 atol), the JAX pipeline tolerance, on the windows whose delays and flags
@@ -52,6 +53,7 @@ from narrow_band_least_squares_tpu_torch.models import (
     NarrowBandPipeline,
 )
 from narrow_band_least_squares_tpu_torch.ops import lts as TL
+from narrow_band_least_squares_tpu_torch.ops.xcorr import lag_seconds
 from narrow_band_least_squares_tpu_torch.ops.solve import chi2_ellipse_uncertainties
 from narrow_band_least_squares_tpu_torch.state import state_from_numpy
 from narrow_band_least_squares_tpu_torch.utils import plan as tplan
@@ -158,36 +160,19 @@ def _trimmed(tau, X, keep, h):
     return np.sort((tau - X @ s) ** 2)[:h].sum()
 
 
-def _differ(pipe, ours, theirs, tau, where, X):
-    """Windows in ``where`` whose flags differ, each checked: the port's
-    retained set is no worse an LTS solution than JAX's (float64
-    criteria), and at most one window in 50 (at least one) differs, with
-    the funnel too.  Returns them."""
-    out = []
-    for b, w in np.argwhere(where & (ours != theirs).any(-1)):
-        a = _trimmed(tau[b, w], X, ~ours[b, w], pipe.h)
-        c = _trimmed(tau[b, w], X, ~theirs[b, w], pipe.h)
-        assert a <= c * (1 + 1e-6), f"window {(b, w)}: LTS criterion {a} against JAX's {c}"
-        out.append((int(b), int(w)))
-    assert len(out) <= max(1, where.sum() // 50), out
-    return out
-
-
 def _compare_flags(pipe, gf, wf, tau_t, tau_j, geometry=None):
     """Flags (B, Wmax, P) of the port run ``gf`` and the JAX run ``wf``:
     the two checks of the module docstring.  On the same delays the sweeps
-    agree exactly, funnel or not; the whole runs may differ only as
-    `_differ` allows.  Returns the valid windows whose delays are
-    bit-identical and whose flags agree."""
+    agree exactly, funnel or not; the whole runs flag the same pairs on
+    every valid window whose delays are bit-identical.  Returns those
+    windows."""
     wm = pipe.state_dict()["win_mask"].numpy()
-    X = (geometry or pipe._geometry)["X"].numpy().astype(np.float64)
     ours, theirs = _sweeps(pipe, tau_j, geometry)
     np.testing.assert_array_equal(ours, theirs)
     same = (tau_t == tau_j).all(-1) & wm
     share = same.sum() / wm.sum()
     assert share >= MIN_SAME, f"only {share:.3f} of the valid windows have equal delays"
-    for b, w in _differ(pipe, gf, wf, tau_t, same, X):
-        same[b, w] = False
+    np.testing.assert_array_equal(gf[same], wf[same])
     return same
 
 
@@ -640,3 +625,180 @@ def test_production_defaults_resolve_the_funnel(outlier_stream):
     finally:
         tapi.set_performance_defaults(
             **{k: None for k in tapi.PRODUCTION_DEFAULTS}, **prev)
+
+
+# --------------------------------------------------------------------------
+# the one-band programs' contracted delays
+# --------------------------------------------------------------------------
+
+def _outliers(nchans, duration_s=240.0):
+    """The outlier stream's setup (``tests/conftest.py``) at ``nchans``
+    elements."""
+    return synthetic_plane_wave(
+        nchans=nchans, duration_s=duration_s, fs=10.0, baz_deg=120.0, trace_vel_kms=0.30,
+        f0=0.6, bandwidth=0.8, snr=15.0, aperture_km=2.5, seed=11, outlier_channels=(2,))
+
+
+def test_ltsva_eight_elements_matches_jax(delays):
+    """``ltsva`` at P = 28, whose one-band program also contracts the delays
+    into both halves of the objective's first tree level: the stdict equals
+    JAX's on every valid window with equal delays (`_check_stdict`)."""
+    st = _outliers(8)
+    st.data, _ = filter_and_taper(st.data, st.fs, "cheby1", 0.2, 1.2, 2, 0.01)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    args = (st.latitudes, st.longitudes, 30.0, 0.5, 0.75)
+    want = japi.ltsva(st, *args)
+    got = tapi.ltsva(_tstream(st), *args, device="cpu")
+    pipe = _ltsva_pipe(st, rij)
+    assert pipe._delay_sites == TL.delay_contracted(28, "exhaustive")
+    assert {"objective.lo", "objective.hi"} <= pipe._delay_sites
+    n = len(got[0])
+    same = _check_stdict(pipe, got[4], want[4], delays)[0, :n]
+    for i in (0, 1, 3, 5):
+        np.testing.assert_allclose(got[i][same], want[i][same], rtol=TOL, atol=TOL,
+                                   err_msg=str(i))
+    np.testing.assert_array_equal(got[2], want[2])
+
+
+def test_two_band_constant_windows_keep_the_rounded_delays(outlier_stream, delays):
+    """Two bands with constant windows (one bucket): the JAX program fuses
+    no delay into the sweep, so the port passes none and its flags equal
+    JAX's as the multi-band rule has it (`_check`)."""
+    st = outlier_stream
+    jp, tp = _plans(st, 2, "constant")
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    want = JPipe(jp, rij, alpha=0.75).run_raw(st.data)
+    pipe = NarrowBandPipeline(tp, rij, alpha=0.75, device="cpu")
+    assert len(pipe._buckets) == 1 and pipe._delay_sites == frozenset()
+    got = pipe.run_raw(st.data)
+    _check(pipe, got, want, delays, keys=OUTS)
+
+
+@pytest.fixture
+def jax_solves(monkeypatch):
+    """Records what the JAX package's ``lts_solve`` takes and returns inside
+    its compiled step (a debug callback): (tau, objective, s, retained)."""
+    rec = []
+
+    def jspy(tau, X, *a, **k):
+        out = _JAX_LTS_SOLVE(tau, X, *a, **k)
+        jax.debug.callback(lambda *v: rec.append([np.asarray(x) for x in v]),
+                           tau, out["objective"], out["s"], out["retained"])
+        return out
+
+    monkeypatch.setattr(JL, "lts_solve", jspy)
+    yield rec
+
+
+# (id, elements, options, stream seconds): 240 s is 15 windows of 30 s, 600 s 39
+ONE_BAND = [("P15", 6, {}, 240.0), ("P15-funnel16", 6, {"lts_funnel_k": 16}, 240.0),
+            ("P28", 8, {}, 240.0), ("P28-funnel16", 8, {"lts_funnel_k": 16}, 240.0),
+            ("P28-chunk100", 8, {"lts_candidate_chunk": 100}, 240.0), ("P36", 9, {}, 240.0),
+            ("P28-39windows", 8, {}, 600.0)]
+
+
+@pytest.mark.parametrize("case", ONE_BAND, ids=[c[0] for c in ONE_BAND])
+def test_one_band_solve_bitwise_jax_program(jax_solves, case):
+    """The port's `lts_solve` with the lags and the pipeline's sites, on the
+    delays of the JAX package's one-band program, computes that program's
+    objective, s and retained sets bit for bit on every valid window; the
+    rounded delays alone (the jitted solve's model) do not, except chunked,
+    where the program fuses no delay into the candidates' sweep.  The table
+    is keyed by P and schedule: the 39-window case holds it at another
+    window count than the 15 it was read at."""
+    name, nchans, kw, duration = case
+    st = _outliers(nchans, duration)
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    args = ([0.3, 1.2], "linear", [30.0], 0.5, st.npts, st.fs)
+    JPipe(make_plan(*args), rij, alpha=0.75, **kw).run_raw(st.data)
+    jax.effects_barrier()
+    tau, obj, s, ret = jax_solves[-1]
+    pipe = NarrowBandPipeline(tplan.make_plan(*args), rij, alpha=0.75, device="cpu", **kw)
+    g, wm = pipe._geometry, pipe.state_dict()["win_mask"].numpy()
+    lag = np.rint(tau.astype(np.float64) * st.fs).astype(np.float32)
+    tt, lt = torch.as_tensor(tau.copy()), torch.as_tensor(lag)
+    assert torch.equal(lag_seconds(lt, st.fs), tt)
+
+    def solve(sites):
+        out = TL.lts_solve(tt, g["X"], g["cand"], g["Ainv"], g["cand_ok"], pipe.h,
+                           pipe.c_steps, candidate_chunk=pipe.lts_candidate_chunk,
+                           funnel_k=pipe.lts_funnel_k, lag=lt, inv_fs=1.0 / st.fs,
+                           delay_sites=sites)
+        return (out["objective"].numpy().view(np.int32), out["s"].numpy().view(np.int32),
+                out["retained"].numpy())
+
+    want = (obj.view(np.int32), s.view(np.int32), ret)
+    for got, w in zip(solve(pipe._delay_sites), want):
+        np.testing.assert_array_equal(got[wm], w[wm])
+    rounded = solve(frozenset())
+    assert ("chunk" in name) == all(
+        np.array_equal(a[wm], b[wm]) for a, b in zip(rounded, want))
+
+
+@pytest.mark.parametrize("merge", [2, 4], ids=["two-chunks", "one-chunk"])
+def test_multiarray_one_band_solve_bitwise_jax_program(  # noqa: F811
+        arrays, jax_solves, monkeypatch, merge):
+    """The merged multi-array program at one band fuses the delays into the
+    sweep as the single-array one does when its four arrays form one merge
+    chunk; from two chunks it concatenates the delays first and fuses
+    nothing (`scripts/xla_contractions.py --ltsva`).  The port passes the
+    lags exactly in the first case, and each array's solve on the JAX
+    program's delays is that program's objective, s and retained sets bit
+    for bit, with that array's constants: each recorded solve is matched to
+    its array by the delays it took, one solve an array."""
+    data, _, _, rijs = arrays
+    args = ([0.3, 1.2], "linear", [30.0], 0.5, data.shape[-1], 10.0)
+    JMulti(make_plan(*args), rijs, alpha=0.75, merge_chunk_arrays=merge).run_raw(data)
+    jax.effects_barrier()
+    multi = MultiArrayPipeline(tplan.make_plan(*args), rijs, alpha=0.75,
+                               merge_chunk_arrays=merge, device="cpu")
+    base, wm = multi.base, multi.base.state_dict()["win_mask"].numpy()
+    passed, taus = [], []
+
+    def tspy(tau, X, *a, **k):
+        passed.append(k.get("lag") is not None and bool(k.get("delay_sites")))
+        taus.append(tau.numpy().copy())
+        return _TORCH_LTS_SOLVE(tau, X, *a, **k)
+
+    monkeypatch.setattr(TL, "lts_solve", tspy)
+    multi.run_raw(data)
+    fused = merge >= len(rijs)
+    assert passed == [fused] * len(rijs)
+    sites = TL.delay_contracted(6, "exhaustive") if fused else frozenset()
+    assert len(jax_solves) == len(rijs)
+    matched = []
+    for tau, obj, s, ret in jax_solves:
+        # the array of this solve: the one whose delays it shares on most windows
+        agree = [int((t == tau).all(-1)[wm].sum()) for t in taus]
+        a = int(np.argmax(agree))
+        assert sorted(agree)[-2] < agree[a] and agree[a] >= MIN_SAME * wm.sum(), agree
+        matched.append(a)
+        g = multi._geometry[a]
+        lag = torch.as_tensor(np.rint(tau.astype(np.float64) * 10.0).astype(np.float32))
+        out = _TORCH_LTS_SOLVE(torch.as_tensor(tau.copy()), g["X"], g["cand"], g["Ainv"],
+                               g["cand_ok"], base.h, base.c_steps, lag=lag, inv_fs=0.1,
+                               delay_sites=sites)
+        for got, w in ((out["objective"].numpy().view(np.int32), obj.view(np.int32)),
+                       (out["s"].numpy().view(np.int32), s.view(np.int32)),
+                       (out["retained"].numpy(), ret)):
+            np.testing.assert_array_equal(got[wm], w[wm], err_msg=f"array {a}")
+    assert sorted(matched) == list(range(len(rijs)))
+
+
+def test_delay_sites_follow_the_program(outlier_stream):
+    """A pipeline takes the one-band table where the JAX program fuses the
+    delays (one band, float32, four C-steps, integer lags) and no site
+    elsewhere: two bands, bfloat16, other C-step counts, sub-sample delays,
+    OLS."""
+    st = outlier_stream
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    one = tplan.make_plan([0.3, 1.2], "linear", [30.0], 0.5, st.npts, st.fs)
+    _, two = _plans(st, 2, "constant")
+    sites = lambda plan, **kw: NarrowBandPipeline(plan, rij, device="cpu", **kw)._delay_sites
+    assert sites(one, alpha=0.75) == TL.delay_contracted(15, "exhaustive")
+    assert sites(one, alpha=0.75, lts_funnel_k=16) == TL.delay_contracted(15, "funnel")
+    assert sites(one, alpha=0.75, lts_candidate_chunk=17) == TL.delay_contracted(15, "chunk")
+    for plan, kw in ((two, {}), (one, {"c_steps": 3}), (one, {"subsample_delays": True}),
+                     (one, {"dtype": torch.bfloat16, "apply_filter": False})):
+        assert sites(plan, alpha=0.75, **kw) == frozenset(), kw
+    assert sites(one) == frozenset()

@@ -48,8 +48,11 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   against single arrays.  Launches per rank per route, wall times, halo
   bytes and host-copy times;
 - ``lts``: the LTS sweep's kernels (``csrc/lts_sweep.cu``: elemental
-  solves, residuals, refit) bit for bit against their plain versions on
-  the canonical sweep's shapes, in bfloat16 and at P = 120, and timed;
+  solves, residuals, refit, and ``sweep``, the C-steps and trimmed
+  objective of a candidate block in one launch) bit for bit against their
+  plain versions on the canonical sweep's shapes, in bfloat16 and at P =
+  120, ``sweep`` also on the funnel's two launches, the capped cell (Q =
+  5), the one-band delay roles and P = 120 in chunks of 4096, and timed;
   exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
   with one incoherent element, through the API on the card and on the CPU,
   exhaustive and with ``PRODUCTION_DEFAULTS``: flags equal on every window
@@ -62,10 +65,12 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   the sweep's rank against its pairwise definition;
   four merged arrays ('fused') against single-array
   runs bit for bit; a 16-element array (7,140 candidates, chunked) against
-  a smaller chunk bit for bit; the LTS step and the sweep's kernels with
-  the sweep's arithmetic as eager operations and through its kernels, in
-  turns; the LTS step, the sweep and peak memory on
-  the canonical and dense50 plans beside the OLS step;
+  a smaller chunk bit for bit; one ``sweep`` launch an exhaustive solve,
+  two with the funnel, one a chunk, and one eager rank (the final
+  subset's); the LTS step with the sweep's arithmetic as eager operations,
+  on the separate kernels and through ``sweep``, in turns; the LTS step,
+  the sweep and peak memory on the canonical and dense50 plans beside the
+  OLS step, by the separate kernels and by ``sweep``;
 - ``monitor``: ``examples/example_monitoring.py``'s workload (6 h in 1200 s
   segments, batches of 4) through ``StreamingMonitor(..., device="cuda")``
   with 'mxu' and 'fused' at 'high': the persisted segments against the
@@ -1174,16 +1179,38 @@ def zero_launches():
     XP.launches = XP.launches_tc = FX.launches = FX.launches_tc = 0
     XP.launches_nb = XP.launches_nb_tc = 0
     LS.launches_residuals2 = LS.launches_refit = LS.launches_elemental = 0
-    LS.launches_residuals2_lag = 0
+    LS.launches_residuals2_lag = LS.launches_sweep = 0
 
 
 def lts_sweep_launches():
     """{entry point: launches} of the LTS sweep's kernels (csrc/lts_sweep.cu)."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
 
-    return {"residuals2": LS.launches_residuals2, "refit": LS.launches_refit,
-            "elemental": LS.launches_elemental,
+    return {"sweep": LS.launches_sweep, "residuals2": LS.launches_residuals2,
+            "refit": LS.launches_refit, "elemental": LS.launches_elemental,
             "residuals2_lag": LS.launches_residuals2_lag}
+
+
+class EagerRanks:
+    """While installed (``with``), counts the calls of the eager rank
+    (`ops.kernels.lts_sweep.rank_along_last`, a (rows, P, P) comparison
+    tensor): on the card only the final subset's, one a solve, since the
+    candidate sweep ranks inside `lts_sweep.sweep`."""
+
+    def __enter__(self):
+        from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+        self.calls, self._mod, self._real = 0, LS, LS.rank_along_last
+
+        def counted(*args, **kw):
+            self.calls += 1
+            return self._real(*args, **kw)
+
+        LS.rank_along_last = counted
+        return self
+
+    def __exit__(self, *exc):
+        self._mod.rank_along_last = self._real
 
 
 def run_api_lts(st, freqlist, winlens, device, production):
@@ -1191,15 +1218,18 @@ def run_api_lts(st, freqlist, winlens, device, production):
     or with ``PRODUCTION_DEFAULTS``; returns (outputs, delays, seconds of
     the first call, host set-up included, the LTS sweep's launches).  On
     the card the run must launch icorr_peak's tensor-core route once per
-    bucket and nothing else of the lag search ('mxu' at 'high'), and every
-    kernel of csrc/lts_sweep.cu at least once but residuals2_lag: the
-    8-band program fuses no delay into the sweep."""
+    bucket and nothing else of the lag search ('mxu' at 'high'), and of
+    csrc/lts_sweep.cu the candidate sweep in one `sweep` launch (two with
+    the funnel of PRODUCTION_DEFAULTS), one elemental launch, the final
+    subset's two residuals2 and one refit, and one eager rank (the final
+    subset's), no residuals2_lag: the 8-band program fuses no delay into
+    the sweep."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
 
     prev = api.set_performance_defaults(**(api.PRODUCTION_DEFAULTS if production else {}))
     try:
-        with LtsRecorder() as rec:
+        with LtsRecorder() as rec, EagerRanks() as ranks:
             zero_launches()
             t0 = time.perf_counter()
             out = run_api(st, freqlist, winlens, device, alpha=LTS_ALPHA)
@@ -1217,17 +1247,17 @@ def run_api_lts(st, freqlist, winlens, device, production):
         log(f"LTS API run ({'production' if production else 'exhaustive'}): "
             f"icorr_peak launches fp32 route {counts[0]}, tensor-core route "
             f"{counts[1]}; fused_xcorr_bucket {counts[2] + counts[3]}; lts_sweep "
-            f"{sweep}")
+            f"{sweep}; eager ranks {ranks.calls}")
         if counts != (0, CANONICAL_BUCKETS, 0, 0):
             fail(f"the LTS API run on the card must launch only icorr_peak's "
                  f"tensor-core route, once per bucket ({CANONICAL_BUCKETS}); "
                  f"launches {counts}")
-        if min(v for k, v in sweep.items() if k != "residuals2_lag") < 1:
-            fail(f"the LTS API run on the card did not go through every lts_sweep "
-                 f"kernel: {sweep}")
-        if sweep["residuals2_lag"]:
-            fail(f"the 8-band LTS API run took the one-band programs' contracted "
-                 f"delays: {sweep}")
+        want = {"sweep": 2 if production else 1, "residuals2": 2, "refit": 1,
+                "elemental": 1, "residuals2_lag": 0}
+        if sweep != want or ranks.calls != 1:
+            fail(f"the LTS API run on the card (one solve) must launch lts_sweep "
+                 f"{want} and rank eagerly once (the final subset); got {sweep}, "
+                 f"{ranks.calls} eager ranks")
     elif any(sweep.values()):
         fail(f"the LTS API run on the CPU launched lts_sweep kernels: {sweep}")
     return out, rec.taus[0], secs, sweep
@@ -1324,7 +1354,9 @@ def lts_multiarray():
 def lts_large_array():
     """tests/test_large_array.py:27-38 at 16 elements (P = 120, 7,140
     candidates): the automatic chunk of 4096 equals a chunk of 1024 bit for
-    bit, and the outlier element is the most flagged on confident windows."""
+    bit, the run sweeps each chunk in one lts_sweep.sweep launch (the block
+    route) and ranks eagerly only the final subset, and the outlier element
+    is the most flagged on confident windows."""
     import torch
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
@@ -1345,15 +1377,21 @@ def lts_large_array():
     if Q != 7140 or auto.lts_candidate_chunk != 4096:
         fail(f"lts large array: {Q} candidates in chunks of "
              f"{auto.lts_candidate_chunk}, not 7140 in chunks of 4096")
-    zero_launches()
-    t0 = time.perf_counter()
-    a = auto.run_raw(st.data)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    counts = lag_search_launches()
+    with LtsRecorder() as rec, EagerRanks() as ranks:
+        zero_launches()
+        t0 = time.perf_counter()
+        a = auto.run_raw(st.data)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts, sweep = lag_search_launches(), lts_sweep_launches()
     if counts[0] or counts[2:] != (0, 0) or not counts[1]:
         fail(f"lts large array: the run must launch only icorr_peak's tensor-core "
              f"route; launches {counts}")
+    chunks = -(-Q // auto.lts_candidate_chunk)
+    if (len(rec.taus), sweep["sweep"], ranks.calls) != (1, chunks, 1):
+        fail(f"lts large array: one solve must launch sweep once a chunk ({chunks}) and "
+             f"rank eagerly once; {len(rec.taus)} solves, launches {sweep}, "
+             f"{ranks.calls} eager ranks")
     b = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, lts_candidate_chunk=1024,
                            device="cuda").run_raw(st.data)
     for name, v in a.items():
@@ -1367,7 +1405,8 @@ def lts_large_array():
         counts[i] += flags[:, p].sum()
         counts[j] += flags[:, p].sum()
     log(f"lts large array: P=120, Q={Q}, {plan.nbands} x {plan.max_windows} "
-        f"windows, first step {secs:.3f} s; chunks of 4096 and 1024 equal bit for "
+        f"windows, first step {secs:.3f} s; lts_sweep launches {sweep} (one sweep a "
+        f"chunk); chunks of 4096 and 1024 equal bit for "
         f"bit; flags per element on {int(good.sum())} confident windows "
         f"{counts.tolist()}")
     if counts.argmax() != outlier:
@@ -1441,7 +1480,8 @@ def lts_timing(label, st):
     """Canonical and dense50 (the LTS input): per pipeline (OLS, LTS
     exhaustive, LTS with lts_funnel_k='auto') the step by CUDA events over 20
     steps after warm-up, its peak memory, and for LTS the sweep's device
-    time in one profiled solve."""
+    time and kernel count in one profiled solve, LTS by the "kernels" route
+    (before `lts_sweep.sweep`) and by `sweep` (`SweepRoute`)."""
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.utils import (
@@ -1456,31 +1496,31 @@ def lts_timing(label, st):
              "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
     for name, plan in plans.items():
         rows = plan.nbands * plan.max_windows
-        for tag, kw in (("OLS", dict(alpha=1.0)),
-                        ("LTS exhaustive", dict(alpha=LTS_ALPHA)),
-                        ("LTS auto", dict(alpha=LTS_ALPHA, lts_funnel_k="auto"))):
+        for tag, route, kw in (
+                ("OLS", "sweep", dict(alpha=1.0)),
+                ("LTS exhaustive", "kernels", dict(alpha=LTS_ALPHA)),
+                ("LTS exhaustive", "sweep", dict(alpha=LTS_ALPHA)),
+                ("LTS auto", "kernels", dict(alpha=LTS_ALPHA, lts_funnel_k="auto")),
+                ("LTS auto", "sweep", dict(alpha=LTS_ALPHA, lts_funnel_k="auto"))):
             pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda", **kw)
-            ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
-            torch.cuda.synchronize()
-            base = torch.cuda.memory_allocated()
-            torch.cuda.reset_peak_memory_stats()
-            pipe.run_raw(st.data)
-            torch.cuda.synchronize()
-            peak = torch.cuda.max_memory_allocated()
-            line = (f"[{label}] {name} {tag}: {ms:.4f} ms per run_raw step (CUDA "
-                    f"events, 20 steps), peak memory {peak / 2**20:.1f} MiB "
-                    f"({(peak - base) / 2**20:.1f} MiB above the "
-                    f"{base / 2**20:.1f} MiB held before the step)")
-            if tag != "OLS":
-                Q = pipe.state_dict()["cand"].shape[0]
-                tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
-                pipe._solve_masked(tau, md)
-                sweep, top = profile_once(lambda: pipe._solve_masked(tau, md))
-                line += (f"; sweep ({rows} windows x {Q} candidates, funnel "
-                         f"{pipe.lts_funnel_k}) {sweep:.4f} ms of device time in one "
-                         f"profiled solve, {sum(r[2] for r in top)} kernels; largest: "
-                         + "; ".join(f"{us / 1e3:.4f} ms x{c} {k[:60]}"
-                                     for us, k, c in top[:4]))
+            with SweepRoute(route):
+                ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+                peak, base = step_peak_mib(lambda: pipe.run_raw(st.data))
+                line = (f"[{label}] {name} {tag}"
+                        f"{'' if tag == 'OLS' else f' (sweep route {route})'}: {ms:.4f} ms "
+                        f"per run_raw step (CUDA events, 20 steps), peak memory "
+                        f"{peak + base:.1f} MiB ({peak:.1f} MiB above the {base:.1f} MiB "
+                        f"held before the step)")
+                if tag != "OLS":
+                    Q = pipe.state_dict()["cand"].shape[0]
+                    tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
+                    pipe._solve_masked(tau, md)
+                    sweep, top = profile_once(lambda: pipe._solve_masked(tau, md))
+                    line += (f"; sweep ({rows} windows x {Q} candidates, funnel "
+                             f"{pipe.lts_funnel_k}) {sweep:.4f} ms of device time in one "
+                             f"profiled solve, {sum(r[2] for r in top)} kernels; largest: "
+                             + "; ".join(f"{us / 1e3:.4f} ms x{c} {k[:60]}"
+                                         for us, k, c in top[:4]))
             log(line)
             del pipe
             torch.cuda.empty_cache()
@@ -1489,6 +1529,9 @@ def lts_timing(label, st):
 LTS_SWEEP_SOURCE = "narrow_band_least_squares_tpu_torch/csrc/lts_sweep.cu"
 # What each entry point replaces: XLA's compiled arithmetic, no TPU kernel.
 LTS_SWEEP_REPLACES = {
+    "sweep": "none: the port's own kernel for XLA's compiled C-steps and trimmed "
+             "objective, narrow_band_least_squares_tpu/ops/lts.py:96 (_c_steps) "
+             "and :110 (_trimmed_objective)",
     "residuals2": "none: the port's own kernel for XLA's contracted einsum at "
                   "narrow_band_least_squares_tpu/ops/lts.py:92 (and :224, :230)",
     "refit": "none: the port's own kernel for XLA's contracted trees of "
@@ -1507,11 +1550,28 @@ LTS_CAPPED_STREAM = dict(nchans=6, duration_s=300.0, fs=10.0, baz_deg=200.0,
                          outlier_channels=(2,))
 
 
-def lts_sweep_work(name, rows, Q, P, itemsize=4):
+# int32 operations a second of one H100 SXM: 64 INT32 lanes an SM (the
+# Hopper architecture white paper) x 132 SMs x 1.98 GHz.
+PEAK_INT32_OPS = 64 * 132 * 1.98e9
+
+
+def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True):
     """(operations, bytes) of one launch of an lts_sweep entry point: each
     input read once, each output written once, float operations counted as
-    written in csrc/lts_sweep.cu (a fused multiply-add as two)."""
+    written in csrc/lts_sweep.cu (a fused multiply-add as two).  For
+    "sweep" the operations are (float, int32): its ranks are P * P key
+    comparisons a rank pass (n_steps, and one for the objective), counted
+    as one int32 operation each."""
     half = 1 << max(P - 1, 0).bit_length() >> 1
+    if name == "sweep":           # rows windows x Q rows, each its C-steps and objective
+        n = rows * Q
+        tree = P + (P - half) + 2 * half + (half - 1)   # as the refit's
+        step = 5 * P + 5 * tree + 12                    # residuals, five trees, solve
+        obj = 5 * P + P + max(2 * half - 1, 0)          # residuals, sel * r2, the tree
+        flops = n * (n_steps * step + (obj if objective else 0))
+        cmps = n * (n_steps + bool(objective)) * P * P
+        nbytes = itemsize * (rows * P + 2 * P + 4 * n + (n if objective else 0))
+        return (float(flops), float(cmps)), nbytes
     if name == "residuals2":      # rows windows x Q fits x P: mul, fma, sub, mul
         n = rows * Q * P
         return 5.0 * n, itemsize * (rows * P + 2 * P + 2 * rows * Q + n)
@@ -1528,21 +1588,89 @@ def lts_sweep_work(name, rows, Q, P, itemsize=4):
     return 6.0 * n, itemsize * (rows * P + 4 * Q + 2 * n) + 8 * 2 * Q
 
 
+def sweep_bound(rows, Q, P, n_steps=4, objective=True):
+    """(bound ms, bound_by) of one lts_sweep.sweep launch: the larger of its
+    float operations at PEAK_FP32_FLOPS, its comparisons at PEAK_INT32_OPS
+    (two pipes of the SM that run side by side) and its bytes at
+    PEAK_HBM_BYTES."""
+    (flops, cmps), nbytes = lts_sweep_work("sweep", rows, Q, P, n_steps=n_steps,
+                                           objective=objective)
+    ops_ms = max(flops / PEAK_FP32_FLOPS, cmps / PEAK_INT32_OPS) * 1e3
+    mem_ms = nbytes / PEAK_HBM_BYTES * 1e3
+    return max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
+
+
+def same_sweep(tag, got, want):
+    """s and obj of lts_sweep.sweep bit for bit its plain version's (a NaN
+    equals a NaN)."""
+    import torch
+
+    for name, g, w in (("s", got[0], want[0]), ("obj", got[1], want[1])):
+        if (g is None) != (w is None) or (g is not None and g.shape != w.shape):
+            fail(f"lts_sweep sweep {tag}: {name} is {g if g is None else g.shape} against "
+                 f"{w if w is None else w.shape}")
+        if g is None:
+            continue
+        idt = torch.int16 if g.element_size() == 2 else torch.int32
+        bad = (g.view(idt) != w.view(idt)) & ~(torch.isnan(g) & torch.isnan(w))
+        if bad.any():
+            err = float((g.float() - w.float()).abs().nan_to_num(float("inf")).max())
+            fail(f"lts_sweep sweep {tag}: {int(bad.sum())} of {g.numel()} {name} values "
+                 f"differ from sweep_reference (max {err:.3e})")
+
+
+def check_sweep(tag, tau, X, s, h, n_steps, contract, lag=None, inv_fs=0.0, roles=0):
+    """lts_sweep.sweep against sweep_reference on the card, bit for bit;
+    returns the kernel's (s, obj)."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+    got = LS.sweep(tau, X, s, h, n_steps, contract, True, lag, inv_fs, roles)
+    same_sweep(tag, got, LS.sweep_reference(tau, X, s, h, n_steps, contract, True, lag,
+                                            float(np.float32(inv_fs)), roles))
+    return got
+
+
+def check_funnel(tag, tau, X, s, cand_ok, h, c_steps, k, lag=None, inv_fs=0.0, roles=(0, 0)):
+    """The funnel's two sweep launches (one lone C-step and the objective;
+    the survivors' c_steps - 1 steps and theirs), each bit for bit its
+    plain version; ``roles`` of each launch."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+
+    P = tau.shape[-1]
+    s1, obj = check_sweep(f"{tag} funnel first", tau, X, s, h, 1,
+                          LTS.refit_contractions(P, "single"), lag, inv_fs, roles[0])
+    obj = torch.where(cand_ok, obj, torch.full_like(obj, float("inf")))
+    surv = LTS._take(s1, LTS._survivors(obj, k))
+    check_sweep(f"{tag} funnel survivors", tau, X, surv, h, c_steps - 1,
+                LTS.refit_contractions(P, "single" if c_steps == 2 else "loop"), lag,
+                inv_fs, roles[1])
+
+
 def lts_kernel_check(label, st, freqlist, winlens):
     """Each lts_sweep entry point against its plain version on the card,
     bit for bit: on the canonical LTS sweep's shapes (632 windows x 378
     candidates x 28 equations: the elemental solves, the residuals of those
     fits, the refit of their h smallest with every first level contracted
-    and with b0 and b1 not, and the one-fit-a-row layout of the final refit),
-    in bfloat16 on a slice, and at P = 120 (16 elements, 1,024 candidates).
-    Times each at the canonical shapes; returns the kernels-line records
-    (launches filled in by the API run)."""
+    and with b0 and b1 not, and the one-fit-a-row layout of the final refit
+    and its residuals), in bfloat16 on a slice, and at P = 120 (16
+    elements, 1,024 candidates).  `sweep` (the C-steps and the objective in
+    one launch) on the canonical exhaustive sweep (four "loop" C-steps),
+    its funnel ('auto': a lone "single" step, then the survivors'), in
+    bfloat16, and at P = 120 on the block route in both chunks of 4096 of
+    the 7,140 candidates.  Times each at the shapes the main path gives it
+    (`sweep` and `elemental` at the canonical sweep's, `residuals2` and
+    `refit` at the final subset's, one fit a window; those two also at the
+    sweep's shapes, where they ran before `sweep`); returns the
+    kernels-line records (launches filled in by the API run)."""
     import torch
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.ops import lts as LTS
     from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
-    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
 
     def same(name, got, want):
         if not torch.equal(got, want):
@@ -1574,57 +1702,93 @@ def lts_kernel_check(label, st, freqlist, winlens):
     g = pipe._geometry
     tau = pipe._delays(pipe._filter(pipe._to_device(st.data)))[0]
     X, cand, Ainv = g["X"], g["cand"], g["Ainv"]
-    P, Q = tau.shape[-1], cand.shape[0]
+    P, Q, h = tau.shape[-1], cand.shape[0], pipe.h
     contracts = (LS.ALL_CONTRACTED, LTS.refit_contractions(28, "final"))
-    s, r2, w = check("canonical", tau, X, cand, Ainv, pipe.h, contracts)
+    s, r2, w = check("canonical", tau, X, cand, Ainv, h, contracts)
+    loop = LTS.refit_contractions(P, "loop")
+    check_sweep("canonical exhaustive", tau, X, s, h, pipe.c_steps, loop)
+    k_auto = max(16, -(-Q // 24))       # lts_funnel_k='auto'
+    check_funnel("canonical 'auto'", tau, X, s, g["cand_ok"], h, pipe.c_steps, k_auto)
     torch.cuda.synchronize()
     bf = lambda t: t.to(torch.bfloat16)
-    check("bfloat16", bf(tau[:2]), bf(X), cand, bf(Ainv), pipe.h, contracts)
+    bs, _, _ = check("bfloat16", bf(tau[:2]), bf(X), cand, bf(Ainv), h, contracts)
+    check_sweep("bfloat16", bf(tau[:2]), bf(X), bs, h, pipe.c_steps, loop)
 
     big = synthetic_plane_wave(nchans=16, duration_s=160.0, fs=10.0, baz_deg=285.0,
                                trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=12.0,
                                aperture_km=3.0, seed=5, outlier_channels=(11,))
-    from narrow_band_least_squares_tpu_torch.utils import get_freqlist, get_winlenlist
-
     fl, nb, _ = get_freqlist(0.3, 1.2, "log", 2)
     bplan = make_plan(fl, "log", get_winlenlist("constant", nb, 30, 0, 0), 0.5,
                       big.npts, big.fs)
-    bpipe = NarrowBandPipeline(bplan, get_rij(big.latitudes, big.longitudes, big.nchans),
-                               alpha=LTS_ALPHA, max_lts_candidates=1024, device="cuda")
+    brij = get_rij(big.latitudes, big.longitudes, big.nchans)
+    bpipe = NarrowBandPipeline(bplan, brij, alpha=LTS_ALPHA, max_lts_candidates=1024,
+                               device="cuda")
     bg = bpipe._geometry
     btau = bpipe._delays(bpipe._filter(bpipe._to_device(big.data)))[0]
     check("P=120", btau, bg["X"], bg["cand"], bg["Ainv"], bpipe.h,
           (LS.ALL_CONTRACTED, LTS.refit_contractions(120, "loop")))
+    full = NarrowBandPipeline(bplan, brij, alpha=LTS_ALPHA, device="cuda")
+    fg, chunk = full._geometry, full.lts_candidate_chunk
+    nfull = fg["cand"].shape[0]
+    if (nfull, chunk) != (7140, 4096):
+        fail(f"lts_sweep sweep P=120: {nfull} candidates in chunks of {chunk}")
+    for c0 in range(0, nfull, chunk):      # the last chunk padded as lts_solve pads it
+        cc = torch.cat([fg["cand"][c0:c0 + chunk].long(),
+                        fg["cand"].new_zeros((max(0, c0 + chunk - nfull), 2)).long()])
+        aa = torch.cat([fg["Ainv"][c0:c0 + chunk],
+                        fg["Ainv"].new_zeros((max(0, c0 + chunk - nfull), 2, 2))])
+        check_sweep(f"P=120 chunk {c0 // chunk}", btau, fg["X"],
+                    LS.elemental(btau, cc, aa), full.h, full.c_steps,
+                    LTS.refit_contractions(120, "loop"))
     torch.cuda.synchronize()
     log(f"[{label}] lts_sweep: elemental, residuals2 and refit bit for bit their plain "
         f"versions on the card: canonical {tuple(tau.shape)} x {Q} candidates, "
         f"bfloat16, P=120 {tuple(btau.shape)} x {bg['cand'].shape[0]} candidates; "
-        f"refit contract masks {[f'{c:05b}' for c in contracts]}")
+        f"refit contract masks {[f'{c:05b}' for c in contracts]}; sweep bit for bit "
+        f"sweep_reference: canonical exhaustive ({pipe.c_steps} steps), canonical "
+        f"'auto' (k = {k_auto}: 1 step, then {pipe.c_steps - 1} on the survivors), "
+        f"bfloat16, P=120 {tuple(btau.shape)} in {-(-nfull // chunk)} chunks of {chunk} "
+        f"(block route)")
 
     rows = tau[..., 0].numel()
+    s1, w1 = s[..., :1, :], w[..., :1, :]      # the final subset: one fit a window
     calls = {
+        "sweep": ((lambda: LS.sweep(tau, X, s, h, pipe.c_steps, loop)),
+                  (lambda: LS.sweep_reference(tau, X, s, h, pipe.c_steps, loop)), Q),
         "elemental": (lambda: LS.elemental(tau, cand, Ainv),
-                      lambda: LS.elemental_reference(tau, cand, Ainv)),
-        "residuals2": (lambda: LS.residuals2(tau, X, s),
-                       lambda: LS.residuals2_reference(tau, X, s)),
-        "refit": (lambda: LS.refit(tau[..., None, :], X, w),
-                  lambda: LS.refit_reference(tau[..., None, :], X, w)),
+                      lambda: LS.elemental_reference(tau, cand, Ainv), Q),
+        "residuals2": (lambda: LS.residuals2(tau, X, s1),
+                       lambda: LS.residuals2_reference(tau, X, s1), 1),
+        "refit": (lambda: LS.refit(tau[..., None, :], X, w1),
+                  lambda: LS.refit_reference(tau[..., None, :], X, w1), 1),
     }
     recs = []
-    for name, (kern, plain) in calls.items():
+    for name, (kern, plain, q) in calls.items():
         ms = device_ms(kern, reps=20)
         pms = device_ms(plain, reps=3)
-        flops, nbytes = lts_sweep_work(name, rows, Q, P)
-        ops_ms, mem_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
-        bound, by = max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
-        log(f"[{label}] lts_sweep {name} at the canonical sweep's shapes ({rows} windows "
-            f"x {Q} candidates x {P}): kernel {ms:.4f} ms a launch, plain version on the "
-            f"card {pms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e6:.1f} MFLOP, "
-            f"{nbytes / 1e6:.2f} MB)")
+        if name == "sweep":
+            bound, by = sweep_bound(rows, q, P, pipe.c_steps)
+            (flops, cmps), nbytes = lts_sweep_work(name, rows, q, P, n_steps=pipe.c_steps)
+            work = (f"{flops / 1e6:.1f} MFLOP, {cmps / 1e6:.1f} M comparisons, "
+                    f"{nbytes / 1e6:.2f} MB")
+        else:
+            flops, nbytes = lts_sweep_work(name, rows, q, P)
+            ops_ms, mem_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
+            bound, by = max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
+            work = f"{flops / 1e6:.1f} MFLOP, {nbytes / 1e6:.2f} MB"
+        log(f"[{label}] lts_sweep {name} at the main path's shapes ({rows} windows x {q} "
+            f"{'candidates' if q > 1 else 'fit'} x {P}): kernel {ms:.4f} ms a launch, plain "
+            f"version on the card {pms:.4f} ms, bound {bound:.4f} ms by {by} ({work})")
         recs.append({"name": f"lts_sweep.{name}", "route": "cuda", "per": "launch",
                      "source": LTS_SWEEP_SOURCE, "replaces": LTS_SWEEP_REPLACES[name],
                      "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
                      "bound_ms": bound, "bound_by": by, "library_ms": None})
+    for name, kern in (("residuals2", lambda: LS.residuals2(tau, X, s)),
+                       ("refit", lambda: LS.refit(tau[..., None, :], X, w))):
+        flops, nbytes = lts_sweep_work(name, rows, Q, P)
+        log(f"[{label}] lts_sweep {name} at the candidate sweep's shapes ({rows} x {Q} x "
+            f"{P}, where it ran before sweep): {device_ms(kern, reps=20):.4f} ms a launch, "
+            f"bound {max(flops / PEAK_FP32_FLOPS, nbytes / PEAK_HBM_BYTES) * 1e3:.4f} ms")
     return recs
 
 
@@ -1633,11 +1797,13 @@ def lts_capped_case(label):
     5) on the card ('mxu' at 'highest') and the CPU: flags equal on every
     valid window whose delays are bit-identical (at least LTS_SAME_MIN of
     them), and lts_solve on the CPU's delays on the card equal to the CPU's,
-    objective, s and retained, bit for bit."""
+    objective, s and retained, bit for bit; lts_sweep.sweep there (Q = 5: a
+    block's last three warps idle) bit for bit its plain version."""
     import torch
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
     from narrow_band_least_squares_tpu_torch.utils import (
         get_freqlist, get_rij, get_winlenlist, make_plan,
     )
@@ -1673,11 +1839,15 @@ def lts_capped_case(label):
     for k in ("objective", "s", "retained"):
         if not torch.equal(on_card[k].cpu(), on_cpu[k]):
             fail(f"lts capped: lts_solve's {k} on the card differs from the CPU's")
+    tc = torch.as_tensor(tau_c).cuda()
+    check_sweep("capped (Q = 5)", tc, g["X"], LS.elemental(tc, g["cand"], g["Ainv"]),
+                pipe.h, pipe.c_steps, LTS.refit_contractions(tc.shape[-1], "loop"))
     obj = on_cpu["objective"].numpy()
     log(f"[{label}] lts capped (max_lts_candidates=5): flags card = CPU on "
         f"{int(same.sum())} of {int(wm.sum())} valid windows (those with bit-identical "
         f"delays); lts_solve objective, s and "
-        f"retained bit for bit the CPU's; window (band 1, window 4) objective "
+        f"retained bit for bit the CPU's; sweep bit for bit sweep_reference at Q = 5; "
+        f"window (band 1, window 4) objective "
         f"{float(obj[1, 4]):.4f}, vel {float(cpu['vel'][1, 4]):.4f}")
 
 
@@ -1686,12 +1856,16 @@ def lts_one_band(label, st):
     delays into the sweep (ops/lts.py::delay_contracted): the canonical
     stream with its incoherent element band-passed to FMIN-FMAX, card
     against CPU.  The run is driven with the counts at 0 and must launch
-    residuals2_lag; the stdicts are equal on every window whose delays are
-    bit-identical (at least LTS_SAME_MIN of them) and lts_solve on the CPU's
-    delays and lags is on the card the CPU's bit for bit.  residuals2_lag
-    is held bit for bit against its plain version on the card at P = 15, 28
-    (this run's shapes) and 120, and timed; the one-band solve is timed with
-    the lags and without them (CUDA events).  Returns the kernels-line
+    one sweep (its objective's delay roles), one elemental, one refit and
+    two residuals2_lag (the final subset's ranks and sigma2 take the lags);
+    the stdicts are equal on every window whose delays are bit-identical
+    (at least LTS_SAME_MIN of them) and lts_solve on the CPU's delays and
+    lags is on the card the CPU's bit for bit.  residuals2_lag is held bit
+    for bit against its plain version on the card at P = 15, 28 (this run's
+    shapes) and 120, and timed at the final subset's shapes; sweep with
+    the exhaustive objective's roles and the funnel's (a lone step's, the
+    survivors') bit for bit its plain version; the one-band solve is timed
+    with the lags and without them (CUDA events).  Returns the kernels-line
     record of lts_sweep.residuals2_lag."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
@@ -1715,9 +1889,10 @@ def lts_one_band(label, st):
                  f"{[lag is not None for lag in rec.lags]}")
         runs[dev] = (out, rec.taus[0], rec.lags[0], launches)
     (gpu, tau_g, lag_g, sweep), (cpu, tau_c, lag_c, sweep_c) = runs["cuda"], runs["cpu"]
-    if min(sweep.values()) < 1 or any(sweep_c.values()):
+    want = {"sweep": 1, "residuals2": 0, "refit": 1, "elemental": 1, "residuals2_lag": 2}
+    if sweep != want or any(sweep_c.values()):
         fail(f"one-band ltsva: lts_sweep launches {sweep} on the card, {sweep_c} on "
-             f"the CPU (every kernel on the card, none on the CPU)")
+             f"the CPU ({want} on the card, none on the CPU)")
     n = len(gpu[0])
     keys_g = [k for k in gpu[4] if k != "size"]
     keys_c = [k for k in cpu[4] if k != "size"]
@@ -1775,11 +1950,19 @@ def lts_one_band(label, st):
         s_n = torch.as_tensor(rng.standard_normal((47, 1024, 2)) * 0.5,
                               dtype=torch.float32, device="cuda")
         same_bits(f"P={Pn}", lag_n, Xn, s_n)
+    roles = LTS.sweep_roles(sites)
+    check_sweep(f"one-band roles {roles:06b}", tau, g["X"], s, pipe.h, pipe.c_steps,
+                LTS.refit_contractions(P, "loop"), lag, 1.0 / stf.fs, roles)
+    fsites = LTS.delay_contracted(P, "funnel")
+    froles = (LTS.sweep_roles(fsites, "single"), LTS.sweep_roles(fsites, None, "survivors"))
+    check_funnel("one-band", tau, g["X"], s, g["cand_ok"], pipe.h, pipe.c_steps,
+                 max(16, -(-Q // 24)), lag, 1.0 / stf.fs, froles)
     rows = tau[..., 0].numel()
-    ms = device_ms(lambda: LS.residuals2_lag(lag, 1.0 / stf.fs, g["X"], s), reps=20)
+    s1 = s[..., :1, :]                 # the main path's shapes: the final subset
+    ms = device_ms(lambda: LS.residuals2_lag(lag, 1.0 / stf.fs, g["X"], s1), reps=20)
     pms = device_ms(lambda: LS.residuals2_lag_reference(
-        lag, float(np.float32(1.0 / stf.fs)), g["X"], s), reps=3)
-    flops, nbytes = lts_sweep_work("residuals2_lag", rows, Q, P)
+        lag, float(np.float32(1.0 / stf.fs)), g["X"], s1), reps=3)
+    flops, nbytes = lts_sweep_work("residuals2_lag", rows, 1, P)
     ops_ms, mem_ms = flops / PEAK_FP32_FLOPS * 1e3, nbytes / PEAK_HBM_BYTES * 1e3
     bound, by = max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
     zero_launches()
@@ -1790,8 +1973,10 @@ def lts_one_band(label, st):
         f"delay sites {sorted(sites)}): lts_sweep launches {sweep} on the card; stdict "
         f"card = CPU on the {int(same.sum())} of {n} windows with bit-identical delays; "
         f"lts_solve on the CPU's delays and lags bit for bit the CPU's; residuals2_lag "
-        f"bit for bit its plain version at P = 15, {P}, 120; a launch at this run's "
-        f"shapes ({rows} x {Q} x {P}) {ms:.4f} ms, plain version on the card "
+        f"bit for bit its plain version at P = 15, {P}, 120; sweep bit for bit "
+        f"sweep_reference with roles {roles:06b} (exhaustive) and {froles[0]:06b}, "
+        f"{froles[1]:06b} (funnel); a residuals2_lag launch at the final subset's "
+        f"shapes ({rows} x 1 x {P}) {ms:.4f} ms, plain version on the card "
         f"{pms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e6:.1f} MFLOP, "
         f"{nbytes / 1e6:.2f} MB); the one-band solve {with_lag:.4f} ms with the lags "
         f"({per_solve} launches a solve), {without:.4f} ms without (CUDA events, "
@@ -1837,36 +2022,81 @@ def _eager_refit(tau, X, weight, eps=1e-12, contract=None):
                         torch.where(ok, (b1 * m00 - b0 * m01) / safe, zero)], dim=-1)
 
 
+class SweepRoute:
+    """While installed (``with``), runs `ops.lts`'s candidate sweep by one
+    of three routes: "sweep" (`lts_sweep.sweep`, one launch a candidate
+    block), "kernels" (its plain composition on the separate passes of
+    csrc/lts_sweep.cu: residuals2 and refit a C-step, the eager rank
+    between them; the route before `sweep`) or "eager" (that composition on
+    eager arithmetic, the elemental solves and the final subset too; the
+    port before csrc/lts_sweep.cu).  "kernels" and "sweep" give the same
+    bits; "eager" rounds every operation on its own."""
+
+    def __init__(self, route):
+        self.route = route
+
+    def __enter__(self):
+        import functools
+
+        from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+        self._LS = LS
+        self._saved = (LS.sweep, LS.residuals2, LS.refit, LS.elemental)
+        if self.route == "kernels":
+            LS.sweep = functools.partial(
+                LS.sweep_reference, passes=(LS.residuals2, LS.residuals2_lag, LS.refit))
+        elif self.route == "eager":
+            LS.sweep = functools.partial(
+                LS.sweep_reference, passes=(_eager_residuals2, LS.residuals2_lag,
+                                            _eager_refit))
+            LS.residuals2, LS.refit, LS.elemental = (_eager_residuals2, _eager_refit,
+                                                     _eager_elemental)
+        elif self.route != "sweep":
+            raise ValueError(f"unknown sweep route {self.route!r}")
+        return self
+
+    def __exit__(self, *exc):
+        LS = self._LS
+        LS.sweep, LS.residuals2, LS.refit, LS.elemental = self._saved
+
+
+def step_peak_mib(step):
+    """Peak device memory (MiB) of one ``step()`` above what was held before
+    it, and what was held."""
+    import torch
+
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    step()
+    torch.cuda.synchronize()
+    return (torch.cuda.max_memory_allocated() - base) / 2**20, base / 2**20
+
+
 def lts_before_after(label, st, freqlist, winlens):
-    """The canonical LTS step (exhaustive) with the sweep's arithmetic as
-    eager PyTorch operations (before) and through csrc/lts_sweep.cu (after),
-    in turns before, after, after, before: step ms by CUDA events over 20
-    steps, and the sweep's device time and kernel count in one profiled
-    solve."""
+    """The canonical LTS step (exhaustive) by each `SweepRoute`, in turns
+    eager, kernels, sweep, sweep, kernels, eager: step ms by CUDA events
+    over 20 steps, the sweep's device time and kernel count in one profiled
+    solve, and the step's peak memory."""
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
-    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
     from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
     pipe = NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
                               alpha=LTS_ALPHA, device="cuda")
     tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
-    kernels = (LS.residuals2, LS.refit, LS.elemental)
-    eager = (_eager_residuals2, _eager_refit, _eager_elemental)
-    out = {"before": [], "after": []}
-    try:
-        for tag in ("before", "after", "after", "before"):
-            LS.residuals2, LS.refit, LS.elemental = eager if tag == "before" else kernels
+    out = {"eager": [], "kernels": [], "sweep": []}
+    for route in ("eager", "kernels", "sweep", "sweep", "kernels", "eager"):
+        with SweepRoute(route):
             step = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
             busy, rows = profile_once(lambda: pipe._solve_masked(tau, md))
-            out[tag].append((step, busy, sum(r[2] for r in rows)))
-    finally:
-        LS.residuals2, LS.refit, LS.elemental = kernels
-    for tag, vals in out.items():
-        log(f"[{label}] lts canonical exhaustive step, sweep {tag} its kernels: "
+            peak, _ = step_peak_mib(lambda: pipe.run_raw(st.data))
+        out[route].append((step, busy, sum(r[2] for r in rows), peak))
+    for route, vals in out.items():
+        log(f"[{label}] lts canonical exhaustive step, sweep route {route}: "
             + "; ".join(f"{a:.4f} ms a step (CUDA events, 20 steps), sweep {b:.4f} ms "
-                        f"of device time in {c} kernels (one profiled solve)"
-                        for a, b, c in vals))
+                        f"of device time in {c} kernels (one profiled solve), peak "
+                        f"{p:.1f} MiB above the step's inputs" for a, b, c, p in vals))
 
 
 def phase_lts(label):

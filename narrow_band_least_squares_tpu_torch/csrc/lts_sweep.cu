@@ -8,8 +8,19 @@
 // multiply-add.  LTS flags hang on the last bits of the squared residuals,
 // so these kernels compute the same roundings: __fmaf_rn where XLA
 // contracts, __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn everywhere else
-// (nvcc never contracts those).  Four entry points:
+// (nvcc never contracts those).  Five entry points:
 //
+//   nbls_lts_sweep       the candidate sweep of one block of candidates in
+//                        one launch: per (window, candidate) row, n_steps
+//                        C-steps (residuals, rank keys, ranks by
+//                        comparison, weights rank < h, the five-tree
+//                        refit), then the trimmed objective (ranks again,
+//                        the tree over sel * r2, NaN -> inf) when asked;
+//                        everything in registers or shared memory, only
+//                        s (rows, 2) and obj (rows) written.  Its
+//                        arithmetic is that of the four below, composed as
+//                        ops/kernels/lts_sweep.py::sweep_reference composes
+//                        their plain versions, bit for bit;
 //   nbls_lts_residuals2  r2[row, p] = r * r,  r = tau[trow, p] -
 //                        fma(X[p,1], s[row,1], X[p,0] * s[row,0]),
 //                        trow = row / Q (the candidates of one window share
@@ -44,12 +55,27 @@
 // fusions end, which the port matches only within their rounding
 // (tests/test_torch_dtypes.py).
 //
-// What bounds it: bytes and launches.  Each output costs a few operations
-// against 8-16 bytes of memory traffic; the refit reads its row's weights
-// and delays five times, from L1.  The canonical sweep (632 windows x 378
-// candidates x 28 equations) moves ~27 MB a residual pass.  A row of up to
-// 64 equations keeps its tree in registers (the capacity is a template
-// parameter); longer rows, up to MAX_HALF * 2, use local memory.
+// What bounds the four passes: bytes and launches.  Each output costs a
+// few operations against 8-16 bytes of memory traffic; the refit reads its
+// row's weights and delays five times, from L1.  The canonical sweep (632
+// windows x 378 candidates x 28 equations) moves ~27 MB a residual pass.  A
+// row of up to 64 equations keeps its tree in registers (the capacity is a
+// template parameter); longer rows, up to MAX_HALF * 2, use local memory.
+//
+// What bounds nbls_lts_sweep: operations.  Per row it reads 2 slowness
+// values and writes 3; its window's delays and the co-array are staged in
+// shared memory once a block.  The work is the ranks, P * P comparisons a
+// rank pass, and the shuffles of the trees.  Rows of at most 64 equations
+// take one warp each (lane k owns equations k and k + 32; a block of 8
+// warps takes 8 candidates of one window, so the grid is windows x
+// ceil(Q / 8) blocks and the last group of a window may leave warps idle);
+// keys are broadcast with __shfl_sync and each lane counts its own
+// elements' ranks; a tree's level of half width 32 runs inside the lane,
+// the lower levels with __shfl_down_sync, its first level's operands
+// shuffled before the fused multiply-add, so every sum pairs as the
+// plain version's halving tree does (float addition commutes: which lane
+// adds changes no bit).  Longer rows, up to MAX_P, take one block each,
+// the row and its trees in shared memory.
 //
 // Plain C interface, bound from Python with ctypes; built with
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -181,6 +207,21 @@ __device__ __forceinline__ float tree_dot(int P, int half, bool contract, Leaf l
   return x[0];
 }
 
+// The refit's 2x2 solve from its five sums: det = fma(m00, m11, -(m01
+// m01)), the numerators fma(b0, m11, -(b1 m01)) and fma(b1, m00, -(b0
+// m01)), one division each, zeros where |det| <= eps.
+template <class T>
+__device__ __forceinline__ float2 solve2(float m00, float m01, float m11, float b0, float b1,
+                                         float eps) {
+  using O = Ops<T>;
+  const float det = O::fma(m00, m11, -O::mul(m01, m01));
+  const bool ok = fabsf(det) > eps;
+  const float safe = ok ? det : 1.f;
+  const float s0 = O::div(O::fma(b0, m11, -O::mul(b1, m01)), safe);
+  const float s1 = O::div(O::fma(b1, m00, -O::mul(b0, m01)), safe);
+  return make_float2(ok ? s0 : 0.f, ok ? s1 : 0.f);
+}
+
 template <class T, int CAP>
 __global__ void __launch_bounds__(THREADS)
 refit_kernel(const T* __restrict__ tau, const T* __restrict__ X,
@@ -215,13 +256,9 @@ refit_kernel(const T* __restrict__ tau, const T* __restrict__ X,
     b1 = tree_dot<T, CAP>(P, half, contract & 16, [&](int k) {
       return make_float2(wt(k), N::ld(X[2 * k + 1])); });
   }
-  const float det = O::fma(m00, m11, -O::mul(m01, m01));
-  const bool ok = fabsf(det) > eps;
-  const float safe = ok ? det : 1.f;
-  const float s0 = O::div(O::fma(b0, m11, -O::mul(b1, m01)), safe);
-  const float s1 = O::div(O::fma(b1, m00, -O::mul(b0, m01)), safe);
-  out[2 * row] = N::st(ok ? s0 : 0.f);
-  out[2 * row + 1] = N::st(ok ? s1 : 0.f);
+  const float2 sol = solve2<T>(m00, m01, m11, b0, b1, eps);
+  out[2 * row] = N::st(sol.x);
+  out[2 * row + 1] = N::st(sol.y);
 }
 
 template <class T>
@@ -239,6 +276,335 @@ elemental_kernel(const T* __restrict__ tau, const long long* __restrict__ cand,
     const T* a = A + 4 * q;
     out[2 * i] = N::st(O::fma(N::ld(a[1]), t1, O::mul(N::ld(a[0]), t0)));
     out[2 * i + 1] = N::st(O::fma(N::ld(a[3]), t1, O::mul(N::ld(a[2]), t0)));
+  }
+}
+
+// ---------------------------------------------------------------------------
+// nbls_lts_sweep: C-steps and the trimmed objective, one launch a block of
+// candidates
+// ---------------------------------------------------------------------------
+
+constexpr unsigned FULL_MASK = 0xffffffffu;
+constexpr int MAX_P = 2 * MAX_HALF;
+constexpr int SWEEP_WARPS = 8;     // warp route: candidates of one window a block
+constexpr int WARP_P = 64;         // warp route: rows of at most this many equations
+constexpr int ROW_THREADS = 128;   // block route: threads a row
+
+// Which squared residuals take the unrounded delay lag * inv_fs
+// (ops/kernels/lts_sweep.py::ROLES): the C-steps' ranked keys (i) and the
+// keys they are counted against (j); the objective's i and j, and the
+// halves lo (index < half) and hi of its tree's leaves.
+constexpr int ROLE_STEP_I = 1, ROLE_STEP_J = 2, ROLE_OBJ_I = 4, ROLE_OBJ_J = 8,
+              ROLE_LO = 16, ROLE_HI = 32;
+
+struct SweepArgs {
+  const void* tau;     // (rows_tau, P)
+  const void* X;       // (P, 2)
+  const void* s_in;    // (rows_tau * Q, 2)
+  const float* lag;    // (rows_tau, P) or null when roles == 0
+  float inv_fs;
+  void* s_out;         // (rows_tau * Q, 2)
+  void* obj;           // (rows_tau * Q) or null: no objective
+  long long rows_tau;
+  int Q, P, h, n_steps, contract, roles;
+  float eps;
+};
+
+// The rank key of a value: its float32 bits as a monotone int32, NaN as
+// +inf and -0 as +0 (ops/kernels/lts_sweep.py::rank_keys, whose int64 key
+// adds the index: here ties break by index in `before`).
+__device__ __forceinline__ int rank_key(float x) {
+  int b = isnan(x) ? 0x7f800000 : __float_as_int(x);
+  if (b == (int)0x80000000) b = 0;
+  return b < 0 ? b ^ 0x7FFFFFFF : b;
+}
+
+// 1 when element j (key kj) counts against element i (key ki): (kj, j) <
+// (ki, i).  With j == i it counts only where i's two keys differ.  Keys are
+// at most 0x7f800000 (+inf), so ki + 1 does not overflow: for j < i the
+// test is kj <= ki.
+__device__ __forceinline__ int before(int kj, int j, int ki, int i) {
+  return kj < ki + (j < i);
+}
+
+// --- warp route: one warp a row, lane k owns equations k and k + 32 -----
+
+// The later levels of a warp's halving tree, x[i] += x[i + m] for m = half
+// / 2, ..., 1: the sum in lane 0.
+template <class T>
+__device__ __forceinline__ float warp_levels(float x, int half) {
+  for (int m = half >> 1; m >= 1; m >>= 1)
+    x = Ops<T>::add(x, __shfl_down_sync(FULL_MASK, x, m));
+  return x;
+}
+
+// sum_p u[p] v[p] as the halving tree over 2 * half leaves (zero past P),
+// its first level fma(u[i], v[i], u[i+half] v[i+half]) when `contract`, in
+// lane i from its element i (ul, vl) and element i + half (uh, vh; `in`
+// when i + half < P).  The sum in lane 0.
+template <class T>
+__device__ __forceinline__ float warp_dot(int half, bool contract, float ul, float vl,
+                                          bool in, float uh, float vh) {
+  using O = Ops<T>;
+  if (half == 0) return O::mul(ul, vl);   // P == 1: one product
+  const float hi = in ? O::mul(uh, vh) : 0.f;
+  return warp_levels<T>(contract ? O::fma(ul, vl, hi) : O::add(O::mul(ul, vl), hi), half);
+}
+
+// sum_p x[p] as the halving tree (tree_sum_last): the sum in lane 0.
+template <class T, int S>
+__device__ __forceinline__ float warp_sum(int lane, int P, int half, const float (&x)[S]) {
+  if (half == 0) return x[0];
+  float xh;
+  if constexpr (S == 2) xh = x[1];
+  else xh = __shfl_down_sync(FULL_MASK, x[0], half);
+  return warp_levels<T>(Ops<T>::add(x[0], lane + half < P ? xh : 0.f), half);
+}
+
+// rank[k] of the lane's element 32 k + lane: how many elements j count
+// against it.  The warp's keys kJ go through its row of shared memory
+// (INT_MAX past P, which counts against nothing) and every lane reads
+// four at a time, the same address across the warp: a broadcast.
+template <int S>
+__device__ __forceinline__ void warp_ranks(int lane, int P, int* keys, const int (&kI)[S],
+                                           const int (&kJ)[S], int (&rank)[S]) {
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    keys[32 * k + lane] = 32 * k + lane < P ? kJ[k] : 0x7fffffff;
+    rank[k] = 0;
+  }
+  __syncwarp();
+  const int4* k4 = reinterpret_cast<const int4*>(keys);
+  const int n4 = (P + 3) >> 2;
+#pragma unroll 4
+  for (int j4 = 0; j4 < n4; ++j4) {
+    const int4 q = k4[j4];
+    const int j = 4 * j4;
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int i = 32 * k + lane;
+      rank[k] += before(q.x, j, kI[k], i) + before(q.y, j + 1, kI[k], i) +
+                 before(q.z, j + 2, kI[k], i) + before(q.w, j + 3, kI[k], i);
+    }
+  }
+  __syncwarp();   // every lane has read the keys before the next pass writes them
+}
+
+// S = 1 for P <= 32, 2 for P <= 64.  Block: SWEEP_WARPS candidates of one
+// window (blockIdx = window * groups + group).
+template <class T, int S>
+__global__ void __launch_bounds__(SWEEP_WARPS * 32)
+sweep_warp_kernel(SweepArgs a) {
+  using N = Num<T>;
+  using O = Ops<T>;
+  __shared__ float sx[2 * WARP_P], st[WARP_P], sl[WARP_P];
+  __shared__ __align__(16) int skeys[SWEEP_WARPS][WARP_P];   // a row of keys a warp
+  const int P = a.P, Q = a.Q;
+  const int groups = (Q + SWEEP_WARPS - 1) / SWEEP_WARPS;
+  const long long trow = blockIdx.x / groups;
+  const int q = (int)(blockIdx.x % groups) * SWEEP_WARPS + (int)(threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  const T* X = (const T*)a.X;
+  const T* tau = (const T*)a.tau + trow * P;
+  for (int k = threadIdx.x; k < P; k += blockDim.x) {
+    sx[2 * k] = N::ld(X[2 * k]);
+    sx[2 * k + 1] = N::ld(X[2 * k + 1]);
+    st[k] = N::ld(tau[k]);
+    if (a.roles) sl[k] = a.lag[trow * P + k];
+  }
+  __syncthreads();
+  if (q >= Q) return;   // the last group of a window; no barrier follows
+  const long long row = trow * Q + q;
+  float x0[S], x1[S], t[S], lg[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = 32 * k + lane;
+    const bool in = i < P;
+    x0[k] = in ? sx[2 * i] : 0.f;
+    x1[k] = in ? sx[2 * i + 1] : 0.f;
+    t[k] = in ? st[i] : 0.f;
+    lg[k] = in && a.roles ? sl[i] : 0.f;
+  }
+  const T* s_in = (const T*)a.s_in;
+  float s0 = N::ld(s_in[2 * row]), s1 = N::ld(s_in[2 * row + 1]);
+  const int half = P == 1 ? 0 : 1 << (31 - __clz(P - 1));
+  // Element lane + half, the upper operand of lane's first tree level: the
+  // lane's second element when half is 32, else lane + half's.
+  const bool in_hi = lane + half < P;
+  const float x0h = S == 2 ? x0[S - 1] : __shfl_down_sync(FULL_MASK, x0[0], half);
+  const float x1h = S == 2 ? x1[S - 1] : __shfl_down_sync(FULL_MASK, x1[0], half);
+  const float th = S == 2 ? t[S - 1] : __shfl_down_sync(FULL_MASK, t[0], half);
+  int* keys = skeys[threadIdx.x >> 5];
+  float r2[S], r2u[S], w[S];
+  // One rank pass at the fit (s0, s1): the squared residuals, rounded and
+  // (where a role of `need` asks) unrounded, the keys of roles bi (ranked)
+  // and bj (counted against), w = rank < h (0 past P).
+  auto pass = [&](int bi, int bj, int need) {
+    int kI[S], kJ[S], rank[S];
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const float xs = O::fma(x1[k], s1, O::mul(x0[k], s0));
+      const float r = O::sub(t[k], xs);
+      r2[k] = O::mul(r, r);
+      r2u[k] = r2[k];
+      if (a.roles & need) {
+        const float ru = __fmaf_rn(lg[k], a.inv_fs, -xs);
+        r2u[k] = __fmul_rn(ru, ru);
+      }
+      kI[k] = rank_key(a.roles & bi ? r2u[k] : r2[k]);
+      kJ[k] = rank_key(a.roles & bj ? r2u[k] : r2[k]);
+    }
+    warp_ranks<S>(lane, P, keys, kI, kJ, rank);
+#pragma unroll
+    for (int k = 0; k < S; ++k) w[k] = 32 * k + lane < P && rank[k] < a.h ? 1.f : 0.f;
+  };
+  for (int step = 0; step < a.n_steps; ++step) {
+    pass(ROLE_STEP_I, ROLE_STEP_J, ROLE_STEP_I | ROLE_STEP_J);
+    // the leaves w X0, w X1, w tau of elements lane and lane + half
+    const float wh = S == 2 ? w[S - 1] : __shfl_down_sync(FULL_MASK, w[0], half);
+    const float wx0 = O::mul(w[0], x0[0]), wx1 = O::mul(w[0], x1[0]), wt = O::mul(w[0], t[0]);
+    const float wx0h = O::mul(wh, x0h), wx1h = O::mul(wh, x1h), wth = O::mul(wh, th);
+    const int c = a.contract;
+    const float m00 = warp_dot<T>(half, c & 1, wx0, x0[0], in_hi, wx0h, x0h);
+    const float m01 = warp_dot<T>(half, c & 2, wx0, x1[0], in_hi, wx0h, x1h);
+    const float m11 = warp_dot<T>(half, c & 4, wx1, x1[0], in_hi, wx1h, x1h);
+    const float b0 = warp_dot<T>(half, c & 8, wt, x0[0], in_hi, wth, x0h);
+    const float b1 = warp_dot<T>(half, c & 16, wt, x1[0], in_hi, wth, x1h);
+    const float2 sol = solve2<T>(m00, m01, m11, b0, b1, a.eps);   // right in lane 0
+    s0 = __shfl_sync(FULL_MASK, sol.x, 0);
+    s1 = __shfl_sync(FULL_MASK, sol.y, 0);
+  }
+  if (a.obj) {
+    pass(ROLE_OBJ_I, ROLE_OBJ_J, ROLE_OBJ_I | ROLE_OBJ_J | ROLE_LO | ROLE_HI);
+    float v[S];   // sel * r2, the leaves below half from lo, the others from hi
+#pragma unroll
+    for (int k = 0; k < S; ++k) {
+      const int role = 32 * k + lane < half ? ROLE_LO : ROLE_HI;
+      v[k] = O::mul(w[k], a.roles & role ? r2u[k] : r2[k]);
+    }
+    const float sum = warp_sum<T, S>(lane, P, half, v);
+    if (lane == 0) ((T*)a.obj)[row] = N::st(isnan(sum) ? __int_as_float(0x7f800000) : sum);
+  }
+  if (lane == 0) {
+    ((T*)a.s_out)[2 * row] = N::st(s0);
+    ((T*)a.s_out)[2 * row + 1] = N::st(s1);
+  }
+}
+
+// --- block route: one block a row (64 < P <= MAX_P), in shared memory ------
+
+// The later levels of `n` halving trees in shared memory, x[i] += x[i + m]
+// for m = half / 2, ..., 1: the sums in x[.][0].
+template <class T, int N>
+__device__ __forceinline__ void block_levels(float (&x)[5][MAX_HALF], int half) {
+  for (int m = half >> 1; m >= 1; m >>= 1) {
+    for (int i = threadIdx.x; i < m; i += blockDim.x) {
+#pragma unroll
+      for (int c = 0; c < N; ++c) x[c][i] = Ops<T>::add(x[c][i], x[c][i + m]);
+    }
+    __syncthreads();
+  }
+}
+
+template <class T>
+__global__ void __launch_bounds__(ROW_THREADS)
+sweep_block_kernel(SweepArgs a) {
+  using N = Num<T>;
+  using O = Ops<T>;
+  __shared__ float sx0[MAX_P], sx1[MAX_P], st[MAX_P], sl[MAX_P];
+  __shared__ float sv[MAX_P];   // the objective's leaf residuals (role lo / hi)
+  __shared__ float sw[MAX_P];   // weights, then the objective's sel * r2
+  __shared__ int ski[MAX_P], skj[MAX_P];
+  __shared__ float tree[5][MAX_HALF];
+  __shared__ float ss[2];
+  const int P = a.P, tid = threadIdx.x, nt = blockDim.x;
+  const long long row = blockIdx.x, trow = row / a.Q;
+  const T* X = (const T*)a.X;
+  const T* tau = (const T*)a.tau + trow * P;
+  for (int k = tid; k < P; k += nt) {
+    sx0[k] = N::ld(X[2 * k]);
+    sx1[k] = N::ld(X[2 * k + 1]);
+    st[k] = N::ld(tau[k]);
+    sl[k] = a.roles ? a.lag[trow * P + k] : 0.f;
+  }
+  if (tid == 0) {
+    ss[0] = N::ld(((const T*)a.s_in)[2 * row]);
+    ss[1] = N::ld(((const T*)a.s_in)[2 * row + 1]);
+  }
+  __syncthreads();
+  const int half = 1 << (31 - __clz(P - 1));
+  // One rank pass at the fit ss: keys of roles bi and bj, then sw = w or,
+  // for the objective, w * r2.
+  auto pass = [&](int bi, int bj, int need, bool objective) {
+    const float s0 = ss[0], s1 = ss[1];
+    for (int i = tid; i < P; i += nt) {
+      const float xs = O::fma(sx1[i], s1, O::mul(sx0[i], s0));
+      const float r = O::sub(st[i], xs);
+      const float r2 = O::mul(r, r);
+      float r2u = r2;
+      if (a.roles & need) {
+        const float ru = __fmaf_rn(sl[i], a.inv_fs, -xs);
+        r2u = __fmul_rn(ru, ru);
+      }
+      ski[i] = rank_key(a.roles & bi ? r2u : r2);
+      skj[i] = rank_key(a.roles & bj ? r2u : r2);
+      sv[i] = a.roles & (i < half ? ROLE_LO : ROLE_HI) ? r2u : r2;
+    }
+    __syncthreads();
+    for (int i = tid; i < P; i += nt) {
+      const int ki = ski[i];
+      int rank = 0;
+      for (int j = 0; j < P; ++j) rank += before(skj[j], j, ki, i);
+      const float w = rank < a.h ? 1.f : 0.f;
+      sw[i] = objective ? O::mul(w, sv[i]) : w;
+    }
+    __syncthreads();
+  };
+  const int c = a.contract;
+  for (int step = 0; step < a.n_steps; ++step) {
+    pass(ROLE_STEP_I, ROLE_STEP_J, ROLE_STEP_I | ROLE_STEP_J, false);
+    for (int i = tid; i < half; i += nt) {
+      const int k = i + half;
+      const bool in = k < P;
+      const float wl = sw[i], x0l = sx0[i], x1l = sx1[i];
+      const float wh = in ? sw[k] : 0.f, x0h = in ? sx0[k] : 0.f, x1h = in ? sx1[k] : 0.f;
+      const float wx0l = O::mul(wl, x0l), wx1l = O::mul(wl, x1l), wtl = O::mul(wl, st[i]);
+      const float wx0h = O::mul(wh, x0h), wx1h = O::mul(wh, x1h);
+      const float wth = O::mul(wh, in ? st[k] : 0.f);
+      auto first = [&](float ul, float vl, float uh, float vh, bool contract) {
+        const float hi = in ? O::mul(uh, vh) : 0.f;
+        return contract ? O::fma(ul, vl, hi) : O::add(O::mul(ul, vl), hi);
+      };
+      tree[0][i] = first(wx0l, x0l, wx0h, x0h, c & 1);
+      tree[1][i] = first(wx0l, x1l, wx0h, x1h, c & 2);
+      tree[2][i] = first(wx1l, x1l, wx1h, x1h, c & 4);
+      tree[3][i] = first(wtl, x0l, wth, x0h, c & 8);
+      tree[4][i] = first(wtl, x1l, wth, x1h, c & 16);
+    }
+    __syncthreads();
+    block_levels<T, 5>(tree, half);
+    if (tid == 0) {
+      const float2 sol = solve2<T>(tree[0][0], tree[1][0], tree[2][0], tree[3][0],
+                                   tree[4][0], a.eps);
+      ss[0] = sol.x;
+      ss[1] = sol.y;
+    }
+    __syncthreads();
+  }
+  if (a.obj) {
+    pass(ROLE_OBJ_I, ROLE_OBJ_J, ROLE_OBJ_I | ROLE_OBJ_J | ROLE_LO | ROLE_HI, true);
+    for (int i = tid; i < half; i += nt)
+      tree[0][i] = O::add(sw[i], i + half < P ? sw[i + half] : 0.f);
+    __syncthreads();
+    block_levels<T, 1>(tree, half);
+    if (tid == 0) {
+      const float sum = tree[0][0];
+      ((T*)a.obj)[row] = N::st(isnan(sum) ? __int_as_float(0x7f800000) : sum);
+    }
+  }
+  if (tid == 0) {
+    ((T*)a.s_out)[2 * row] = N::st(ss[0]);
+    ((T*)a.s_out)[2 * row + 1] = N::st(ss[1]);
   }
 }
 
@@ -276,6 +642,24 @@ int elemental(const void* tau, const void* cand, const void* A, void* out, long 
   const long long n = rows_tau * Q;
   elemental_kernel<T><<<grid_for(n), THREADS, 0, stream>>>(
       (const T*)tau, (const long long*)cand, (const T*)A, (T*)out, n, Q, P);
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int sweep(const SweepArgs& a, cudaStream_t stream) {
+  constexpr long long kMaxGrid = 0x7fffffffLL;
+  if (a.P <= WARP_P) {
+    const long long blocks = a.rows_tau * ((a.Q + SWEEP_WARPS - 1) / SWEEP_WARPS);
+    if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+    if (a.P <= 32)
+      sweep_warp_kernel<T, 1><<<(unsigned)blocks, SWEEP_WARPS * 32, 0, stream>>>(a);
+    else
+      sweep_warp_kernel<T, 2><<<(unsigned)blocks, SWEEP_WARPS * 32, 0, stream>>>(a);
+  } else {
+    const long long blocks = a.rows_tau * a.Q;
+    if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+    sweep_block_kernel<T><<<(unsigned)blocks, ROW_THREADS, 0, stream>>>(a);
+  }
   return (int)cudaGetLastError();
 }
 
@@ -336,6 +720,32 @@ int nbls_lts_elemental(int dtype, const void* tau, const void* cand, const void*
     case 0: return elemental<float>(tau, cand, A, out, rows_tau, Q, P, stream);
     case 1: return elemental<__nv_bfloat16>(tau, cand, A, out, rows_tau, Q, P, stream);
     case 2: return elemental<__half>(tau, cand, A, out, rows_tau, Q, P, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The candidate sweep of s_in (rows_tau, Q, 2) on tau (rows_tau, P) through
+// X (P, 2): n_steps C-steps (weights rank < h, the refit's first levels
+// contracted per `contract`), then, when `objective`, the trimmed objective
+// into obj (rows_tau, Q); the final fits into s_out (rows_tau, Q, 2).  Bit
+// k of `roles` (ROLE_*) takes that role's squared residuals from the
+// unrounded delay lag * inv_fs (lag (rows_tau, P), float32 only).  P <=
+// MAX_P; dtype code 0/1/2.
+int nbls_lts_sweep(int dtype, const void* tau, const void* X, const void* s_in,
+                   const float* lag, float inv_fs, void* s_out, void* obj,
+                   long long rows_tau, int Q, int P, int h, int n_steps, int contract,
+                   int objective, int roles, float eps, cudaStream_t stream) {
+  if (rows_tau <= 0 || Q <= 0 || P <= 0 || P > MAX_P || n_steps < 0)
+    return (int)cudaErrorInvalidValue;
+  if ((roles && (dtype != 0 || lag == nullptr)) || (objective && obj == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const SweepArgs a{tau,   X, s_in, roles ? lag : nullptr, inv_fs, s_out,
+                    objective ? obj : nullptr, rows_tau, Q, P, h, n_steps, contract,
+                    roles, eps};
+  switch (dtype) {
+    case 0: return sweep<float>(a, stream);
+    case 1: return sweep<__nv_bfloat16>(a, stream);
+    case 2: return sweep<__half>(a, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,8 +6,15 @@ package's sweep (``narrow_band_least_squares_tpu/ops/lts.py``) is plain
 XLA, and XLA's CPU backend contracts a multiply whose product feeds an add
 inside one fusion into a fused multiply-add (one rounding).  The flags
 hang on the last bits of the squared residuals, so the port computes the
-same roundings, in four entry points:
+same roundings, in five entry points:
 
+- `sweep` (the candidate sweep, ``ops.lts._candidate_sweep``): for each
+  (window, candidate) row, ``n_steps`` C-steps (the residuals, their rank
+  keys, ranks by comparison, weights ``rank < h`` and the refit below),
+  then, when asked, the trimmed objective (the tree of `tree_sum_last`
+  over ``sel * r2``, NaN -> inf), in one launch; its plain version,
+  `sweep_reference`, composes the plain versions of the passes below and
+  `rank_along_last`, as the sweep did before it had a kernel;
 - `residuals2` (``_residuals2`` and the final subset): ``r = tau -
   fma(X[p,1], s1, X[p,0] * s0)``, ``r2 = r * r``;
 - `residuals2_lag` (the sites where the one-band programs fuse the delays'
@@ -33,8 +40,8 @@ narrow dtypes round where XLA's fusions end, which the port matches only
 within their rounding, ``tests/test_torch_dtypes.py``).
 
 A CUDA tensor goes to the kernel of its entry point, which counts a launch
-in ``launches_residuals2``, ``launches_residuals2_lag``, ``launches_refit``
-or ``launches_elemental``; a
+in ``launches_sweep``, ``launches_residuals2``, ``launches_residuals2_lag``,
+``launches_refit`` or ``launches_elemental``; a
 CPU tensor goes to its plain version (``*_reference``), which the kernels
 equal bit for bit.  The plain versions build on `fma`, an exact float32
 fused multiply-add: the float32 product is exact in float64, and the
@@ -51,6 +58,7 @@ import torch
 import torch.nn.functional as Fnn
 
 # Launches of each kernel since its count was last set to 0.
+launches_sweep = 0
 launches_residuals2 = 0
 launches_residuals2_lag = 0
 launches_refit = 0
@@ -62,8 +70,17 @@ MAX_P = 1024
 # level contracted:
 SUMS = ("m00", "m01", "m11", "b0", "b1")
 ALL_CONTRACTED = (1 << len(SUMS)) - 1
+# The squared residuals of `sweep` that may take the unrounded delay ``lag *
+# inv_fs`` (``ops.lts.delay_contracted``'s roles), in the bit order of
+# ``roles``: the C-steps' ranked keys and the keys they are counted against,
+# the objective's, and the halves of the objective tree's first level.
+ROLES = ("step.i", "step.j", "objective.i", "objective.j", "objective.lo", "objective.hi")
 # dtype codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
+# Byte budget of the (rows, P, P) boolean temporary of one `rank_along_last`
+# chunk: the canonical plan's sweep (632 windows x 378 candidates, P = 28)
+# takes one chunk, a 50-band plan two.
+RANK_CHUNK_BYTES = 1 << 30
 
 _bound = None
 
@@ -79,8 +96,10 @@ def _lib():
         lib.nbls_lts_residuals2_lag.argtypes = [p, ctypes.c_float, p, p, p, ll, i, i, p]
         lib.nbls_lts_refit.argtypes = [i, p, p, p, p, ll, i, i, ctypes.c_float, i, p]
         lib.nbls_lts_elemental.argtypes = [i, p, p, p, p, ll, i, i, p]
+        lib.nbls_lts_sweep.argtypes = [i, p, p, p, p, ctypes.c_float, p, p, ll,
+                                       i, i, i, i, i, i, i, ctypes.c_float, p]
         for fn in (lib.nbls_lts_residuals2, lib.nbls_lts_residuals2_lag, lib.nbls_lts_refit,
-                   lib.nbls_lts_elemental):
+                   lib.nbls_lts_elemental, lib.nbls_lts_sweep):
             fn.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -167,6 +186,121 @@ def elemental_reference(tau: torch.Tensor, cand: torch.Tensor, Ainv: torch.Tenso
     t0, t1 = tp[..., 0], tp[..., 1]
     return torch.stack([fma(Ainv[:, 0, 1], t1, Ainv[:, 0, 0] * t0),
                         fma(Ainv[:, 1, 1], t1, Ainv[:, 1, 0] * t0)], dim=-1)
+
+
+def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis as a fixed halving tree of binary adds.
+
+    Every reduction whose result the LTS sweep compares (rank selection,
+    funnel and argmin objectives) goes through this, so that the card and
+    the CPU, and every batch shape, add in one order and pick the same
+    candidates.  Zero-padding to a power of two is exact.
+    """
+    n = x.shape[-1]
+    p = 1 << max(n - 1, 0).bit_length()
+    if p != n:
+        x = Fnn.pad(x, (0, p - n))
+    while p > 1:
+        p //= 2
+        x = x[..., :p] + x[..., p:2 * p]
+    return x[..., 0]
+
+
+def rank_keys(x: torch.Tensor) -> torch.Tensor:
+    """int64 keys (..., P), all distinct, whose order is that of (value,
+    index): x_j before x_i when x_j < x_i, or x_j == x_i and j < i.  NaN
+    counts as +inf and -0.0 as +0.0; the bits of ``x`` as float32 map to a
+    monotone int32 (negative values flip their magnitude bits), times P,
+    plus the index."""
+    x = x.float()    # a narrower float widens exactly, keeping its order
+    x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x) + 0.0
+    b = x.contiguous().view(torch.int32)
+    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
+    P = x.shape[-1]
+    return b.to(torch.int64) * P + torch.arange(P, device=x.device)
+
+
+def rank_along_last(x: torch.Tensor, against: torch.Tensor = None,
+                    chunk_bytes: int = None) -> torch.Tensor:
+    """Stable rank of each element along the last axis (0 = smallest).
+
+    Pairwise comparison counts: NaNs rank last (as +inf), exact ties break
+    by index (element j counts against i when x_j < x_i, or x_j == x_i and
+    j < i), as a stable sort would.  One comparison a pair, of the
+    distinct keys of `rank_keys`, counted over the middle axis of a
+    (rows, j, i) boolean; the rows are taken in chunks whose temporaries
+    fit ``chunk_bytes`` (default `RANK_CHUNK_BYTES`).  Rows are independent
+    and counts are integers, so the chunking changes no result.  Counts are
+    uint8 where P <= 255: no wider copy of the booleans is made to sum them.
+
+    ``against`` (x's shape) holds the values x_j is read from where they
+    differ from the ranked x_i (the one-band programs' objective,
+    ``ops.lts``): then element i counts itself when against_i < x_i.
+    """
+    P = x.shape[-1]
+    k = rank_keys(x).reshape(-1, P)
+    kj = k if against is None or against is x else rank_keys(against).reshape(-1, P)
+    cdt = torch.uint8 if P <= 255 else torch.int32
+    step = max(1, (RANK_CHUNK_BYTES if chunk_bytes is None else chunk_bytes) // (P * P))
+    out = torch.empty(k.shape, dtype=cdt, device=x.device)
+    for r0 in range(0, k.shape[0], step):
+        kc = k[r0:r0 + step]
+        lt = kj[r0:r0 + step, :, None] < kc[:, None, :]   # [r, j, i]: key_j < key_i
+        out[r0:r0 + step] = (lt.view(torch.uint8) if cdt == torch.uint8 else lt).sum(
+            1, dtype=cdt)
+    return out.reshape(x.shape)
+
+
+def _role_residuals2(passes, tau, X, s, lag, inv_fs, roles, bits):
+    """The squared residuals (..., Q, P) of the fits s for each role bit of
+    ``bits``: from the lags where ``roles`` has the bit, else from the
+    rounded delays, each computed once."""
+    residuals2_fn, residuals2_lag_fn, _ = passes
+    un = (residuals2_lag_fn(lag, inv_fs, X, s) if any(roles & b for b in bits)
+          else None)
+    rounded = (residuals2_fn(tau, X, s) if any(not roles & b for b in bits)
+               else None)
+    return tuple(un if roles & b else rounded for b in bits)
+
+
+def sweep_reference(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int,
+                    n_steps: int, contract: int = ALL_CONTRACTED, objective: bool = True,
+                    lag: torch.Tensor = None, inv_fs: float = 0.0, roles: int = 0,
+                    eps: float = 1e-12, *, passes=None):
+    """The plain version of `sweep`: the C-steps and the trimmed objective
+    as separate passes, (s (..., Q, 2), obj (..., Q) or None).
+
+    Each C-step ranks the squared residuals of s (`rank_along_last`, the
+    keys of role ``step.i`` ranked against those of ``step.j``), keeps the
+    h smallest as 0/1 weights and refits (`refit_reference`, ``contract``).
+    The objective ranks the residuals of the final s the same way (roles
+    ``objective.i`` and ``objective.j``) and sums ``sel * r2`` with
+    `tree_sum_last`, the leaves below half of the next power of two from
+    role ``objective.lo``'s residuals and the others from
+    ``objective.hi``'s; NaN -> inf.  A role whose bit is set in ``roles``
+    (`ROLES`) takes its residuals from the lags (`residuals2_lag_reference`),
+    else from tau (`residuals2_reference`).  ``passes`` replaces the three
+    plain passes (residuals2, residuals2_lag, refit) by others of the same
+    signatures, the kernels' wrappers for example.
+    """
+    if passes is None:
+        passes = (residuals2_reference, residuals2_lag_reference, refit_reference)
+    refit_fn = passes[2]
+    bit = {r: 1 << k for k, r in enumerate(ROLES)}
+    for _ in range(n_steps):
+        r2i, r2j = _role_residuals2(passes, tau, X, s, lag, inv_fs, roles,
+                                    (bit["step.i"], bit["step.j"]))
+        weight = (rank_along_last(r2i, r2j) < h).to(tau.dtype)
+        s = refit_fn(tau[..., None, :], X, weight, eps, contract)
+    if not objective:
+        return s, None
+    r2i, r2j, lo, hi = _role_residuals2(passes, tau, X, s, lag, inv_fs, roles, tuple(
+        bit[f"objective.{r}"] for r in ("i", "j", "lo", "hi")))
+    sel = (rank_along_last(r2i, r2j) < h).to(tau.dtype)
+    half = (1 << max(lo.shape[-1] - 1, 0).bit_length()) // 2
+    v = lo if hi is lo else torch.cat([lo[..., :half], hi[..., half:]], dim=-1)
+    obj = tree_sum_last(sel * v)                      # (..., Q)
+    return s, torch.where(torch.isnan(obj), torch.full_like(obj, float("inf")), obj)
 
 
 # --------------------------------------------------------------------------
@@ -314,3 +448,56 @@ def elemental(tau: torch.Tensor, cand: torch.Tensor, Ainv: torch.Tensor) -> torc
             tau_c.numel() // P, Q, P, torch.cuda.current_stream(tau.device).cuda_stream))
     launches_elemental += 1
     return out
+
+
+def sweep(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int, n_steps: int,
+          contract: int = ALL_CONTRACTED, objective: bool = True, lag: torch.Tensor = None,
+          inv_fs: float = 0.0, roles: int = 0, eps: float = 1e-12):
+    """The candidate sweep of the fits s (..., Q, 2) on tau (..., P) through
+    the co-array X (P, 2): ``n_steps`` C-steps keeping the h smallest
+    squared residuals, the refit's first levels contracted per
+    ``contract``, then, when ``objective``, the trimmed objective.  Returns
+    (s (..., Q, 2), obj (..., Q) or None).  ``roles`` (bits of `ROLES`)
+    names the residuals taken from the unrounded delay ``lag * inv_fs``
+    (lag tau's shape, float32).  On the card one launch (one warp a row up
+    to 64 equations, one block a row up to `MAX_P`), on the CPU
+    `sweep_reference`."""
+    global launches_sweep
+    inv_fs = float(torch.tensor(inv_fs, dtype=torch.float32))
+    if roles and (lag is None or lag.dtype != torch.float32):
+        raise TypeError("lts_sweep: delay roles need float32 lags (only float32 programs "
+                        f"contract); got {None if lag is None else lag.dtype}")
+    if tau.device.type == "cpu":
+        return sweep_reference(tau, X, s, h, n_steps, contract, objective, lag, inv_fs,
+                               roles, eps)
+    code = _check_cuda("lts_sweep", tau, X, s)
+    P, Q = tau.shape[-1], s.shape[-2]
+    if s.shape[:-2] != tau.shape[:-1] or s.shape[-1] != 2 or X.shape != (P, 2):
+        raise ValueError(f"lts_sweep needs tau (..., P), X (P, 2), s (..., Q, 2); got "
+                         f"{tuple(tau.shape)}, {tuple(X.shape)}, {tuple(s.shape)}")
+    if P > MAX_P:
+        raise ValueError(f"lts_sweep on the card takes rows of at most {MAX_P} "
+                         f"equations; got {P}")
+    if n_steps < 0:
+        raise ValueError(f"lts_sweep: n_steps must be >= 0; got {n_steps}")
+    lag_c = None
+    if roles:
+        if lag.shape != tau.shape or lag.device != tau.device:
+            raise ValueError(f"lts_sweep: lag must be tau's shape on {tau.device}; got "
+                             f"{tuple(lag.shape)} on {lag.device}")
+        lag_c = lag.contiguous()
+    tau_c, X_c, s_c = tau.contiguous(), X.contiguous(), s.contiguous()
+    s_out = torch.empty_like(s_c)
+    obj = (torch.empty(s.shape[:-1], dtype=tau.dtype, device=tau.device) if objective
+           else None)
+    if s_out.numel() == 0:
+        return s_out, obj
+    with torch.cuda.device(tau.device):
+        _launched("lts_sweep", _lib().nbls_lts_sweep(
+            code, tau_c.data_ptr(), X_c.data_ptr(), s_c.data_ptr(),
+            None if lag_c is None else lag_c.data_ptr(), inv_fs, s_out.data_ptr(),
+            None if obj is None else obj.data_ptr(), tau_c.numel() // P, Q, P, int(h),
+            int(n_steps), int(contract), int(bool(objective)), int(roles), eps,
+            torch.cuda.current_stream(tau.device).cuda_stream))
+    launches_sweep += 1
+    return s_out, obj

@@ -36,8 +36,11 @@ Everything else rounds each operation, and a dtype narrower than float32
 contracts nothing.  `ops.kernels.lts_sweep` computes the contracted sites,
 with a kernel on the card (``csrc/lts_sweep.cu``) and an exact float32
 fused multiply-add on the CPU; compared sums are fixed trees
-(`ops.solve.tree_sum_last`), ranks are comparison counts and ties resolve
-by index.  The model holds in ``lts_solve`` jitted alone and in the
+(`ops.kernels.lts_sweep.tree_sum_last`), ranks are comparison counts and
+ties resolve by index.  On the card the C-steps and the trimmed objective
+of a candidate block are one launch (`ops.kernels.lts_sweep.sweep`), whose
+plain version composes those pieces.  The model holds in ``lts_solve``
+jitted alone and in the
 pipeline's step, the chunked ``lax.map`` sweep, the funnel, the merged
 multi-array program and the sharded step.
 
@@ -84,7 +87,6 @@ from narrow_band_least_squares_tpu_torch.ops.solve import (
     SIGMA_TAU_DOF_SHIFT,
     degrees,
     masked_refit,
-    tree_sum_last,
     vel_baz_from_slowness,
 )
 
@@ -158,9 +160,9 @@ def refit_contractions(P: int, site: str) -> int:
 
 
 # Byte budget of the (rows, P, P) boolean temporary of one
-# `_rank_along_last` chunk: the canonical plan's sweep (632 windows x 378
-# candidates, P = 28) takes one chunk, a 50-band plan two.
-RANK_CHUNK_BYTES = 1 << 30
+# `_rank_along_last` chunk (the final subset's ranks; the sweep's plain
+# version takes `ops.kernels.lts_sweep.RANK_CHUNK_BYTES`).
+RANK_CHUNK_BYTES = LS.RANK_CHUNK_BYTES
 
 
 def lts_h(alpha: float, P: int) -> int:
@@ -197,48 +199,11 @@ def precompute_candidates(
     return {"cand": cand, "Ainv": Ainv, "ok": ok}
 
 
-def _rank_keys(x: torch.Tensor) -> torch.Tensor:
-    """int64 keys (..., P), all distinct, whose order is that of (value,
-    index): x_j before x_i when x_j < x_i, or x_j == x_i and j < i.  NaN
-    counts as +inf and -0.0 as +0.0; the bits of ``x`` as float32 map to a
-    monotone int32 (negative values flip their magnitude bits), times P,
-    plus the index."""
-    x = x.float()    # a narrower float widens exactly, keeping its order
-    x = torch.where(torch.isnan(x), torch.full_like(x, float("inf")), x) + 0.0
-    b = x.contiguous().view(torch.int32)
-    b = torch.where(b < 0, b ^ 0x7FFFFFFF, b)
-    P = x.shape[-1]
-    return b.to(torch.int64) * P + torch.arange(P, device=x.device)
-
-
 def _rank_along_last(x: torch.Tensor, against: torch.Tensor = None) -> torch.Tensor:
-    """Stable rank of each element along the last axis (0 = smallest).
-
-    Pairwise comparison counts: NaNs rank last (as +inf), exact ties break
-    by index (element j counts against i when x_j < x_i, or x_j == x_i and
-    j < i), as a stable sort would.  One comparison a pair, of the
-    distinct keys of `_rank_keys`, counted over the middle axis of a
-    (rows, j, i) boolean; the rows are taken in chunks whose temporaries
-    fit `RANK_CHUNK_BYTES`.  Rows are independent and counts are integers,
-    so the chunking changes no result.  Counts are uint8 where P <= 255: no
-    wider copy of the booleans is made to sum them.
-
-    ``against`` (x's shape) holds the values x_j is read from where they
-    differ from the ranked x_i (the one-band programs' objective, module
-    docstring): then element i counts itself when against_i < x_i.
-    """
-    P = x.shape[-1]
-    k = _rank_keys(x).reshape(-1, P)
-    kj = k if against is None or against is x else _rank_keys(against).reshape(-1, P)
-    cdt = torch.uint8 if P <= 255 else torch.int32
-    step = max(1, RANK_CHUNK_BYTES // (P * P))
-    out = torch.empty(k.shape, dtype=cdt, device=x.device)
-    for r0 in range(0, k.shape[0], step):
-        kc = k[r0:r0 + step]
-        lt = kj[r0:r0 + step, :, None] < kc[:, None, :]   # [r, j, i]: key_j < key_i
-        out[r0:r0 + step] = (lt.view(torch.uint8) if cdt == torch.uint8 else lt).sum(
-            1, dtype=cdt)
-    return out.reshape(x.shape)
+    """Stable rank along the last axis, x_i ranked against ``against``
+    (`ops.kernels.lts_sweep.rank_along_last`), in chunks of
+    `RANK_CHUNK_BYTES`."""
+    return LS.rank_along_last(x, against, RANK_CHUNK_BYTES)
 
 
 def _residuals2(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor) -> torch.Tensor:
@@ -272,27 +237,31 @@ def _site_residuals2(tau, X, s, delay, site, roles=("i", "j", "lo", "hi")):
     return delay.residuals2([f"{site}.{r}" if r else site for r in roles], tau, X, s)
 
 
-def _c_steps(tau, X, s, h, n_steps, delay=None, site=None):
-    """``n_steps`` concentration steps on a candidate block s (..., Q, 2);
-    ``site`` names a lone step's rank keys for ``delay``."""
+def sweep_roles(sites, step_site=None, objective_site="objective") -> int:
+    """The ``roles`` bits (`ops.kernels.lts_sweep.ROLES`) of one
+    `lts_sweep.sweep` whose C-steps are ``step_site`` (None: a step of the
+    C-step loop, which takes the rounded delays) and whose objective is
+    ``objective_site``: those of the `delay_contracted` ``sites``."""
+    names = {"step": step_site, "objective": objective_site}
+    roles = 0
+    for k, role in enumerate(LS.ROLES):
+        where, r = role.split(".")
+        if names[where] and f"{names[where]}.{r}" in sites:
+            roles |= 1 << k
+    return roles
+
+
+def _sweep(tau, X, s, h, n_steps, delay=None, step_site=None, objective_site="objective"):
+    """``n_steps`` concentration steps on a candidate block s (..., Q, 2)
+    and the trimmed objective of the result (the sum of the h smallest
+    squared residuals as a fixed tree, NaN -> inf), one `lts_sweep.sweep`:
+    (s, obj); ``delay`` (`_Delay`) gives the unrounded residuals of the
+    sites' roles (`sweep_roles`)."""
     contract = refit_contractions(tau.shape[-1], "single" if n_steps == 1 else "loop")
-    for _ in range(n_steps):
-        r2i, r2j = _site_residuals2(tau, X, s, delay if site else None, site, ("i", "j"))
-        weight = (_rank_along_last(r2i, r2j) < h).to(tau.dtype)
-        s = masked_refit(tau[..., None, :], X, weight, contract=contract)
-    return s
-
-
-def _trimmed_objective(tau, X, s, h, delay=None, site="objective"):
-    """Sum of the h smallest squared residuals of each candidate fit (a
-    fixed tree, its first level's halves from ``site``'s lo and hi
-    residuals), NaN -> inf."""
-    r2i, r2j, lo, hi = _site_residuals2(tau, X, s, delay, site)
-    sel = (_rank_along_last(r2i, r2j) < h).to(tau.dtype)
-    half = (1 << max(lo.shape[-1] - 1, 0).bit_length()) // 2
-    v = lo if hi is lo else torch.cat([lo[..., :half], hi[..., half:]], dim=-1)
-    obj = tree_sum_last(sel * v)                      # (..., Q)
-    return torch.where(torch.isnan(obj), torch.full_like(obj, float("inf")), obj)
+    roles = 0 if delay is None else sweep_roles(delay.sites, step_site, objective_site)
+    return LS.sweep(tau, X, s, h, n_steps, contract, True,
+                    lag=delay.lag if roles else None,
+                    inv_fs=delay.inv_fs if roles else 0.0, roles=roles)
 
 
 def _take(s: torch.Tensor, i: torch.Tensor) -> torch.Tensor:
@@ -320,14 +289,14 @@ def _candidate_sweep(tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k=0, delay=
     inf = torch.full((), float("inf"), dtype=tau.dtype, device=tau.device)
 
     if funnel_k and funnel_k < cand.shape[0] and c_steps > 1:
-        s = _c_steps(tau, X, s, h, 1, delay, "single")
-        obj = torch.where(cand_ok, _trimmed_objective(tau, X, s, h, delay), inf)
-        s = _c_steps(tau, X, _take(s, _survivors(obj, funnel_k)), h, c_steps - 1)
-        # survivors not re-masked
-        return _trimmed_objective(tau, X, s, h, delay, "survivors"), s
+        s, obj = _sweep(tau, X, s, h, 1, delay, "single")
+        obj = torch.where(cand_ok, obj, inf)
+        s, obj = _sweep(tau, X, _take(s, _survivors(obj, funnel_k)), h, c_steps - 1,
+                        delay, None, "survivors")
+        return obj, s                                 # survivors not re-masked
 
-    s = _c_steps(tau, X, s, h, c_steps)
-    return torch.where(cand_ok, _trimmed_objective(tau, X, s, h, delay), inf), s
+    s, obj = _sweep(tau, X, s, h, c_steps, delay)
+    return torch.where(cand_ok, obj, inf), s
 
 
 def _best(obj, s):

@@ -6,7 +6,8 @@ reference's solver is one product with a precomputed pseudo-inverse,
 batched over every (band, window) cell.  sigma_tau and the 1-sigma
 velocity/back-azimuth uncertainties come from the same residuals.  The LTS
 primitives (`tree_sum_last`, `masked_refit`) and the retained-subset
-normal inverses of its confidence ellipses live here too.
+normal inverses of its confidence ellipses live here too
+(`tree_sum_last` is defined in `ops.kernels.lts_sweep`).
 """
 
 from __future__ import annotations
@@ -15,9 +16,14 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as Fnn
 
 from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+# The sweep's fixed-tree sum, defined beside the sweep's kernels (its plain
+# version sums the objective with it), and a name of this module as in the
+# JAX package.
+from narrow_band_least_squares_tpu_torch.ops.kernels.lts_sweep import (  # noqa: F401
+    tree_sum_last,
+)
 
 SIGMA_TAU_DOF_SHIFT = 2  # matches oracle.ltsva.SIGMA_TAU_DOF_SHIFT
 
@@ -182,24 +188,6 @@ def subset_normal_inverses(
     out[..., 1, 0] = out[..., 0, 1]
     out[..., 1, 1] = np.where(ok, m00 / safe, full_inv[1, 1])
     return out
-
-
-def tree_sum_last(x: torch.Tensor) -> torch.Tensor:
-    """Sum over the last axis as a fixed halving tree of binary adds.
-
-    Every reduction whose result the LTS sweep compares (rank selection,
-    funnel and argmin objectives) goes through this, so that the card and
-    the CPU, and every batch shape, add in one order and pick the same
-    candidates.  Zero-padding to a power of two is exact.
-    """
-    n = x.shape[-1]
-    p = 1 << max(n - 1, 0).bit_length()
-    if p != n:
-        x = Fnn.pad(x, (0, p - n))
-    while p > 1:
-        p //= 2
-        x = x[..., :p] + x[..., p:2 * p]
-    return x[..., 0]
 
 
 def masked_refit(

@@ -52,7 +52,11 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   objective of a candidate block in one launch) bit for bit against their
   plain versions on the canonical sweep's shapes, in bfloat16 and at P =
   120, ``sweep`` also on the funnel's two launches, the capped cell (Q =
-  5), the one-band delay roles and P = 120 in chunks of 4096, and timed;
+  5), the one-band delay roles, P = 120 in chunks of 4096 and every size
+  of its thread route (P = 3 to 36, ties, NaN, +inf, -0.0, delay roles),
+  and timed: its warp route (the design before the thread route) and its
+  thread route in turns at the canonical and dense50 shapes, with 0, 1
+  and 4 C-steps, beside each instance's ptxas registers and spills;
   exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
   with one incoherent element, through the API on the card and on the CPU,
   exhaustive and with ``PRODUCTION_DEFAULTS``: flags equal on every window
@@ -67,10 +71,12 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   runs bit for bit; a 16-element array (7,140 candidates, chunked) against
   a smaller chunk bit for bit; one ``sweep`` launch an exhaustive solve,
   two with the funnel, one a chunk, and one eager rank (the final
-  subset's); the LTS step with the sweep's arithmetic as eager operations,
-  on the separate kernels and through ``sweep``, in turns; the LTS step,
-  the sweep and peak memory on the canonical and dense50 plans beside the
-  OLS step, by the separate kernels and by ``sweep``;
+  subset's), each canonical ``sweep`` on its thread route; the LTS step
+  with the sweep's arithmetic as eager operations, on the separate kernels
+  and through ``sweep`` on its warp and thread routes, in turns; the LTS
+  step, the solve and peak memory on the canonical and dense50 plans
+  beside the OLS step, by the separate kernels and by both routes of
+  ``sweep``;
 - ``monitor``: ``examples/example_monitoring.py``'s workload (6 h in 1200 s
   segments, batches of 4) through ``StreamingMonitor(..., device="cuda")``
   with 'mxu' and 'fused' at 'high': the persisted segments against the
@@ -1179,14 +1185,16 @@ def zero_launches():
     XP.launches = XP.launches_tc = FX.launches = FX.launches_tc = 0
     XP.launches_nb = XP.launches_nb_tc = 0
     LS.launches_residuals2 = LS.launches_refit = LS.launches_elemental = 0
-    LS.launches_residuals2_lag = LS.launches_sweep = 0
+    LS.launches_residuals2_lag = LS.launches_sweep = LS.launches_sweep_thread = 0
 
 
 def lts_sweep_launches():
-    """{entry point: launches} of the LTS sweep's kernels (csrc/lts_sweep.cu)."""
+    """{entry point: launches} of the LTS sweep's kernels (csrc/lts_sweep.cu);
+    "sweep_thread" counts those of `sweep`'s launches on its thread route."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
 
-    return {"sweep": LS.launches_sweep, "residuals2": LS.launches_residuals2,
+    return {"sweep": LS.launches_sweep, "sweep_thread": LS.launches_sweep_thread,
+            "residuals2": LS.launches_residuals2,
             "refit": LS.launches_refit, "elemental": LS.launches_elemental,
             "residuals2_lag": LS.launches_residuals2_lag}
 
@@ -1220,10 +1228,10 @@ def run_api_lts(st, freqlist, winlens, device, production):
     the card the run must launch icorr_peak's tensor-core route once per
     bucket and nothing else of the lag search ('mxu' at 'high'), and of
     csrc/lts_sweep.cu the candidate sweep in one `sweep` launch (two with
-    the funnel of PRODUCTION_DEFAULTS), one elemental launch, the final
-    subset's two residuals2 and one refit, and one eager rank (the final
-    subset's), no residuals2_lag: the 8-band program fuses no delay into
-    the sweep."""
+    the funnel of PRODUCTION_DEFAULTS), each on its thread route (P = 28),
+    one elemental launch, the final subset's two residuals2 and one refit,
+    and one eager rank (the final subset's), no residuals2_lag: the 8-band
+    program fuses no delay into the sweep."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
 
@@ -1252,8 +1260,8 @@ def run_api_lts(st, freqlist, winlens, device, production):
             fail(f"the LTS API run on the card must launch only icorr_peak's "
                  f"tensor-core route, once per bucket ({CANONICAL_BUCKETS}); "
                  f"launches {counts}")
-        want = {"sweep": 2 if production else 1, "residuals2": 2, "refit": 1,
-                "elemental": 1, "residuals2_lag": 0}
+        want = {"sweep": 2 if production else 1, "sweep_thread": 2 if production else 1,
+                "residuals2": 2, "refit": 1, "elemental": 1, "residuals2_lag": 0}
         if sweep != want or ranks.calls != 1:
             fail(f"the LTS API run on the card (one solve) must launch lts_sweep "
                  f"{want} and rank eagerly once (the final subset); got {sweep}, "
@@ -1388,10 +1396,11 @@ def lts_large_array():
         fail(f"lts large array: the run must launch only icorr_peak's tensor-core "
              f"route; launches {counts}")
     chunks = -(-Q // auto.lts_candidate_chunk)
-    if (len(rec.taus), sweep["sweep"], ranks.calls) != (1, chunks, 1):
-        fail(f"lts large array: one solve must launch sweep once a chunk ({chunks}) and "
-             f"rank eagerly once; {len(rec.taus)} solves, launches {sweep}, "
-             f"{ranks.calls} eager ranks")
+    if (len(rec.taus), sweep["sweep"], sweep["sweep_thread"], ranks.calls) != (
+            1, chunks, 0, 1):
+        fail(f"lts large array: one solve must launch sweep once a chunk ({chunks}, "
+             f"on the block route) and rank eagerly once; {len(rec.taus)} solves, "
+             f"launches {sweep}, {ranks.calls} eager ranks")
     b = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, lts_candidate_chunk=1024,
                            device="cuda").run_raw(st.data)
     for name, v in a.items():
@@ -1481,7 +1490,7 @@ def lts_timing(label, st):
     exhaustive, LTS with lts_funnel_k='auto') the step by CUDA events over 20
     steps after warm-up, its peak memory, and for LTS the sweep's device
     time and kernel count in one profiled solve, LTS by the "kernels" route
-    (before `lts_sweep.sweep`) and by `sweep` (`SweepRoute`)."""
+    (before `lts_sweep.sweep`) and by "sweep" (`SweepRoute`)."""
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.utils import (
@@ -1550,18 +1559,20 @@ LTS_CAPPED_STREAM = dict(nchans=6, duration_s=300.0, fs=10.0, baz_deg=200.0,
                          outlier_channels=(2,))
 
 
-# int32 operations a second of one H100 SXM: 64 INT32 lanes an SM (the
-# Hopper architecture white paper) x 132 SMs x 1.98 GHz.
-PEAK_INT32_OPS = 64 * 132 * 1.98e9
+# Compares a second of one H100 SXM: 64 an SM a clock, the rate of the
+# SM's 64 INT32 lanes (the Hopper architecture white paper), on whose pipe
+# integer and float compares issue, x 132 SMs x 1.98 GHz.
+PEAK_COMPARES = 64 * 132 * 1.98e9
 
 
 def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True):
     """(operations, bytes) of one launch of an lts_sweep entry point: each
     input read once, each output written once, float operations counted as
     written in csrc/lts_sweep.cu (a fused multiply-add as two).  For
-    "sweep" the operations are (float, int32): its ranks are P * P key
-    comparisons a rank pass (n_steps, and one for the objective), counted
-    as one int32 operation each."""
+    "sweep" the operations are (float, compares): the ranks of a rank pass
+    (n_steps, and one for the objective) need P (P - 1) / 2 key
+    comparisons, each unordered pair once (the ranked keys and those they
+    are counted against one, as on every multi-band path)."""
     half = 1 << max(P - 1, 0).bit_length() >> 1
     if name == "sweep":           # rows windows x Q rows, each its C-steps and objective
         n = rows * Q
@@ -1569,7 +1580,7 @@ def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True):
         step = 5 * P + 5 * tree + 12                    # residuals, five trees, solve
         obj = 5 * P + P + max(2 * half - 1, 0)          # residuals, sel * r2, the tree
         flops = n * (n_steps * step + (obj if objective else 0))
-        cmps = n * (n_steps + bool(objective)) * P * P
+        cmps = n * (n_steps + bool(objective)) * (P * (P - 1) // 2)
         nbytes = itemsize * (rows * P + 2 * P + 4 * n + (n if objective else 0))
         return (float(flops), float(cmps)), nbytes
     if name == "residuals2":      # rows windows x Q fits x P: mul, fma, sub, mul
@@ -1590,12 +1601,12 @@ def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True):
 
 def sweep_bound(rows, Q, P, n_steps=4, objective=True):
     """(bound ms, bound_by) of one lts_sweep.sweep launch: the larger of its
-    float operations at PEAK_FP32_FLOPS, its comparisons at PEAK_INT32_OPS
+    float operations at PEAK_FP32_FLOPS, its comparisons at PEAK_COMPARES
     (two pipes of the SM that run side by side) and its bytes at
     PEAK_HBM_BYTES."""
     (flops, cmps), nbytes = lts_sweep_work("sweep", rows, Q, P, n_steps=n_steps,
                                            objective=objective)
-    ops_ms = max(flops / PEAK_FP32_FLOPS, cmps / PEAK_INT32_OPS) * 1e3
+    ops_ms = max(flops / PEAK_FP32_FLOPS, cmps / PEAK_COMPARES) * 1e3
     mem_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
 
@@ -1645,6 +1656,243 @@ def check_funnel(tag, tau, X, s, cand_ok, h, c_steps, k, lag=None, inv_fs=0.0, r
     check_sweep(f"{tag} funnel survivors", tau, X, surv, h, c_steps - 1,
                 LTS.refit_contractions(P, "single" if c_steps == 2 else "loop"), lag,
                 inv_fs, roles[1])
+
+
+# nbls_lts_sweep's last argument but the stream (csrc/lts_sweep.cu): the
+# route by P, as the wrapper launches it, or never the thread route (the
+# warp route at every P <= 64, the design before the thread route), to
+# compare the two on the same inputs
+ROUTE_BY_P, ROUTE_NO_THREAD = 0, 1
+
+
+def sweep_launch(route, tau, X, s, h, n_steps, contract, objective=True, lag=None,
+                 inv_fs=0.0, roles=0, eps=1e-12):
+    """One nbls_lts_sweep launch on ``route``, past the wrapper (so counted
+    nowhere): (s, obj) as `lts_sweep.sweep` returns them.  Fails unless the
+    launcher reports the route asked for: `sweep_route`'s by P, and never
+    the thread route under ROUTE_NO_THREAD."""
+    import ctypes
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+    P, Q = tau.shape[-1], s.shape[-2]
+    tau, X, s = tau.contiguous(), X.contiguous(), s.contiguous()
+    lag = lag.contiguous() if roles else None
+    launched = ctypes.c_int(-1)
+    s_out = torch.empty_like(s)
+    obj = (torch.empty(s.shape[:-1], dtype=tau.dtype, device=tau.device) if objective
+           else None)
+    err = LS._lib().nbls_lts_sweep(
+        LS._DTYPES[tau.dtype], tau.data_ptr(), X.data_ptr(), s.data_ptr(),
+        None if lag is None else lag.data_ptr(), float(np.float32(inv_fs)),
+        s_out.data_ptr(), None if obj is None else obj.data_ptr(), tau.numel() // P, Q, P,
+        int(h), int(n_steps), int(contract), int(bool(objective)), int(roles), eps, route,
+        ctypes.byref(launched), torch.cuda.current_stream().cuda_stream)
+    if err:
+        fail(f"nbls_lts_sweep on route {route} did not launch: CUDA error {err}")
+    want = LS.sweep_route(P, tau.dtype)
+    if route == ROUTE_NO_THREAD and want == "thread":
+        want = "warp"
+    if LS.ROUTES[launched.value] != want:
+        fail(f"nbls_lts_sweep (route argument {route}, P = {P}, {tau.dtype}) launched its "
+             f"{LS.ROUTES[launched.value]} route, not its {want} route")
+    return s_out, obj
+
+
+def sweep_geometry(P, seed, windows=(4, 8), Q=300):
+    """(tau, X, s, lag) on the card at a thread-route size P (the co-array
+    of n elements, n (n - 1) / 2 = P): plane-wave delays on integer lags at
+    fs = 10, a fifth of the equations hit by outliers, and candidate fits
+    with the hard cases: a NaN fit and an infinite one (NaN and +inf
+    residuals), a zero fit on a row of equal delays (every key tied), -0.0
+    delays; Q = 300 candidates a window take three blocks of the thread
+    route, the last partial."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
+
+    rng = np.random.default_rng(seed)
+    nch = int(round((1 + np.sqrt(1 + 8 * P)) / 2))
+    theta = np.linspace(0, 2 * np.pi, nch, endpoint=False)
+    X = coarray(np.stack([np.cos(theta) * rng.uniform(0.5, 1.5, nch),
+                          np.sin(theta) * rng.uniform(0.5, 1.5, nch)]))[0]
+    if X.shape[0] != P:
+        fail(f"sweep_geometry: {nch} elements give P = {X.shape[0]}, not {P}")
+    tau = (X @ rng.standard_normal(windows + (2, 1)) * 0.5)[..., 0]
+    tau = tau + 0.02 * rng.standard_normal(windows + (P,))
+    k = max(P // 5, 1)
+    tau[..., :k] += rng.standard_normal(windows + (k,))
+    lag = np.round(tau * 10).astype(np.float32)
+    tau = (lag * np.float32(0.1)).astype(np.float32)
+    tau[0, 1], lag[0, 1] = np.float32(0.5), 5.0          # a row of equal delays
+    tau[1, 0, :3], lag[1, 0, :3] = -0.0, -0.0
+    s = (rng.standard_normal(windows + (Q, 2)) * 0.3).astype(np.float32)
+    s[0, 0, 0] = np.nan
+    s[0, 0, 1] = [np.inf, 0.0]
+    s[0, 1, :3] = 0.0                                    # ties on the equal row
+    return tuple(torch.as_tensor(a).cuda() for a in (tau, X.astype(np.float32), s, lag))
+
+
+def lts_sweep_sizes(label):
+    """`lts_sweep.sweep` at every thread-route size (P = 3 to 36: 3 to 9
+    elements) bit for bit `sweep_reference` on `sweep_geometry`'s rows:
+    four C-steps ("loop" contractions) and one ("single"), each with the
+    objective, under four delay-role masks: none; the objective's ranked
+    keys alone (its pass counts every ordered pair); the steps' ranked keys
+    alone; every role.  The same launches on the warp route
+    (ROUTE_NO_THREAD) bit for bit too.  Every launch of the wrapper must
+    take the thread route."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+    zero_launches()
+    n = 0
+    for P in LS.THREAD_SIZES:
+        tau, X, s, lag = sweep_geometry(P, SEED + P)
+        h = LTS.lts_h(LTS_ALPHA, P)
+        for n_steps, site in ((4, "loop"), (1, "single")):
+            c = LTS.refit_contractions(P, site)
+            for roles in (0, 0b000100, 0b000001, 0b111111):
+                tag = f"P={P} {n_steps} steps roles {roles:06b}"
+                want = LS.sweep_reference(tau, X, s, h, n_steps, c, True, lag, 0.1, roles)
+                same_sweep(f"{tag} (thread route)",
+                           LS.sweep(tau, X, s, h, n_steps, c, True, lag, 0.1, roles), want)
+                same_sweep(f"{tag} (warp route)", sweep_launch(
+                    ROUTE_NO_THREAD, tau, X, s, h, n_steps, c, True, lag, 0.1, roles), want)
+                n += 1
+    torch.cuda.synchronize()
+    launches = lts_sweep_launches()
+    if (launches["sweep"], launches["sweep_thread"]) != (n, n):
+        fail(f"lts_sweep sizes: {n} sweep launches must all take the thread route; "
+             f"{launches}")
+    log(f"[{label}] lts_sweep sweep at P = {list(LS.THREAD_SIZES)} ({tuple(tau.shape)} x "
+        f"{s.shape[-2]} candidates, NaN, +inf, tied and -0.0 cases): bit for bit "
+        f"sweep_reference on the thread route ({n} launches, all counted in "
+        f"launches_sweep_thread) and on the warp route, 4 and 1 C-steps, roles "
+        f"000000, 000100 (the objective's full count), 000001 (the steps'), 111111")
+
+
+def lts_sweep_routes(label, st):
+    """The sweep on its warp route (ROUTE_NO_THREAD, the earlier design) and
+    its route by P on the same inputs, in turns (warp, by P, by P, warp),
+    device ms a launch (`device_ms`, 20 launches), the two routes' outputs
+    bit for bit each other's: at the canonical and dense50 LTS shapes (P =
+    28, 378 candidates) with n_steps 0 (the objective's pass alone), 1 and
+    4 (the exhaustive sweep) beside `sweep_bound`; then at every
+    thread-route size (`sweep_route_sizes`).  Returns the canonical
+    four-step times {route: [ms, ms]}."""
+    import functools
+
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    _, freqlist, winlens = canonical_inputs()
+    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
+    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
+    plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
+             "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+    canonical = None
+    for name, plan in plans.items():
+        pipe = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, device="cuda")
+        g = pipe._geometry
+        tau = pipe._delays(pipe._filter(pipe._to_device(st.data)))[0]
+        s = LS.elemental(tau, g["cand"], g["Ainv"])
+        rows, Q, P = tau[..., 0].numel(), s.shape[-2], tau.shape[-1]
+        per = {}
+        for n_steps in (0, 1, 4):
+            c = LTS.refit_contractions(P, "single" if n_steps == 1 else "loop")
+            runs = {r: functools.partial(sweep_launch, r, tau, g["X"], s, pipe.h, n_steps, c)
+                    for r in (ROUTE_NO_THREAD, ROUTE_BY_P)}
+            same_sweep(f"{name} {n_steps} steps: thread route against warp route",
+                       runs[ROUTE_BY_P](), runs[ROUTE_NO_THREAD]())
+            ms = {"warp": [], "thread": []}
+            for route in ("warp", "thread", "thread", "warp"):
+                ms[route].append(device_ms(
+                    runs[ROUTE_BY_P if route == "thread" else ROUTE_NO_THREAD], reps=20))
+            bound, by = sweep_bound(rows, Q, P, n_steps)
+            per[n_steps] = ms
+            log(f"[{label}] lts_sweep sweep routes at {name} ({rows} windows x {Q} candidates "
+                f"x {P}), {n_steps} C-steps and the objective: warp route "
+                f"{ms['warp'][0]:.4f} / {ms['warp'][1]:.4f} ms, thread route "
+                f"{ms['thread'][0]:.4f} / {ms['thread'][1]:.4f} ms a launch (in turns warp, "
+                f"thread, thread, warp; 20 launches each); bound {bound:.4f} ms by {by}; "
+                f"the two routes bit for bit")
+        for route in ("warp", "thread"):
+            t = {k: sum(v[route]) / 2 for k, v in per.items()}
+            log(f"[{label}] lts_sweep sweep {route} route at {name}: the objective's pass "
+                f"alone {t[0]:.4f} ms, a C-step {t[1] - t[0]:.4f} ms (1 step - 0), "
+                f"{(t[4] - t[1]) / 3:.4f} ms ((4 steps - 1) / 3)")
+        if name == "canonical":
+            canonical = per[4]
+        del pipe
+        torch.cuda.empty_cache()
+    sweep_route_sizes(label)
+    return canonical
+
+
+def sweep_cells(P, c_steps=4, capped=5):
+    """The sweep launches of an LTS solve at P equations (Q = P (P - 1) / 2
+    candidates), as (cell, candidates, C-steps): the exhaustive sweep, the
+    funnel's two launches where it runs ('auto': k = max(16, ceil(Q / 24))
+    survivors, models/narrowband.py) and a capped sweep (max_lts_candidates
+    = ``capped``) where it caps."""
+    Q = P * (P - 1) // 2
+    k = max(16, -(-Q // 24))
+    cells = [("exhaustive", Q, c_steps)]
+    if k < Q:
+        cells += [("funnel first", Q, 1), ("funnel survivors", k, c_steps - 1)]
+    if capped < Q:
+        cells.append(("capped", capped, c_steps))
+    return cells
+
+
+def sweep_route_sizes(label, windows=(8, 79)):
+    """The warp route (ROUTE_NO_THREAD) and the route by P in turns (warp,
+    by P, by P, warp) at every thread-route size, on `sweep_geometry`'s
+    rows with the canonical count of windows, in each of `sweep_cells`:
+    device ms a launch (`device_ms`, 20 launches), the two routes bit for
+    bit each other's.  Returns {P: {cell: (warp ms, by-P ms)}}, each the
+    mean of its two turns."""
+    import functools
+
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+    out = {}
+    for P in LS.THREAD_SIZES:
+        h = LTS.lts_h(LTS_ALPHA, P)
+        out[P] = {}
+        for cell, Q, n_steps in sweep_cells(P):
+            tau, X, s, _ = sweep_geometry(P, SEED + P, windows=windows, Q=Q)
+            c = LTS.refit_contractions(P, "single" if n_steps == 1 else "loop")
+            runs = {r: functools.partial(sweep_launch, r, tau, X, s, h, n_steps, c)
+                    for r in (ROUTE_NO_THREAD, ROUTE_BY_P)}
+            same_sweep(f"P={P} {cell}: route by P against warp route",
+                       runs[ROUTE_BY_P](), runs[ROUTE_NO_THREAD]())
+            ms = {ROUTE_NO_THREAD: [], ROUTE_BY_P: []}
+            for r in (ROUTE_NO_THREAD, ROUTE_BY_P, ROUTE_BY_P, ROUTE_NO_THREAD):
+                ms[r].append(device_ms(runs[r], reps=20))
+            warp, by_p = (sum(ms[r]) / 2 for r in (ROUTE_NO_THREAD, ROUTE_BY_P))
+            out[P][cell] = (warp, by_p)
+            log(f"[{label}] lts_sweep sweep at P = {P}, {cell} ({windows[0] * windows[1]} "
+                f"windows x {Q} candidates, {n_steps} C-steps and the objective): warp route "
+                f"{ms[ROUTE_NO_THREAD][0]:.4f} / {ms[ROUTE_NO_THREAD][1]:.4f} ms, "
+                f"{LS.sweep_route(P, tau.dtype)} route (by P) {ms[ROUTE_BY_P][0]:.4f} / "
+                f"{ms[ROUTE_BY_P][1]:.4f} ms a launch (in turns; 20 launches each), "
+                f"by P / warp {by_p / warp:.3f}; the two routes bit for bit")
+        paths = {"exhaustive": ("exhaustive",), "auto": ("funnel first", "funnel survivors")}
+        sums = {name: [sum(out[P][c][i] for c in cells) for i in (0, 1)]
+                for name, cells in paths.items() if all(c in out[P] for c in cells)}
+        log(f"[{label}] lts_sweep sweep at P = {P}, per solve: " + "; ".join(
+            f"{name} warp {w:.4f} ms, by P {b:.4f} ms" for name, (w, b) in sums.items()))
+    return out
 
 
 def lts_kernel_check(label, st, freqlist, winlens):
@@ -1745,10 +1993,10 @@ def lts_kernel_check(label, st, freqlist, winlens):
         f"versions on the card: canonical {tuple(tau.shape)} x {Q} candidates, "
         f"bfloat16, P=120 {tuple(btau.shape)} x {bg['cand'].shape[0]} candidates; "
         f"refit contract masks {[f'{c:05b}' for c in contracts]}; sweep bit for bit "
-        f"sweep_reference: canonical exhaustive ({pipe.c_steps} steps), canonical "
-        f"'auto' (k = {k_auto}: 1 step, then {pipe.c_steps - 1} on the survivors), "
-        f"bfloat16, P=120 {tuple(btau.shape)} in {-(-nfull // chunk)} chunks of {chunk} "
-        f"(block route)")
+        f"sweep_reference: canonical exhaustive ({pipe.c_steps} steps) and canonical "
+        f"'auto' (k = {k_auto}: 1 step, then {pipe.c_steps - 1} on the survivors) on the "
+        f"thread route, bfloat16 on the warp route, P=120 {tuple(btau.shape)} in "
+        f"{-(-nfull // chunk)} chunks of {chunk} on the block route")
 
     rows = tau[..., 0].numel()
     s1, w1 = s[..., :1, :], w[..., :1, :]      # the final subset: one fit a window
@@ -1889,7 +2137,8 @@ def lts_one_band(label, st):
                  f"{[lag is not None for lag in rec.lags]}")
         runs[dev] = (out, rec.taus[0], rec.lags[0], launches)
     (gpu, tau_g, lag_g, sweep), (cpu, tau_c, lag_c, sweep_c) = runs["cuda"], runs["cpu"]
-    want = {"sweep": 1, "residuals2": 0, "refit": 1, "elemental": 1, "residuals2_lag": 2}
+    want = {"sweep": 1, "sweep_thread": 1, "residuals2": 0, "refit": 1, "elemental": 1,
+            "residuals2_lag": 2}
     if sweep != want or any(sweep_c.values()):
         fail(f"one-band ltsva: lts_sweep launches {sweep} on the card, {sweep_c} on "
              f"the CPU ({want} on the card, none on the CPU)")
@@ -2025,10 +2274,11 @@ def _eager_refit(tau, X, weight, eps=1e-12, contract=None):
 class SweepRoute:
     """While installed (``with``), runs `ops.lts`'s candidate sweep by one
     of three routes: "sweep" (`lts_sweep.sweep`, one launch a candidate
-    block), "kernels" (its plain composition on the separate passes of
+    block, on the route it picks by P: one thread a row at P = 28),
+    "kernels" (its plain composition on the separate passes of
     csrc/lts_sweep.cu: residuals2 and refit a C-step, the eager rank
-    between them; the route before `sweep`) or "eager" (that composition on
-    eager arithmetic, the elemental solves and the final subset too; the
+    between them; the route before `sweep`) or "eager" (that composition
+    on eager arithmetic, the elemental solves and the final subset too; the
     port before csrc/lts_sweep.cu).  "kernels" and "sweep" give the same
     bits; "eager" rounds every operation on its own."""
 
@@ -2075,9 +2325,9 @@ def step_peak_mib(step):
 
 def lts_before_after(label, st, freqlist, winlens):
     """The canonical LTS step (exhaustive) by each `SweepRoute`, in turns
-    eager, kernels, sweep, sweep, kernels, eager: step ms by CUDA events
-    over 20 steps, the sweep's device time and kernel count in one profiled
-    solve, and the step's peak memory."""
+    eager, kernels, sweep, sweep, kernels, eager: step ms by
+    CUDA events over 20 steps, the solve's device time and kernel count in
+    one profiled solve, and the step's peak memory."""
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
@@ -2094,7 +2344,7 @@ def lts_before_after(label, st, freqlist, winlens):
         out[route].append((step, busy, sum(r[2] for r in rows), peak))
     for route, vals in out.items():
         log(f"[{label}] lts canonical exhaustive step, sweep route {route}: "
-            + "; ".join(f"{a:.4f} ms a step (CUDA events, 20 steps), sweep {b:.4f} ms "
+            + "; ".join(f"{a:.4f} ms a step (CUDA events, 20 steps), solve {b:.4f} ms "
                         f"of device time in {c} kernels (one profiled solve), peak "
                         f"{p:.1f} MiB above the step's inputs" for a, b, c, p in vals))
 
@@ -2102,12 +2352,18 @@ def lts_before_after(label, st, freqlist, winlens):
 def phase_lts(label):
     """Canonical LTS with one incoherent element through the API, card
     against CPU, exhaustive and with PRODUCTION_DEFAULTS; the lts_sweep
-    kernels against their plain versions; the capped-candidate case card
+    kernels against their plain versions, `sweep` at every thread-route
+    size, its warp and thread routes in turns; the capped-candidate case card
     against CPU; one-band ltsva card against CPU (`lts_one_band`);
     multi-array and large-array LTS; the LTS timings, the sweep before and
     after its kernels.  Returns the kernels-line records of lts_sweep."""
     st, freqlist, winlens = canonical_inputs(outlier_channels=(LTS_OUTLIER,))
     recs = lts_kernel_check(label, st, freqlist, winlens)
+    lts_sweep_sizes(label)
+    routes = lts_sweep_routes(label, st)
+    for r in recs:
+        if r["name"] == "lts_sweep.sweep":     # the thread route at P = 28
+            r.update(sweep_route="thread", warp_ms=sum(routes["warp"]) / 2)
     for production in (False, True):
         tag = "lts production" if production else "lts exhaustive"
         gpu, tau_g, secs, sweep = run_api_lts(st, freqlist, winlens, "cuda", production)

@@ -64,18 +64,47 @@
 //
 // What bounds nbls_lts_sweep: operations.  Per row it reads 2 slowness
 // values and writes 3; its window's delays and the co-array are staged in
-// shared memory once a block.  The work is the ranks, P * P comparisons a
-// rank pass, and the shuffles of the trees.  Rows of at most 64 equations
-// take one warp each (lane k owns equations k and k + 32; a block of 8
-// warps takes 8 candidates of one window, so the grid is windows x
-// ceil(Q / 8) blocks and the last group of a window may leave warps idle);
-// keys are broadcast with __shfl_sync and each lane counts its own
-// elements' ranks; a tree's level of half width 32 runs inside the lane,
-// the lower levels with __shfl_down_sync, its first level's operands
-// shuffled before the fused multiply-add, so every sum pairs as the
-// plain version's halving tree does (float addition commutes: which lane
-// adds changes no bit).  Longer rows, up to MAX_P, take one block each,
-// the row and its trees in shared memory.
+// shared memory once a block.  The work is the ranks of the rank passes
+// (n_steps, and one for the objective) and the refit's trees; the bound
+// counts the ranks as P (P - 1) / 2 comparisons a pass, each unordered
+// pair of keys once, at 64 compares an SM a clock.  Three routes,
+// chosen by P alone (and the dtype):
+//
+//   thread  float32 rows of P = 3, 6, 10, 15, 21, 28 or 36 equations (the
+//           co-arrays of 3 to 9 elements; P a template parameter): one
+//           thread a (window, candidate) row, a block of ROW_BLOCK
+//           candidates of one window (the grid is windows x ceil(Q /
+//           ROW_BLOCK) blocks).  The row's P rank keys and P ranks stay in
+//           registers, and each unordered pair of keys is compared once:
+//           rank_i starts at i, and for a < b, c = (k_b < k_a) adds c to
+//           rank_a and takes it from rank_b (b counts against a iff k_b <
+//           k_a, a against b iff k_a <= k_b: the (key, index) order).  The
+//           keys are the values as floats (NaN as +inf), whose `<` is
+//           rank_key's order, and the counts are floats (exact): a pair
+//           is one FSET and two FADDs in the SASS, most of them on the
+//           float pipe, where integer counts took three operations of
+//           the half-rate integer pipe.  A pass whose ranked
+//           and counted-against keys differ (delay roles) counts all P * P
+//           ordered pairs with `before`, the counted-against keys in a
+//           column of shared memory a thread.  The five trees' first
+//           levels are taken in one sweep of the rows and the trees
+//           reduced in registers, zero padding folded at compile time;
+//   warp    any other P <= 64: one warp a row (lane k owns equations k and
+//           k + 32; a block of 8 warps takes 8 candidates of one window, so
+//           the grid is windows x ceil(Q / 8) blocks and the last group of
+//           a window may leave warps idle); keys go through the warp's row
+//           of shared memory and each lane counts its own elements' ranks;
+//           a tree's level of half width 32 runs inside the lane, the lower
+//           levels with __shfl_down_sync, its first level's operands
+//           shuffled before the fused multiply-add;
+//   block   64 < P <= MAX_P: one block a row, the row and its trees in
+//           shared memory.
+//
+// Every route pairs each sum as the plain version's halving tree does
+// (float addition commutes: which lane adds changes no bit), so the three
+// give the same bits.  bfloat16 and float16 take the warp route at every P
+// <= 64: thread-route instances for them would lengthen the build, and no
+// LTS run of the canonical plans sweeps in a narrow dtype.
 //
 // Plain C interface, bound from Python with ctypes; built with
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
@@ -84,6 +113,8 @@
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -289,6 +320,14 @@ constexpr int MAX_P = 2 * MAX_HALF;
 constexpr int SWEEP_WARPS = 8;     // warp route: candidates of one window a block
 constexpr int WARP_P = 64;         // warp route: rows of at most this many equations
 constexpr int ROW_THREADS = 128;   // block route: threads a row
+constexpr int ROW_BLOCK = 128;     // thread route: candidates of one window a block
+// route argument of nbls_lts_sweep: by P (what the Python wrapper passes),
+// or never the thread route (the warp route at every P <= 64, for comparing
+// the two on the card)
+constexpr int ROUTE_BY_P = 0, ROUTE_NO_THREAD = 1;
+// the route nbls_lts_sweep launched, written to its `launched`
+// (ops/kernels/lts_sweep.py::ROUTES)
+constexpr int LAUNCHED_THREAD = 0, LAUNCHED_WARP = 1, LAUNCHED_BLOCK = 2;
 
 // Which squared residuals take the unrounded delay lag * inv_fs
 // (ops/kernels/lts_sweep.py::ROLES): the C-steps' ranked keys (i) and the
@@ -608,6 +647,169 @@ sweep_block_kernel(SweepArgs a) {
   }
 }
 
+// --- thread route: one thread a row, P fixed at compile time ---------------
+
+// Half the next power of two of P (0 for P == 1): the first level's width
+// of the halving trees over P leaves.
+__host__ __device__ constexpr int tree_half(int P) {
+  int h = 1;
+  while (2 * h < P) h *= 2;
+  return P == 1 ? 0 : h;
+}
+
+// Block: ROW_BLOCK candidates of one window (blockIdx = window * groups +
+// group).  se[k] holds equation k's (X0, X1, tau, lag); skj[k][thread] the
+// counted-against key of equation k where a pass's keys differ.
+template <class T, int P>
+__global__ void __launch_bounds__(ROW_BLOCK)
+sweep_thread_kernel(SweepArgs a) {
+  using N = Num<T>;
+  using O = Ops<T>;
+  constexpr int H = tree_half(P);
+  static_assert(H >= 2 && H <= REG_HALF && P <= 64, "thread route: 3 <= P <= 64");
+  __shared__ float4 se[P];
+  __shared__ int skj[P][ROW_BLOCK];
+  const int Q = a.Q;
+  const int groups = (Q + ROW_BLOCK - 1) / ROW_BLOCK;
+  const long long trow = blockIdx.x / groups;
+  const int q = (int)(blockIdx.x % groups) * ROW_BLOCK + (int)threadIdx.x;
+  const T* X = (const T*)a.X;
+  const T* tau = (const T*)a.tau + trow * P;
+  for (int k = threadIdx.x; k < P; k += ROW_BLOCK)
+    se[k] = make_float4(N::ld(X[2 * k]), N::ld(X[2 * k + 1]), N::ld(tau[k]),
+                        a.roles ? a.lag[trow * P + k] : 0.f);
+  __syncthreads();
+  if (q >= Q) return;   // the last group of a window; no barrier follows
+  const long long row = trow * Q + q;
+  const T* s_in = (const T*)a.s_in;
+  float s0 = N::ld(s_in[2 * row]), s1 = N::ld(s_in[2 * row + 1]);
+  // Equation k's squared residual at (s0, s1), rounded, and (where `un`)
+  // from the unrounded delay lag * inv_fs.
+  auto residual = [&](int k, bool un, float& r2, float& r2u) {
+    const float4 e = se[k];
+    const float xs = O::fma(e.y, s1, O::mul(e.x, s0));
+    const float r = O::sub(e.z, xs);
+    r2 = O::mul(r, r);
+    r2u = r2;
+    if (un) {
+      const float ru = __fmaf_rn(e.w, a.inv_fs, -xs);
+      r2u = __fmul_rn(ru, ru);
+    }
+  };
+  // The staged rows are read from shared memory (a broadcast) in each
+  // pass and each refit: `reload` (a memory clobber) keeps the compiler
+  // from holding them in registers across the ranks, which would cost 4 P
+  // registers a thread and with them occupancy.
+  auto reload = [] { asm volatile("" ::: "memory"); };
+  // One rank pass at (s0, s1): the keys of roles bi (ranked) and bj
+  // (counted against); bit k of the result is w_k = rank_k < h.
+  auto pass = [&](int bi, int bj, int need) {
+    reload();
+    const bool un = a.roles & need, ui = a.roles & bi, uj = a.roles & bj;
+    // A key as a float: the value, NaN as +inf.  Float `<` orders these
+    // as rank_key's integers do (-0 equal to +0, NaN last).
+    float key[P];
+#pragma unroll
+    for (int k = 0; k < P; ++k) {
+      float r2, r2u;
+      residual(k, un, r2, r2u);
+      const float x = ui ? r2u : r2;
+      key[k] = isnan(x) ? __int_as_float(0x7f800000) : x;
+      if (ui != uj) skj[k][threadIdx.x] = rank_key(uj ? r2u : r2);
+    }
+    unsigned long long w = 0;
+    if (ui == uj) {   // one comparison a pair; counts as floats, exact
+      float rank[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) rank[k] = (float)k;
+#pragma unroll
+      for (int j = 1; j < P; ++j) {
+#pragma unroll
+        for (int i = 0; i < j; ++i) {
+          const float c = key[j] < key[i] ? 1.f : 0.f;
+          rank[i] += c;
+          rank[j] -= c;
+        }
+      }
+      const float h = (float)a.h;
+#pragma unroll
+      for (int k = 0; k < P; ++k) w |= (unsigned long long)(rank[k] < h) << k;
+    } else {          // every ordered pair, the diagonal included
+      int rank[P];
+#pragma unroll
+      for (int k = 0; k < P; ++k) rank[k] = 0;
+#pragma unroll 2
+      for (int j = 0; j < P; ++j) {
+        const int kj = skj[j][threadIdx.x];
+#pragma unroll
+        for (int i = 0; i < P; ++i) rank[i] += before(kj, j, rank_key(key[i]), i);
+      }
+#pragma unroll
+      for (int k = 0; k < P; ++k) w |= (unsigned long long)(rank[k] < a.h) << k;
+    }
+    return w;
+  };
+  const int c = a.contract;
+#pragma unroll 1
+  for (int step = 0; step < a.n_steps; ++step) {
+    const unsigned long long m = pass(ROLE_STEP_I, ROLE_STEP_J, ROLE_STEP_I | ROLE_STEP_J);
+    // The five trees' first levels in one sweep of the rows: leaves (u, v)
+    // of sum t, w X0 . X0, w X0 . X1, w X1 . X1, w tau . X0, w tau . X1;
+    // x[t][i] = fma(u_i, v_i, u_{i+H} v_{i+H}) where bit t of `contract`
+    // is set, else u_i v_i + u_{i+H} v_{i+H}, the upper term 0 past P
+    // (first_level's arithmetic).
+    reload();
+    float x[5][H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) {
+      const float4 e = se[i];
+      const float wi = (m >> i) & 1 ? 1.f : 0.f;
+      const float wx0 = O::mul(wi, e.x), wx1 = O::mul(wi, e.y), wt = O::mul(wi, e.z);
+      const float u[5] = {wx0, wx0, wx1, wt, wt}, v[5] = {e.x, e.y, e.y, e.x, e.y};
+      float hi[5] = {0.f, 0.f, 0.f, 0.f, 0.f};
+      if (i + H < P) {
+        const float4 f = se[i + H];
+        const float wh = (m >> (i + H)) & 1 ? 1.f : 0.f;
+        const float hx0 = O::mul(wh, f.x), hx1 = O::mul(wh, f.y), ht = O::mul(wh, f.z);
+        hi[0] = O::mul(hx0, f.x);
+        hi[1] = O::mul(hx0, f.y);
+        hi[2] = O::mul(hx1, f.y);
+        hi[3] = O::mul(ht, f.x);
+        hi[4] = O::mul(ht, f.y);
+      }
+#pragma unroll
+      for (int t = 0; t < 5; ++t)
+        x[t][i] = (c >> t) & 1 ? O::fma(u[t], v[t], hi[t]) : O::add(O::mul(u[t], v[t]), hi[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < 5; ++t) reduce_levels<T, H / 2>(x[t]);
+    const float2 sol = solve2<T>(x[0][0], x[1][0], x[2][0], x[3][0], x[4][0], a.eps);
+    s0 = sol.x;
+    s1 = sol.y;
+  }
+  if (a.obj) {
+    constexpr int need = ROLE_OBJ_I | ROLE_OBJ_J | ROLE_LO | ROLE_HI;
+    const unsigned long long m = pass(ROLE_OBJ_I, ROLE_OBJ_J, need);
+    const bool un = a.roles & need;
+    reload();
+    // sel * r2, the leaves below H from role lo's residuals, the others
+    // from hi's; the residuals again, bit for bit the pass's
+    auto v = [&](int k) {
+      float r2, r2u;
+      residual(k, un, r2, r2u);
+      const int role = k < H ? ROLE_LO : ROLE_HI;
+      return O::mul((m >> k) & 1 ? 1.f : 0.f, a.roles & role ? r2u : r2);
+    };
+    float x[H];
+#pragma unroll
+    for (int i = 0; i < H; ++i) x[i] = O::add(v(i), i + H < P ? v(i + H) : 0.f);
+    reduce_levels<T, H / 2>(x);
+    ((T*)a.obj)[row] = N::st(isnan(x[0]) ? __int_as_float(0x7f800000) : x[0]);
+  }
+  ((T*)a.s_out)[2 * row] = N::st(s0);
+  ((T*)a.s_out)[2 * row + 1] = N::st(s1);
+}
+
 unsigned grid_for(long long n) {
   const long long blocks = (n + THREADS - 1) / THREADS;
   return (unsigned)(blocks < (1LL << 30) ? blocks : (1LL << 30));
@@ -645,9 +847,39 @@ int elemental(const void* tau, const void* cand, const void* A, void* out, long 
   return (int)cudaGetLastError();
 }
 
+constexpr long long kMaxGrid = 0x7fffffffLL;
+
+template <class T, int P>
+int sweep_thread(const SweepArgs& a, int* launched, cudaStream_t stream) {
+  const long long blocks = a.rows_tau * ((a.Q + ROW_BLOCK - 1) / ROW_BLOCK);
+  if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+  sweep_thread_kernel<T, P><<<(unsigned)blocks, ROW_BLOCK, 0, stream>>>(a);
+  *launched = LAUNCHED_THREAD;
+  return (int)cudaGetLastError();
+}
+
+// The route by P: the thread route at its sizes (float32), the warp route
+// at any other P <= WARP_P, the block route above; the route taken goes to
+// *launched.  Timed against the warp route at each of its sizes, in each
+// launch an LTS solve makes (chip_smoke.py::sweep_route_sizes), the thread
+// route wins all but a capped sweep of 5 candidates at P = 28 and 36, which
+// is opt-in and small beside the solves it wins (PERF.md, section 6).  ops/kernels/lts_sweep.py::sweep_route mirrors this choice,
+// and the wrapper holds each launch's route to it.
 template <class T>
-int sweep(const SweepArgs& a, cudaStream_t stream) {
-  constexpr long long kMaxGrid = 0x7fffffffLL;
+int sweep(const SweepArgs& a, int route, int* launched, cudaStream_t stream) {
+  if constexpr (std::is_same<T, float>::value) {
+    if (route == ROUTE_BY_P) {
+      switch (a.P) {
+        case 3: return sweep_thread<T, 3>(a, launched, stream);
+        case 6: return sweep_thread<T, 6>(a, launched, stream);
+        case 10: return sweep_thread<T, 10>(a, launched, stream);
+        case 15: return sweep_thread<T, 15>(a, launched, stream);
+        case 21: return sweep_thread<T, 21>(a, launched, stream);
+        case 28: return sweep_thread<T, 28>(a, launched, stream);
+        case 36: return sweep_thread<T, 36>(a, launched, stream);
+      }
+    }
+  }
   if (a.P <= WARP_P) {
     const long long blocks = a.rows_tau * ((a.Q + SWEEP_WARPS - 1) / SWEEP_WARPS);
     if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
@@ -655,10 +887,12 @@ int sweep(const SweepArgs& a, cudaStream_t stream) {
       sweep_warp_kernel<T, 1><<<(unsigned)blocks, SWEEP_WARPS * 32, 0, stream>>>(a);
     else
       sweep_warp_kernel<T, 2><<<(unsigned)blocks, SWEEP_WARPS * 32, 0, stream>>>(a);
+    *launched = LAUNCHED_WARP;
   } else {
     const long long blocks = a.rows_tau * a.Q;
     if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
     sweep_block_kernel<T><<<(unsigned)blocks, ROW_THREADS, 0, stream>>>(a);
+    *launched = LAUNCHED_BLOCK;
   }
   return (int)cudaGetLastError();
 }
@@ -730,12 +964,16 @@ int nbls_lts_elemental(int dtype, const void* tau, const void* cand, const void*
 // into obj (rows_tau, Q); the final fits into s_out (rows_tau, Q, 2).  Bit
 // k of `roles` (ROLE_*) takes that role's squared residuals from the
 // unrounded delay lag * inv_fs (lag (rows_tau, P), float32 only).  P <=
-// MAX_P; dtype code 0/1/2.
+// MAX_P; dtype code 0/1/2.  `route` is ROUTE_BY_P, or ROUTE_NO_THREAD to
+// time the warp route where the thread route would run; the route launched
+// (LAUNCHED_*) goes to *launched.
 int nbls_lts_sweep(int dtype, const void* tau, const void* X, const void* s_in,
                    const float* lag, float inv_fs, void* s_out, void* obj,
                    long long rows_tau, int Q, int P, int h, int n_steps, int contract,
-                   int objective, int roles, float eps, cudaStream_t stream) {
-  if (rows_tau <= 0 || Q <= 0 || P <= 0 || P > MAX_P || n_steps < 0)
+                   int objective, int roles, float eps, int route, int* launched,
+                   cudaStream_t stream) {
+  if (rows_tau <= 0 || Q <= 0 || P <= 0 || P > MAX_P || n_steps < 0 ||
+      (route != ROUTE_BY_P && route != ROUTE_NO_THREAD) || launched == nullptr)
     return (int)cudaErrorInvalidValue;
   if ((roles && (dtype != 0 || lag == nullptr)) || (objective && obj == nullptr))
     return (int)cudaErrorInvalidValue;
@@ -743,9 +981,9 @@ int nbls_lts_sweep(int dtype, const void* tau, const void* X, const void* s_in,
                     objective ? obj : nullptr, rows_tau, Q, P, h, n_steps, contract,
                     roles, eps};
   switch (dtype) {
-    case 0: return sweep<float>(a, stream);
-    case 1: return sweep<__nv_bfloat16>(a, stream);
-    case 2: return sweep<__half>(a, stream);
+    case 0: return sweep<float>(a, route, launched, stream);
+    case 1: return sweep<__nv_bfloat16>(a, route, launched, stream);
+    case 2: return sweep<__half>(a, route, launched, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

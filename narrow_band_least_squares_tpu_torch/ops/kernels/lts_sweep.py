@@ -41,7 +41,9 @@ within their rounding, ``tests/test_torch_dtypes.py``).
 
 A CUDA tensor goes to the kernel of its entry point, which counts a launch
 in ``launches_sweep``, ``launches_residuals2``, ``launches_residuals2_lag``,
-``launches_refit`` or ``launches_elemental``; a
+``launches_refit`` or ``launches_elemental``; `sweep` has three routes,
+chosen by P alone (`sweep_route`), and also counts the launches that the
+launcher reports on its thread route in ``launches_sweep_thread``; a
 CPU tensor goes to its plain version (``*_reference``), which the kernels
 equal bit for bit.  The plain versions build on `fma`, an exact float32
 fused multiply-add: the float32 product is exact in float64, and the
@@ -59,6 +61,8 @@ import torch.nn.functional as Fnn
 
 # Launches of each kernel since its count was last set to 0.
 launches_sweep = 0
+launches_sweep_thread = 0     # of launches_sweep, those the launcher reports on
+                              # its thread route
 launches_residuals2 = 0
 launches_residuals2_lag = 0
 launches_refit = 0
@@ -75,6 +79,13 @@ ALL_CONTRACTED = (1 << len(SUMS)) - 1
 # ``roles``: the C-steps' ranked keys and the keys they are counted against,
 # the objective's, and the halves of the objective tree's first level.
 ROLES = ("step.i", "step.j", "objective.i", "objective.j", "objective.lo", "objective.hi")
+# `sweep`'s routes by P (csrc/lts_sweep.cu): one thread a row at these
+# sizes (the co-arrays of 3 to 9 elements; float32), one warp a row at any
+# other P <= WARP_P, one block a row above
+THREAD_SIZES = (3, 6, 10, 15, 21, 28, 36)
+WARP_P = 64
+# the routes by the code nbls_lts_sweep reports for the one it launched
+ROUTES = ("thread", "warp", "block")
 # dtype codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # Byte budget of the (rows, P, P) boolean temporary of one `rank_along_last`
@@ -97,7 +108,8 @@ def _lib():
         lib.nbls_lts_refit.argtypes = [i, p, p, p, p, ll, i, i, ctypes.c_float, i, p]
         lib.nbls_lts_elemental.argtypes = [i, p, p, p, p, ll, i, i, p]
         lib.nbls_lts_sweep.argtypes = [i, p, p, p, p, ctypes.c_float, p, p, ll,
-                                       i, i, i, i, i, i, i, ctypes.c_float, p]
+                                       i, i, i, i, i, i, i, ctypes.c_float, i,
+                                       ctypes.POINTER(ctypes.c_int), p]
         for fn in (lib.nbls_lts_residuals2, lib.nbls_lts_residuals2_lag, lib.nbls_lts_refit,
                    lib.nbls_lts_elemental, lib.nbls_lts_sweep):
             fn.restype = ctypes.c_int
@@ -450,6 +462,17 @@ def elemental(tau: torch.Tensor, cand: torch.Tensor, Ainv: torch.Tensor) -> torc
     return out
 
 
+def sweep_route(P: int, dtype: torch.dtype) -> str:
+    """The route `sweep` takes on the card for rows of P equations of
+    ``dtype``, as ``csrc/lts_sweep.cu::sweep`` picks it: "thread" (one
+    thread a row, P in `THREAD_SIZES`, float32), "warp" (one warp a row, P
+    <= `WARP_P`) or "block" (one block a row).  `sweep` raises where the
+    launcher reports another route."""
+    if P in THREAD_SIZES and dtype == torch.float32:
+        return "thread"
+    return "warp" if P <= WARP_P else "block"
+
+
 def sweep(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int, n_steps: int,
           contract: int = ALL_CONTRACTED, objective: bool = True, lag: torch.Tensor = None,
           inv_fs: float = 0.0, roles: int = 0, eps: float = 1e-12):
@@ -459,10 +482,10 @@ def sweep(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int, n_steps: 
     ``contract``, then, when ``objective``, the trimmed objective.  Returns
     (s (..., Q, 2), obj (..., Q) or None).  ``roles`` (bits of `ROLES`)
     names the residuals taken from the unrounded delay ``lag * inv_fs``
-    (lag tau's shape, float32).  On the card one launch (one warp a row up
-    to 64 equations, one block a row up to `MAX_P`), on the CPU
-    `sweep_reference`."""
-    global launches_sweep
+    (lag tau's shape, float32).  On the card one launch on the route of
+    `sweep_route` (one thread, one warp or one block a row, up to `MAX_P`
+    equations), on the CPU `sweep_reference`."""
+    global launches_sweep, launches_sweep_thread
     inv_fs = float(torch.tensor(inv_fs, dtype=torch.float32))
     if roles and (lag is None or lag.dtype != torch.float32):
         raise TypeError("lts_sweep: delay roles need float32 lags (only float32 programs "
@@ -492,12 +515,19 @@ def sweep(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int, n_steps: 
            else None)
     if s_out.numel() == 0:
         return s_out, obj
+    route = ctypes.c_int(-1)
     with torch.cuda.device(tau.device):
         _launched("lts_sweep", _lib().nbls_lts_sweep(
             code, tau_c.data_ptr(), X_c.data_ptr(), s_c.data_ptr(),
             None if lag_c is None else lag_c.data_ptr(), inv_fs, s_out.data_ptr(),
             None if obj is None else obj.data_ptr(), tau_c.numel() // P, Q, P, int(h),
-            int(n_steps), int(contract), int(bool(objective)), int(roles), eps,
-            torch.cuda.current_stream(tau.device).cuda_stream))
+            int(n_steps), int(contract), int(bool(objective)), int(roles), eps, 0,
+            ctypes.byref(route), torch.cuda.current_stream(tau.device).cuda_stream))
     launches_sweep += 1
+    launched = ROUTES[route.value]
+    if launched == "thread":
+        launches_sweep_thread += 1
+    if launched != sweep_route(P, tau.dtype):
+        raise RuntimeError(f"lts_sweep launched its {launched} route for {P} equations of "
+                           f"{tau.dtype}; sweep_route says {sweep_route(P, tau.dtype)}")
     return s_out, obj

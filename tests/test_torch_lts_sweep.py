@@ -10,7 +10,9 @@ objective, each role's residuals from the rounded delays or the lags
 Through `lts_solve` it must be bit for bit the JAX package's jitted
 ``lts_solve`` and its one-band program.  The kernel itself runs only on the
 card: ``chip_smoke.py --phases lts`` holds it bit for bit against
-`sweep_reference` there.
+`sweep_reference` there; here the thread route's pairwise rank rule is
+emulated in numpy against `rank_along_last`, and `sweep_route`'s table is
+checked (on the card `sweep` holds the route the launcher reports to it).
 """
 
 import itertools
@@ -33,8 +35,8 @@ import chip_smoke  # noqa: E402  (the bound's work count; imports numpy only)
 
 # P -> elements of a co-array, or None: a random (P, 2) co-array (P = 64
 # and 65 are no n(n-1)/2; 64 is the warp route's longest row, 65 the block
-# route's shortest)
-SIZES = {3: 3, 6: 4, 28: 8, 64: None, 65: None, 120: 16}
+# route's shortest); every thread-route size (3 to 9 elements) is here
+SIZES = {3: 3, 6: 4, 10: 5, 15: 6, 21: 7, 28: 8, 36: 9, 64: None, 65: None, 120: 16}
 
 
 def _bits(t):
@@ -114,7 +116,7 @@ def test_sweep_reference_is_the_composition(P, n_steps, objective):
     ties."""
     tau, X, s, lag = _geometry(P, seed=P * 10 + n_steps)
     h = TL.lts_h(0.75, P)
-    before = LS.launches_sweep
+    before = (LS.launches_sweep, LS.launches_sweep_thread)
     for contract, roles in itertools.product(_contracts(P), ROLE_MASKS):
         want = _composition(tau, X, s, h, n_steps, contract, objective, lag, 0.1, roles)
         for fn in (LS.sweep_reference, LS.sweep):
@@ -126,9 +128,90 @@ def test_sweep_reference_is_the_composition(P, n_steps, objective):
                 np.testing.assert_array_equal(_bits(got[1]), _bits(want[1]), err_msg=tag)
             else:
                 assert got[1] is None and want[1] is None
-    assert LS.launches_sweep == before
+    assert (LS.launches_sweep, LS.launches_sweep_thread) == before
     if n_steps == 0 and objective:    # the NaN and infinite fits: NaN -> inf
         assert torch.isinf(got[1][0, 0, :2]).all() and torch.isfinite(got[1][1]).all()
+
+
+def _rank_key(x):
+    """csrc/lts_sweep.cu::rank_key in numpy: float32 bits as a monotone
+    int32, NaN as +inf, -0 as +0."""
+    b = x.view(np.int32).copy()
+    b[np.isnan(x)] = 0x7F800000
+    b[b == np.iinfo(np.int32).min] = 0
+    return np.where(b < 0, b ^ 0x7FFFFFFF, b).astype(np.int64)
+
+
+def _thread_ranks(x, against=None):
+    """The thread route's ranks of rows x (R, P) float32, step by step as
+    ``sweep_thread_kernel``'s pass takes them: one key a pair (the values
+    as floats, NaN as +inf; counts as float32 from rank_i = i, c = k_j <
+    k_i added to rank_i and taken from rank_j for i < j) where ``against``
+    is None, else every ordered pair by ``before`` (kj < ki + (j < i)) on
+    the int32 keys of x (ranked) and ``against`` (counted against)."""
+    P = x.shape[-1]
+    if against is None:
+        key = np.where(np.isnan(x), np.float32(np.inf), x)
+        rank = np.tile(np.arange(P, dtype=np.float32), (x.shape[0], 1))
+        for j in range(1, P):
+            for i in range(j):
+                c = (key[:, j] < key[:, i]).astype(np.float32)
+                rank[:, i] += c
+                rank[:, j] -= c
+        return rank.astype(np.int64)
+    ki, kj = _rank_key(x), _rank_key(against)
+    rank = np.zeros(x.shape, dtype=np.int64)
+    for j in range(P):
+        for i in range(P):
+            rank[:, i] += kj[:, j] < ki[:, i] + (j < i)
+    return rank
+
+
+def _hard_values(rng, shape):
+    """float32 values with many exact ties, -0.0 and +0.0, +-inf, NaN and
+    negatives."""
+    x = (rng.integers(-3, 6, shape) * 0.25).astype(np.float32)
+    u = rng.random(shape)
+    x[u < 0.06] = np.nan
+    x[(u >= 0.06) & (u < 0.1)] = np.inf
+    x[(u >= 0.1) & (u < 0.12)] = -np.inf
+    x[(x == 0) & (u < 0.5)] = -0.0
+    return x
+
+
+@pytest.mark.parametrize("branch", ["pairwise", "full-count"])
+@pytest.mark.parametrize("P", LS.THREAD_SIZES)
+def test_thread_route_rank_rule(P, branch):
+    """The thread route's rank rule equals `rank_along_last` (the plain
+    version's rank) exactly, at every thread-route size: one comparison a
+    pair where the ranked and counted-against keys are one, every ordered
+    pair, the diagonal included, where they differ (a delay role)."""
+    rng = np.random.default_rng(P)
+    x = _hard_values(rng, (400, P))
+    if branch == "pairwise":
+        got = _thread_ranks(x)
+        want = LS.rank_along_last(torch.as_tensor(x))
+    else:
+        against = np.where(rng.random(x.shape) < 0.5, x, _hard_values(rng, x.shape))
+        got = _thread_ranks(x, against)
+        want = LS.rank_along_last(torch.as_tensor(x), torch.as_tensor(against))
+        assert (against != x).any()
+    np.testing.assert_array_equal(got, want.long().numpy())
+    if branch == "pairwise":      # a permutation of 0..P-1 in every row
+        np.testing.assert_array_equal(np.sort(got, -1), np.broadcast_to(np.arange(P), got.shape))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16],
+                         ids=["float32", "bfloat16", "float16"])
+def test_sweep_route(dtype):
+    """`sweep_route` mirrors csrc/lts_sweep.cu::sweep: the thread route at
+    P = 3, 6, 10, 15, 21, 28, 36 in float32, the warp route at every other
+    P <= 64 (and every P <= 64 in a narrow dtype), the block route above."""
+    assert LS.THREAD_SIZES == tuple(n * (n - 1) // 2 for n in range(3, 10))
+    for P in range(1, LS.MAX_P + 1):
+        want = ("thread" if P in LS.THREAD_SIZES and dtype == torch.float32
+                else "warp" if P <= 64 else "block")
+        assert LS.sweep_route(P, dtype) == want, P
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
@@ -279,8 +362,8 @@ def test_lts_sweep_work_counts(P, n_steps, objective):
     residuals (5 float operations an equation: a multiply, a fused
     multiply-add as two, a subtract and the square), five refit trees and
     the 2x2 solve (12), the objective's residuals, sel * r2 and its tree's
-    adds; P * P comparisons a rank pass; bytes of tau, X, s in and out and
-    the objective."""
+    adds; P (P - 1) / 2 comparisons a rank pass (each unordered pair once);
+    bytes of tau, X, s in and out and the objective."""
     rows, Q = 3, 7
     (flops, cmps), nbytes = chip_smoke.lts_sweep_work("sweep", rows, Q, P, n_steps=n_steps,
                                                       objective=objective)
@@ -292,11 +375,28 @@ def test_lts_sweep_work_counts(P, n_steps, objective):
     per_row = n_steps * (5 * P + 5 * tree + 12) + (
         (5 * P + P + (p2 - 1 if P > 1 else 0)) if objective else 0)
     assert flops == rows * Q * per_row
-    assert cmps == rows * Q * (n_steps + objective) * P * P
+    assert cmps == rows * Q * (n_steps + objective) * (P * (P - 1) // 2)
     assert nbytes == 4 * (rows * P + 2 * P + 4 * rows * Q + (rows * Q if objective else 0))
     if (P, n_steps, objective) == (28, 4, True):
-        # the canonical row: 2,547 float operations and 3,920 comparisons
-        assert (flops / (rows * Q), cmps / (rows * Q)) == (2547, 3920)
+        # the canonical row: 2,547 float operations and 1,890 comparisons
+        assert (flops / (rows * Q), cmps / (rows * Q)) == (2547, 1890)
         bound, by = chip_smoke.sweep_bound(632, 378, 28)
         assert by == "operations" and bound == pytest.approx(
-            632 * 378 * 3920 / chip_smoke.PEAK_INT32_OPS * 1e3)
+            632 * 378 * 1890 / chip_smoke.PEAK_COMPARES * 1e3)
+
+
+@pytest.mark.parametrize("P", LS.THREAD_SIZES)
+def test_sweep_cells(P):
+    """`chip_smoke.sweep_cells`: the sweep launches of an LTS solve at P
+    equations, the exhaustive sweep of every candidate pair and, where
+    'auto' funnels (`lts_schedule`), one C-step on them, then the rest on
+    the k survivors; a capped sweep of 5 where there are more."""
+    Q = P * (P - 1) // 2
+    cells = {c: (q, n) for c, q, n in chip_smoke.sweep_cells(P)}
+    assert cells["exhaustive"] == (Q, 4)
+    k = max(16, -(-Q // 24))
+    funnel = TL.lts_schedule(Q, 0, k, 4) == "funnel"
+    assert ("funnel first" in cells) == ("funnel survivors" in cells) == funnel
+    if funnel:
+        assert cells["funnel first"] == (Q, 1) and cells["funnel survivors"] == (k, 3)
+    assert cells.get("capped") == ((5, 4) if Q > 5 else None)

@@ -48,35 +48,41 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   against single arrays.  Launches per rank per route, wall times, halo
   bytes and host-copy times;
 - ``lts``: the LTS sweep's kernels (``csrc/lts_sweep.cu``: elemental
-  solves, residuals, refit, and ``sweep``, the C-steps and trimmed
-  objective of a candidate block in one launch) bit for bit against their
+  solves, residuals, refit, ``sweep``, the C-steps and trimmed objective
+  of a candidate block in one launch, and ``final``, the final subset of
+  a solve in one launch, one warp a window) bit for bit against their
   plain versions on the canonical sweep's shapes, in bfloat16 and at P =
   120, ``sweep`` also on the funnel's two launches, the capped cell (Q =
   5), the one-band delay roles, P = 120 in chunks of 4096 and every size
   of its thread route (P = 3 to 36, ties, NaN, +inf, -0.0, delay roles),
-  and timed: its warp route (the design before the thread route) and its
+  ``final`` on the canonical exhaustive, 'auto' and chunked solves,
+  adversarial objectives, bfloat16, P = 3 to 64 under every delay-role
+  mask, a degenerate co-array, the one-band and capped cells; and timed:
+  ``sweep``'s warp route (the design before the thread route) and its
   thread route in turns at the canonical and dense50 shapes, with 0, 1
-  and 4 C-steps, beside each instance's ptxas registers and spills;
+  and 4 C-steps, ``final`` beside its bound and the separate passes it
+  replaced, beside each instance's ptxas registers and spills;
   exact-enumeration LTS (``ALPHA = 0.75``) on the canonical data
   with one incoherent element, through the API on the card and on the CPU,
   exhaustive and with ``PRODUCTION_DEFAULTS``: flags equal on every window
   whose delays are bit-identical (at least 99% of them), ground truth, the
-  outlier most flagged, every sweep kernel launched; the capped-candidate
-  stream (``max_lts_candidates=5``) card against CPU, ``lts_solve`` bit
-  for bit; one-band ``ltsva`` (its JAX program fuses the delays into the
-  sweep) card against CPU, launching ``residuals2_lag``, which is held bit
-  for bit to its plain version at P = 15, 28 and 120 and timed;
-  the sweep's rank against its pairwise definition;
-  four merged arrays ('fused') against single-array
-  runs bit for bit; a 16-element array (7,140 candidates, chunked) against
-  a smaller chunk bit for bit; one ``sweep`` launch an exhaustive solve,
-  two with the funnel, one a chunk, and one eager rank (the final
-  subset's), each canonical ``sweep`` on its thread route; the LTS step
-  with the sweep's arithmetic as eager operations, on the separate kernels
-  and through ``sweep`` on its warp and thread routes, in turns; the LTS
-  step, the solve and peak memory on the canonical and dense50 plans
-  beside the OLS step, by the separate kernels and by both routes of
-  ``sweep``;
+  outlier most flagged, one ``sweep`` (two with the funnel, each on its
+  thread route), one ``elemental`` and one ``final`` launched and nothing
+  ranked eagerly; the capped-candidate stream (``max_lts_candidates=5``)
+  card against CPU, ``lts_solve`` bit for bit; one-band ``ltsva`` (its JAX
+  program fuses the delays into the sweep) card against CPU;
+  ``residuals2_lag`` held bit for bit to its plain version at P = 15, 28
+  and 120 and timed; the sweep's rank against its pairwise definition;
+  four merged arrays ('fused') against single-array runs bit for bit; a
+  16-element array (7,140 candidates, chunked) against a smaller chunk bit
+  for bit, one ``sweep`` a chunk and its final subset on the separate
+  passes (``residuals2``, one eager rank, ``refit``), and one-band
+  ``ltsva`` on it (``residuals2_lag``); the LTS step with the sweep's
+  arithmetic as eager operations, on the separate kernels, through
+  ``sweep`` with the final subset's passes and through ``final``, in
+  turns; the LTS step, the solve and peak memory on the canonical and
+  dense50 plans beside the OLS step, through ``sweep`` with the passes
+  and through ``final``, in turns;
 - ``monitor``: ``examples/example_monitoring.py``'s workload (6 h in 1200 s
   segments, batches of 4) through ``StreamingMonitor(..., device="cuda")``
   with 'mxu' and 'fused' at 'high': the persisted segments against the
@@ -1186,6 +1192,7 @@ def zero_launches():
     XP.launches_nb = XP.launches_nb_tc = 0
     LS.launches_residuals2 = LS.launches_refit = LS.launches_elemental = 0
     LS.launches_residuals2_lag = LS.launches_sweep = LS.launches_sweep_thread = 0
+    LS.launches_final = 0
 
 
 def lts_sweep_launches():
@@ -1196,14 +1203,15 @@ def lts_sweep_launches():
     return {"sweep": LS.launches_sweep, "sweep_thread": LS.launches_sweep_thread,
             "residuals2": LS.launches_residuals2,
             "refit": LS.launches_refit, "elemental": LS.launches_elemental,
-            "residuals2_lag": LS.launches_residuals2_lag}
+            "residuals2_lag": LS.launches_residuals2_lag, "final": LS.launches_final}
 
 
 class EagerRanks:
     """While installed (``with``), counts the calls of the eager rank
     (`ops.kernels.lts_sweep.rank_along_last`, a (rows, P, P) comparison
-    tensor): on the card only the final subset's, one a solve, since the
-    candidate sweep ranks inside `lts_sweep.sweep`."""
+    tensor): on the card none at P <= 64, where the candidate sweep ranks
+    inside `lts_sweep.sweep` and the final subset inside `lts_sweep.final`;
+    above, the final subset's (`ops.lts._final_passes`), one a solve."""
 
     def __enter__(self):
         from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
@@ -1229,9 +1237,9 @@ def run_api_lts(st, freqlist, winlens, device, production):
     bucket and nothing else of the lag search ('mxu' at 'high'), and of
     csrc/lts_sweep.cu the candidate sweep in one `sweep` launch (two with
     the funnel of PRODUCTION_DEFAULTS), each on its thread route (P = 28),
-    one elemental launch, the final subset's two residuals2 and one refit,
-    and one eager rank (the final subset's), no residuals2_lag: the 8-band
-    program fuses no delay into the sweep."""
+    one elemental launch and the final subset in one `final` launch; no
+    residuals2, refit or residuals2_lag launch and no eager rank (the
+    8-band program fuses no delay into the sweep)."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
 
@@ -1261,11 +1269,12 @@ def run_api_lts(st, freqlist, winlens, device, production):
                  f"tensor-core route, once per bucket ({CANONICAL_BUCKETS}); "
                  f"launches {counts}")
         want = {"sweep": 2 if production else 1, "sweep_thread": 2 if production else 1,
-                "residuals2": 2, "refit": 1, "elemental": 1, "residuals2_lag": 0}
-        if sweep != want or ranks.calls != 1:
+                "residuals2": 0, "refit": 0, "elemental": 1, "residuals2_lag": 0,
+                "final": 1}
+        if sweep != want or ranks.calls != 0:
             fail(f"the LTS API run on the card (one solve) must launch lts_sweep "
-                 f"{want} and rank eagerly once (the final subset); got {sweep}, "
-                 f"{ranks.calls} eager ranks")
+                 f"{want} and rank nothing eagerly; got {sweep}, {ranks.calls} eager "
+                 f"ranks")
     elif any(sweep.values()):
         fail(f"the LTS API run on the CPU launched lts_sweep kernels: {sweep}")
     return out, rec.taus[0], secs, sweep
@@ -1359,6 +1368,13 @@ def lts_multiarray():
         f"bit for bit, flags included ({int(out['flags'].sum())} flagged pairs)")
 
 
+# tests/test_large_array.py:27-38: 16 elements (P = 120, 7,140 candidates),
+# element 12 (1-based) incoherent
+LTS_LARGE_STREAM = dict(nchans=16, duration_s=160.0, fs=10.0, baz_deg=285.0,
+                        trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=12.0,
+                        aperture_km=3.0, seed=5, outlier_channels=(11,))
+
+
 def lts_large_array():
     """tests/test_large_array.py:27-38 at 16 elements (P = 120, 7,140
     candidates): the automatic chunk of 4096 equals a chunk of 1024 bit for
@@ -1372,10 +1388,8 @@ def lts_large_array():
         get_freqlist, get_rij, get_winlenlist, make_plan,
     )
 
-    outlier = 11
-    st = synthetic_plane_wave(nchans=16, duration_s=160.0, fs=10.0, baz_deg=285.0,
-                              trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=12.0,
-                              aperture_km=3.0, seed=5, outlier_channels=(outlier,))
+    outlier = LTS_LARGE_STREAM["outlier_channels"][0]
+    st = synthetic_plane_wave(**LTS_LARGE_STREAM)
     freqlist, nbands, _ = get_freqlist(0.3, 1.2, "log", 2)
     winlens = get_winlenlist("constant", nbands, 30, 0, 0)
     plan = make_plan(freqlist, "log", winlens, 0.5, st.npts, st.fs)
@@ -1396,11 +1410,12 @@ def lts_large_array():
         fail(f"lts large array: the run must launch only icorr_peak's tensor-core "
              f"route; launches {counts}")
     chunks = -(-Q // auto.lts_candidate_chunk)
-    if (len(rec.taus), sweep["sweep"], sweep["sweep_thread"], ranks.calls) != (
-            1, chunks, 0, 1):
-        fail(f"lts large array: one solve must launch sweep once a chunk ({chunks}, "
-             f"on the block route) and rank eagerly once; {len(rec.taus)} solves, "
-             f"launches {sweep}, {ranks.calls} eager ranks")
+    want = {"sweep": chunks, "sweep_thread": 0, "residuals2": 2, "refit": 1,
+            "elemental": chunks, "residuals2_lag": 0, "final": 0}
+    if (len(rec.taus), sweep, ranks.calls) != (1, want, 1):
+        fail(f"lts large array: one solve must launch {want} (sweep once a chunk on the "
+             f"block route, the final subset on the separate passes) and rank eagerly "
+             f"once; {len(rec.taus)} solves, launches {sweep}, {ranks.calls} eager ranks")
     b = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, lts_candidate_chunk=1024,
                            device="cuda").run_raw(st.data)
     for name, v in a.items():
@@ -1421,6 +1436,46 @@ def lts_large_array():
     if counts.argmax() != outlier:
         fail(f"lts large array: element {counts.argmax()} is the most flagged, not "
              f"{outlier}")
+    return sweep
+
+
+def lts_one_band_large(label, device="cuda"):
+    """One-band ltsva on `lts_large_array`'s 16-element stream (P = 120,
+    7,140 candidates in two chunks of 4096), band-passed to 0.3-1.2 Hz: its
+    final subset takes the separate passes (P > 64), with the lags at the
+    "final" and "sigma2" sites (`delay_contracted`, chunked), so on the card
+    it must launch sweep and elemental once a chunk (block route), two
+    residuals2_lag, one refit, no final and no residuals2, and rank eagerly
+    once; element 12 (1-based), the incoherent one, the most flagged.
+    Returns the launches."""
+    import torch
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+
+    big = synthetic_plane_wave(**LTS_LARGE_STREAM)
+    stf, _, _ = api.filter_data(big, "cheby1", 0.3, 1.2, 2, 0.01, device="cpu")
+    with LtsRecorder() as rec, EagerRanks() as ranks:
+        zero_launches()
+        out = api.ltsva(stf, stf.latitudes, stf.longitudes, 30.0, 0.5, LTS_ALPHA,
+                        device=device)
+        if device == "cuda":
+            torch.cuda.synchronize()
+        sweep = lts_sweep_launches()
+    want = {"sweep": 2, "sweep_thread": 0, "residuals2": 0, "refit": 1, "elemental": 2,
+            "residuals2_lag": 2, "final": 0}
+    if device == "cuda" and (len(rec.taus), rec.lags[0] is not None, sweep,
+                             ranks.calls) != (1, True, want, 1):
+        fail(f"one-band ltsva at P = 120: one solve with the lags must launch {want} and "
+             f"rank eagerly once; {len(rec.taus)} solves, launches {sweep}, "
+             f"{ranks.calls} eager ranks")
+    if not all(np.isfinite(out[k]).all() for k in (0, 1, 5)):
+        fail("one-band ltsva at P = 120: vel, baz or sig_tau not finite")
+    check_outlier(out[4], 16, LTS_LARGE_STREAM["outlier_channels"][0],
+                  "one-band ltsva at P = 120")
+    log(f"[{label}] one-band ltsva at P = 120 ({len(out[0])} windows of 30 s, 7140 "
+        f"candidates in chunks of 4096): lts_sweep launches {sweep}, {ranks.calls} eager "
+        f"rank (the final subset's separate passes, with the lags)")
+    return sweep
 
 
 def rank_reference(x, rows=50_000):
@@ -1486,11 +1541,12 @@ def profile_once(fn):
 
 
 def lts_timing(label, st):
-    """Canonical and dense50 (the LTS input): per pipeline (OLS, LTS
-    exhaustive, LTS with lts_funnel_k='auto') the step by CUDA events over 20
-    steps after warm-up, its peak memory, and for LTS the sweep's device
-    time and kernel count in one profiled solve, LTS by the "kernels" route
-    (before `lts_sweep.sweep`) and by "sweep" (`SweepRoute`)."""
+    """Canonical and dense50 (the LTS input): the OLS step, and per LTS
+    pipeline (exhaustive, lts_funnel_k='auto') by the "sweep" route (the
+    final subset on the separate passes) and the "final" route
+    (`SweepRoute`) in turns (sweep, final, final, sweep): the step by CUDA
+    events over 20 steps after warm-up, its peak memory, and the solve's
+    device time and kernel count in one profiled solve."""
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.utils import (
@@ -1503,34 +1559,33 @@ def lts_timing(label, st):
     wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
     plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
              "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+
+    def step_line(pipe):
+        ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
+        peak, base = step_peak_mib(lambda: pipe.run_raw(st.data))
+        return (f"{ms:.4f} ms per run_raw step (CUDA events, 20 steps), peak memory "
+                f"{peak + base:.1f} MiB ({peak:.1f} MiB above the {base:.1f} MiB held "
+                f"before the step)")
+
     for name, plan in plans.items():
         rows = plan.nbands * plan.max_windows
-        for tag, route, kw in (
-                ("OLS", "sweep", dict(alpha=1.0)),
-                ("LTS exhaustive", "kernels", dict(alpha=LTS_ALPHA)),
-                ("LTS exhaustive", "sweep", dict(alpha=LTS_ALPHA)),
-                ("LTS auto", "kernels", dict(alpha=LTS_ALPHA, lts_funnel_k="auto")),
-                ("LTS auto", "sweep", dict(alpha=LTS_ALPHA, lts_funnel_k="auto"))):
-            pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda", **kw)
-            with SweepRoute(route):
-                ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
-                peak, base = step_peak_mib(lambda: pipe.run_raw(st.data))
-                line = (f"[{label}] {name} {tag}"
-                        f"{'' if tag == 'OLS' else f' (sweep route {route})'}: {ms:.4f} ms "
-                        f"per run_raw step (CUDA events, 20 steps), peak memory "
-                        f"{peak + base:.1f} MiB ({peak:.1f} MiB above the {base:.1f} MiB "
-                        f"held before the step)")
-                if tag != "OLS":
-                    Q = pipe.state_dict()["cand"].shape[0]
-                    tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
+        pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda", alpha=1.0)
+        log(f"[{label}] {name} OLS: {step_line(pipe)}")
+        for tag, kw in (("LTS exhaustive", {}), ("LTS auto", dict(lts_funnel_k="auto"))):
+            pipe = NarrowBandPipeline(plan, rij, filter_type="cheby1", device="cuda",
+                                      alpha=LTS_ALPHA, **kw)
+            Q = pipe.state_dict()["cand"].shape[0]
+            tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
+            for route in ("sweep", "final", "final", "sweep"):
+                with SweepRoute(route):
+                    line = step_line(pipe)
                     pipe._solve_masked(tau, md)
-                    sweep, top = profile_once(lambda: pipe._solve_masked(tau, md))
-                    line += (f"; sweep ({rows} windows x {Q} candidates, funnel "
-                             f"{pipe.lts_funnel_k}) {sweep:.4f} ms of device time in one "
-                             f"profiled solve, {sum(r[2] for r in top)} kernels; largest: "
-                             + "; ".join(f"{us / 1e3:.4f} ms x{c} {k[:60]}"
-                                         for us, k, c in top[:4]))
-            log(line)
+                    busy, top = profile_once(lambda: pipe._solve_masked(tau, md))
+                log(f"[{label}] {name} {tag} (sweep route {route}): {line}; solve ({rows} "
+                    f"windows x {Q} candidates, funnel {pipe.lts_funnel_k}) {busy:.4f} ms of "
+                    f"device time in one profiled solve, {sum(r[2] for r in top)} kernels; "
+                    f"largest: " + "; ".join(f"{us / 1e3:.4f} ms x{c} {k[:60]}"
+                                             for us, k, c in top[:4]))
             del pipe
             torch.cuda.empty_cache()
 
@@ -1550,6 +1605,9 @@ LTS_SWEEP_REPLACES = {
     "residuals2_lag": "none: the port's own kernel for XLA's delays fused and "
                       "contracted into narrow_band_least_squares_tpu/ops/lts.py:92 "
                       "(and :224, :230) in the one-band programs",
+    "final": "none: the port's own kernel for XLA's compiled final subset, "
+             "narrow_band_least_squares_tpu/ops/lts.py:209-221 (the first minimum) and "
+             ":223-261 (ranks, masked_refit, sigma_tau, the uncertainty ellipse)",
 }
 # The capped-candidate stream on which the port and the JAX package once kept
 # different subsets (ROADMAP.md Queue 3, fixed): 4 log bands over 0.2-1.6 Hz,
@@ -1565,15 +1623,28 @@ LTS_CAPPED_STREAM = dict(nchans=6, duration_s=300.0, fs=10.0, baz_deg=200.0,
 PEAK_COMPARES = 64 * 132 * 1.98e9
 
 
-def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True):
+def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True, roles=0):
     """(operations, bytes) of one launch of an lts_sweep entry point: each
     input read once, each output written once, float operations counted as
     written in csrc/lts_sweep.cu (a fused multiply-add as two).  For
     "sweep" the operations are (float, compares): the ranks of a rank pass
     (n_steps, and one for the objective) need P (P - 1) / 2 key
     comparisons, each unordered pair once (the ranked keys and those they
-    are counted against one, as on every multi-band path)."""
+    are counted against one, as on every multi-band path).  For "final"
+    (Q the candidates a window) too: the first minimum's Q - 1 comparisons
+    and one rank pass; its bytes are obj, the minimum's fit, tau, X (and
+    the lags under ``roles``) read once, the five values a window and a
+    byte of retained an equation written once."""
     half = 1 << max(P - 1, 0).bit_length() >> 1
+    if name == "final":           # rows windows: the minimum over Q, the final subset
+        tree = P + (P - half) + 2 * half + (half - 1)   # as the refit's
+        # two residual passes, the refit, the leaves w r2 and (w X_a) X_b,
+        # the four sums' trees, the ellipse in lane 0
+        per = 10 * P + 5 * tree + 12 + 6 * P + 4 * max(2 * half - 1, 0) + 41
+        cmps = rows * (Q - 1 + P * (P - 1) // 2)
+        nbytes = (itemsize * (rows * Q + 2 * rows + rows * P + 2 * P + 6 * rows) + rows * P
+                  + (4 * rows * P if roles else 0))
+        return (float(rows * per), float(cmps)), nbytes
     if name == "sweep":           # rows windows x Q rows, each its C-steps and objective
         n = rows * Q
         tree = P + (P - half) + 2 * half + (half - 1)   # as the refit's
@@ -1599,34 +1670,44 @@ def lts_sweep_work(name, rows, Q, P, itemsize=4, n_steps=4, objective=True):
     return 6.0 * n, itemsize * (rows * P + 4 * Q + 2 * n) + 8 * 2 * Q
 
 
-def sweep_bound(rows, Q, P, n_steps=4, objective=True):
-    """(bound ms, bound_by) of one lts_sweep.sweep launch: the larger of its
-    float operations at PEAK_FP32_FLOPS, its comparisons at PEAK_COMPARES
-    (two pipes of the SM that run side by side) and its bytes at
-    PEAK_HBM_BYTES."""
-    (flops, cmps), nbytes = lts_sweep_work("sweep", rows, Q, P, n_steps=n_steps,
-                                           objective=objective)
+def sweep_bound(rows, Q, P, n_steps=4, objective=True, name="sweep", roles=0):
+    """(bound ms, bound_by) of one lts_sweep.sweep launch (or of ``name``,
+    "final": Q the candidates a window): the larger of its float operations
+    at PEAK_FP32_FLOPS, its comparisons at PEAK_COMPARES (two pipes of the
+    SM that run side by side) and its bytes at PEAK_HBM_BYTES."""
+    (flops, cmps), nbytes = lts_sweep_work(name, rows, Q, P, n_steps=n_steps,
+                                           objective=objective, roles=roles)
     ops_ms = max(flops / PEAK_FP32_FLOPS, cmps / PEAK_COMPARES) * 1e3
     mem_ms = nbytes / PEAK_HBM_BYTES * 1e3
     return max(ops_ms, mem_ms), ("operations" if ops_ms >= mem_ms else "bytes")
 
 
+def bit_diff(got, want) -> int:
+    """How many values of ``got`` and ``want`` (one shape) differ in their
+    bits, a NaN equal to any NaN."""
+    import torch
+
+    got, want = got.cpu(), want.cpu()
+    if got.shape != want.shape:
+        return max(got.numel(), want.numel(), 1)
+    if not got.is_floating_point():
+        return int((got != want).sum())
+    idt = torch.int16 if got.element_size() == 2 else torch.int32
+    return int(((got.view(idt) != want.view(idt)) & ~(torch.isnan(got) & torch.isnan(want)))
+               .sum())
+
+
 def same_sweep(tag, got, want):
     """s and obj of lts_sweep.sweep bit for bit its plain version's (a NaN
     equals a NaN)."""
-    import torch
-
     for name, g, w in (("s", got[0], want[0]), ("obj", got[1], want[1])):
         if (g is None) != (w is None) or (g is not None and g.shape != w.shape):
             fail(f"lts_sweep sweep {tag}: {name} is {g if g is None else g.shape} against "
                  f"{w if w is None else w.shape}")
-        if g is None:
-            continue
-        idt = torch.int16 if g.element_size() == 2 else torch.int32
-        bad = (g.view(idt) != w.view(idt)) & ~(torch.isnan(g) & torch.isnan(w))
-        if bad.any():
+        bad = 0 if g is None else bit_diff(g, w)
+        if bad:
             err = float((g.float() - w.float()).abs().nan_to_num(float("inf")).max())
-            fail(f"lts_sweep sweep {tag}: {int(bad.sum())} of {g.numel()} {name} values "
+            fail(f"lts_sweep sweep {tag}: {bad} of {g.numel()} {name} values "
                  f"differ from sweep_reference (max {err:.3e})")
 
 
@@ -1700,14 +1781,14 @@ def sweep_launch(route, tau, X, s, h, n_steps, contract, objective=True, lag=Non
     return s_out, obj
 
 
-def sweep_geometry(P, seed, windows=(4, 8), Q=300):
-    """(tau, X, s, lag) on the card at a thread-route size P (the co-array
-    of n elements, n (n - 1) / 2 = P): plane-wave delays on integer lags at
-    fs = 10, a fifth of the equations hit by outliers, and candidate fits
-    with the hard cases: a NaN fit and an infinite one (NaN and +inf
-    residuals), a zero fit on a row of equal delays (every key tied), -0.0
-    delays; Q = 300 candidates a window take three blocks of the thread
-    route, the last partial."""
+def sweep_geometry(P, seed, windows=(4, 8), Q=300, coarray_of=True):
+    """(tau, X, s, lag) on the card at P equations, X the co-array of n
+    elements, n (n - 1) / 2 = P (``coarray_of`` False: a random (P, 2) X):
+    plane-wave delays on integer lags at fs = 10, a fifth of the equations
+    hit by outliers, and candidate fits with the hard cases: a NaN fit and
+    an infinite one (NaN and +inf residuals), a zero fit on a row of equal
+    delays (every key tied), -0.0 delays; Q = 300 candidates a window take
+    three blocks of the thread route, the last partial."""
     import torch
     from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
 
@@ -1716,6 +1797,8 @@ def sweep_geometry(P, seed, windows=(4, 8), Q=300):
     theta = np.linspace(0, 2 * np.pi, nch, endpoint=False)
     X = coarray(np.stack([np.cos(theta) * rng.uniform(0.5, 1.5, nch),
                           np.sin(theta) * rng.uniform(0.5, 1.5, nch)]))[0]
+    if not coarray_of:
+        X = rng.standard_normal((P, 2))
     if X.shape[0] != P:
         fail(f"sweep_geometry: {nch} elements give P = {X.shape[0]}, not {P}")
     tau = (X @ rng.standard_normal(windows + (2, 1)) * 0.5)[..., 0]
@@ -1895,6 +1978,164 @@ def sweep_route_sizes(label, windows=(8, 79)):
     return out
 
 
+# Every output of lts_sweep.final, in the order of its record
+FINAL_KEYS = ("objective", "s", "retained", "sig_tau", "vel_uncert", "baz_uncert")
+# The sizes `final` is held at beyond the canonical P = 28: every thread-route
+# size, two more co-arrays one warp a row takes in two halves (10 and 11
+# elements) and the longest row it takes
+FINAL_SIZES = (3, 6, 10, 15, 21, 28, 36, 45, 55, 64)
+
+
+def check_final(tag, tau, X, obj, s, h, lag=None, inv_fs=0.0, roles=0):
+    """lts_sweep.final against final_reference on the card, every output
+    bit for bit (`FINAL_KEYS`), at the final refit's contractions; returns
+    the kernel's outputs."""
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+
+    P = tau.shape[-1]
+    dof, c = max(h - 2, 1), LTS.refit_contractions(P, "final")
+    got = LS.final(tau, X, obj, s, h, dof, c, lag, inv_fs, roles)
+    want = LS.final_reference(tau, X, obj, s, h, dof, c, lag, float(np.float32(inv_fs)), roles)
+    for k in FINAL_KEYS:
+        bad = bit_diff(got[k], want[k])
+        if bad:
+            fail(f"lts_sweep final {tag}: {bad} of {want[k].numel()} {k} values differ from "
+                 f"final_reference")
+    return got
+
+
+def final_adversarial(obj, s):
+    """(obj, s) with the hard rows of the first minimum: window 0 all +inf
+    (index 0 wins), window 1's minimum tied at three candidates (the first
+    wins), windows 2 and 3 a NaN and an infinite best fit (NaN and +inf
+    residuals: every key +inf, ranks by index)."""
+    import torch
+
+    K = obj.shape[-1]
+    obj, s = obj.clone().reshape(-1, K), s.clone().reshape(-1, K, 2)
+    obj[0] = float("inf")
+    obj[1, [K - 1, K // 2, K - 2]] = obj[1].min()
+    for w, bad in ((2, (float("nan"), 0.3)), (3, (float("inf"), 0.0))):
+        obj[w, K // 3] = -1.0
+        s[w, K // 3] = torch.tensor(bad, dtype=s.dtype, device=s.device)
+    return obj, s
+
+
+def lts_final_check(label, st):
+    """`lts_sweep.final` bit for bit `final_reference` on the card in every
+    output (`check_final`), in each cell that reaches it: the canonical
+    exhaustive solve's candidates (632 windows x 378, after the cand_ok
+    mask), 'auto' (the funnel's 16 survivors), a chunked sweep's block
+    minima (blocks of 100, padded as `lts_solve` pads them: 4 a window),
+    adversarial objectives (`final_adversarial`), bfloat16, every size of
+    `FINAL_SIZES` on `sweep_geometry`'s rows (NaN, +inf, tied and -0.0
+    residuals) under each delay-role mask, and a degenerate co-array (X1 =
+    0: every refit singular, s = 0, |s|^2 at its floor); `lts_one_band`
+    and `lts_capped_case` hold the one-band and capped cells.  Then times
+    final at canonical and dense50 (`device_ms`, 20 launches) beside its
+    bound (`sweep_bound`), its plain version on the card and the separate
+    passes it replaced (`ops.lts._final_passes`, one call's device ms and
+    kernels); returns its kernels-line record."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.ops import lts as LTS
+    from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    _, freqlist, winlens = canonical_inputs()
+    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
+    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
+    plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
+             "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+    inputs = {}
+    for name, plan in plans.items():
+        pipe = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, device="cuda")
+        g = pipe._geometry
+        tau = pipe._delays(pipe._filter(pipe._to_device(st.data)))[0]
+        inputs[name] = (pipe, tau) + LTS._candidate_sweep(
+            tau, g["X"], g["cand"], g["Ainv"], g["cand_ok"], pipe.h, pipe.c_steps)
+    pipe, tau, obj, s = inputs["canonical"]
+    g, h, steps = pipe._geometry, pipe.h, pipe.c_steps
+    X, cand, Ainv, ok = g["X"], g["cand"], g["Ainv"], g["cand_ok"]
+    Q = cand.shape[0]
+    check_final("canonical exhaustive", tau, X, obj, s, h)
+    check_final("canonical 'auto'", tau, X, *LTS._candidate_sweep(
+        tau, X, cand, Ainv, ok, h, steps, max(16, -(-Q // 24))), h)
+    chunk = 100
+    pad = -(-Q // chunk) * chunk - Q
+    cc = torch.cat([cand.long(), cand.new_zeros((pad, 2)).long()])
+    aa, oo = torch.cat([Ainv, Ainv.new_zeros((pad, 2, 2))]), torch.cat([ok, ok.new_zeros(pad)])
+    blocks = [LTS._best(*LTS._candidate_sweep(tau, X, cc[c:c + chunk], aa[c:c + chunk],
+                                              oo[c:c + chunk], h, steps))
+              for c in range(0, Q + pad, chunk)]
+    check_final(f"canonical chunked ({len(blocks)} blocks of {chunk})", tau, X,
+                torch.stack([b[0] for b in blocks], -1), torch.stack([b[1] for b in blocks], -2),
+                h)
+    adv_obj, adv_s = final_adversarial(obj, s)
+    check_final("canonical adversarial objectives", tau.reshape(-1, tau.shape[-1]), X, adv_obj,
+                adv_s, h)
+    bf = lambda t: t.to(torch.bfloat16)
+    check_final("bfloat16", bf(tau[:2]), bf(X), *LTS._candidate_sweep(
+        bf(tau[:2]), bf(X), cand, bf(Ainv), ok, h, steps), h)
+    for P in FINAL_SIZES:
+        tau_p, X_p, s_p, lag_p = sweep_geometry(P, SEED + P, coarray_of=P != 64)
+        h_p = LTS.lts_h(LTS_ALPHA, P)
+        s4, o4 = LS.sweep(tau_p, X_p, s_p, h_p, 4, LTS.refit_contractions(P, "loop"))
+        o4, s4 = final_adversarial(o4, s4)
+        rows = tau_p.reshape(-1, P)
+        for roles in (0, 0b01, 0b10, 0b11):
+            check_final(f"P={P} roles {roles:02b}", rows, X_p, o4, s4, h_p,
+                        lag_p.reshape(-1, P), 0.1, roles)
+    Xd = X.clone()
+    Xd[:, 1] = 0.0
+    sd, od = LS.sweep(tau, Xd, s, h, steps, LTS.refit_contractions(28, "loop"))
+    got = check_final("degenerate co-array (X1 = 0)", tau, Xd, od, sd, h)
+    if got["s"].any() or not torch.isfinite(got["vel_uncert"]).all():
+        fail("lts_sweep final on a degenerate co-array: s is not 0 everywhere or "
+             "vel_uncert not finite")
+    torch.cuda.synchronize()
+    log(f"[{label}] lts_sweep final bit for bit final_reference ({', '.join(FINAL_KEYS)}): "
+        f"canonical {tuple(tau.shape)} exhaustive (K = {Q}), 'auto' (K = 16), chunked "
+        f"({len(blocks)} blocks of {chunk}), adversarial objectives, bfloat16, P = "
+        f"{list(FINAL_SIZES)} (roles 00, 01, 10, 11), a degenerate co-array (s = 0)")
+
+    rec = None
+    for name, (pipe, tau, obj, s) in inputs.items():
+        X, h = pipe._geometry["X"], pipe.h
+        rows, K, P = tau[..., 0].numel(), obj.shape[-1], tau.shape[-1]
+        dof, c = max(h - 2, 1), LTS.refit_contractions(P, "final")
+        kern = lambda: LS.final(tau, X, obj, s, h, dof, c)
+        ms = device_ms(kern, reps=20)
+        pms = device_ms(lambda: LS.final_reference(tau, X, obj, s, h, dof, c), reps=3)
+        passes = lambda: LTS._final_passes(tau, X, obj, s, h, dof)
+        passes_ms = device_ms(passes, reps=20)
+        busy, top = profile_once(passes)
+        kbusy, _ = profile_once(kern)
+        bound, by = sweep_bound(rows, K, P, name="final")
+        (flops, cmps), nbytes = lts_sweep_work("final", rows, K, P)
+        log(f"[{label}] lts_sweep final at {name} ({rows} windows x {K} candidates x {P}): "
+            f"{ms:.4f} ms a launch ({kbusy:.4f} ms profiled), plain version on the card "
+            f"{pms:.4f} ms, the separate passes it replaced {passes_ms:.4f} ms "
+            f"({busy:.4f} ms in {sum(r[2] for r in top)} kernels, one profiled call); bound "
+            f"{bound:.5f} ms by {by} ({nbytes / 1e6:.3f} MB, {flops / 1e6:.2f} MFLOP, "
+            f"{cmps / 1e6:.3f} M comparisons)")
+        if name == "canonical":
+            rec = {"name": "lts_sweep.final", "route": "cuda", "per": "launch",
+                   "source": LTS_SWEEP_SOURCE, "replaces": LTS_SWEEP_REPLACES["final"],
+                   "launches": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": pms,
+                   "bound_ms": bound, "bound_by": by, "library_ms": None,
+                   "passes_ms": passes_ms}
+        else:
+            rec.update(dense50_ms=ms, dense50_bound_ms=bound, dense50_passes_ms=passes_ms)
+    del inputs
+    torch.cuda.empty_cache()
+    return rec
+
+
 def lts_kernel_check(label, st, freqlist, winlens):
     """Each lts_sweep entry point against its plain version on the card,
     bit for bit: on the canonical LTS sweep's shapes (632 windows x 378
@@ -1962,9 +2203,7 @@ def lts_kernel_check(label, st, freqlist, winlens):
     bs, _, _ = check("bfloat16", bf(tau[:2]), bf(X), cand, bf(Ainv), h, contracts)
     check_sweep("bfloat16", bf(tau[:2]), bf(X), bs, h, pipe.c_steps, loop)
 
-    big = synthetic_plane_wave(nchans=16, duration_s=160.0, fs=10.0, baz_deg=285.0,
-                               trace_vel_kms=0.33, f0=0.6, bandwidth=0.8, snr=12.0,
-                               aperture_km=3.0, seed=5, outlier_channels=(11,))
+    big = synthetic_plane_wave(**LTS_LARGE_STREAM)
     fl, nb, _ = get_freqlist(0.3, 1.2, "log", 2)
     bplan = make_plan(fl, "log", get_winlenlist("constant", nb, 30, 0, 0), 0.5,
                       big.npts, big.fs)
@@ -2104,17 +2343,21 @@ def lts_one_band(label, st):
     delays into the sweep (ops/lts.py::delay_contracted): the canonical
     stream with its incoherent element band-passed to FMIN-FMAX, card
     against CPU.  The run is driven with the counts at 0 and must launch
-    one sweep (its objective's delay roles), one elemental, one refit and
-    two residuals2_lag (the final subset's ranks and sigma2 take the lags);
-    the stdicts are equal on every window whose delays are bit-identical
-    (at least LTS_SAME_MIN of them) and lts_solve on the CPU's delays and
-    lags is on the card the CPU's bit for bit.  residuals2_lag is held bit
-    for bit against its plain version on the card at P = 15, 28 (this run's
-    shapes) and 120, and timed at the final subset's shapes; sweep with
-    the exhaustive objective's roles and the funnel's (a lone step's, the
-    survivors') bit for bit its plain version; the one-band solve is timed
-    with the lags and without them (CUDA events).  Returns the kernels-line
-    record of lts_sweep.residuals2_lag."""
+    one sweep (its objective's delay roles), one elemental and one final
+    (the final subset's ranks and sigma2 take the lags: roles 11); the
+    stdicts are equal on every window whose delays are bit-identical (at
+    least LTS_SAME_MIN of them) and lts_solve on the CPU's delays and lags
+    is on the card the CPU's bit for bit (objective, s, retained; the CPU's
+    float32 sqrt, not always correctly rounded, may move sigma_tau's last
+    bit).  residuals2_lag is held bit for bit against its
+    plain version on the card at P = 15, 28 (this run's shapes) and 120, and
+    timed at the final subset's shapes (where it ran before `final`); sweep
+    with the exhaustive objective's roles and the funnel's (a lone step's,
+    the survivors') and final with the final subset's bit for bit their
+    plain versions; the one-band solve is timed with the lags and without
+    them (CUDA events).  Returns the kernels-line record of
+    lts_sweep.residuals2_lag (its launches filled in by
+    `lts_one_band_large`)."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
     from narrow_band_least_squares_tpu_torch.ops import lts as LTS
@@ -2137,8 +2380,8 @@ def lts_one_band(label, st):
                  f"{[lag is not None for lag in rec.lags]}")
         runs[dev] = (out, rec.taus[0], rec.lags[0], launches)
     (gpu, tau_g, lag_g, sweep), (cpu, tau_c, lag_c, sweep_c) = runs["cuda"], runs["cpu"]
-    want = {"sweep": 1, "sweep_thread": 1, "residuals2": 0, "refit": 1, "elemental": 1,
-            "residuals2_lag": 2}
+    want = {"sweep": 1, "sweep_thread": 1, "residuals2": 0, "refit": 0, "elemental": 1,
+            "residuals2_lag": 0, "final": 1}
     if sweep != want or any(sweep_c.values()):
         fail(f"one-band ltsva: lts_sweep launches {sweep} on the card, {sweep_c} on "
              f"the CPU ({want} on the card, none on the CPU)")
@@ -2176,7 +2419,7 @@ def lts_one_band(label, st):
         if not torch.equal(on_card[k].cpu(), on_cpu[k]):
             fail(f"one-band ltsva: lts_solve's {k} on the card differs from the CPU's")
 
-    def same_bits(tag, lag, X, s_):
+    def same_lag(tag, lag, X, s_):
         got = LS.residuals2_lag(lag, 1.0 / stf.fs, X, s_)
         want = LS.residuals2_lag_reference(lag, float(np.float32(1.0 / stf.fs)), X, s_)
         if not torch.equal(got, want):
@@ -2187,7 +2430,7 @@ def lts_one_band(label, st):
     tau, _, md = pipe._delays(pipe._filter(pipe._to_device(stf.data)))
     lag = torch.round(tau.double() * stf.fs).float()
     s = LS.elemental(tau, g["cand"], g["Ainv"])
-    same_bits(f"P={P}", lag, g["X"], s)
+    same_lag(f"P={P}", lag, g["X"], s)
     rng = np.random.default_rng(SEED)
     for nch in (6, 16):
         theta = np.linspace(0, 2 * np.pi, nch, endpoint=False)
@@ -2198,7 +2441,7 @@ def lts_one_band(label, st):
                                 device="cuda")
         s_n = torch.as_tensor(rng.standard_normal((47, 1024, 2)) * 0.5,
                               dtype=torch.float32, device="cuda")
-        same_bits(f"P={Pn}", lag_n, Xn, s_n)
+        same_lag(f"P={Pn}", lag_n, Xn, s_n)
     roles = LTS.sweep_roles(sites)
     check_sweep(f"one-band roles {roles:06b}", tau, g["X"], s, pipe.h, pipe.c_steps,
                 LTS.refit_contractions(P, "loop"), lag, 1.0 / stf.fs, roles)
@@ -2206,6 +2449,11 @@ def lts_one_band(label, st):
     froles = (LTS.sweep_roles(fsites, "single"), LTS.sweep_roles(fsites, None, "survivors"))
     check_funnel("one-band", tau, g["X"], s, g["cand_ok"], pipe.h, pipe.c_steps,
                  max(16, -(-Q // 24)), lag, 1.0 / stf.fs, froles)
+    s4, obj = LS.sweep(tau, g["X"], s, pipe.h, pipe.c_steps, LTS.refit_contractions(P, "loop"),
+                       True, lag, 1.0 / stf.fs, roles)
+    obj = torch.where(g["cand_ok"], obj, torch.full_like(obj, float("inf")))
+    check_final(f"one-band roles {LTS.final_roles(sites):02b}", tau, g["X"], obj, s4, pipe.h,
+                lag, 1.0 / stf.fs, LTS.final_roles(sites))
     rows = tau[..., 0].numel()
     s1 = s[..., :1, :]                 # the main path's shapes: the final subset
     ms = device_ms(lambda: LS.residuals2_lag(lag, 1.0 / stf.fs, g["X"], s1), reps=20)
@@ -2222,9 +2470,10 @@ def lts_one_band(label, st):
         f"delay sites {sorted(sites)}): lts_sweep launches {sweep} on the card; stdict "
         f"card = CPU on the {int(same.sum())} of {n} windows with bit-identical delays; "
         f"lts_solve on the CPU's delays and lags bit for bit the CPU's; residuals2_lag "
-        f"bit for bit its plain version at P = 15, {P}, 120; sweep bit for bit "
-        f"sweep_reference with roles {roles:06b} (exhaustive) and {froles[0]:06b}, "
-        f"{froles[1]:06b} (funnel); a residuals2_lag launch at the final subset's "
+        f"bit for bit its plain version at P = 15, {P}, 120; sweep bit for "
+        f"bit sweep_reference with roles {roles:06b} (exhaustive) and {froles[0]:06b}, "
+        f"{froles[1]:06b} (funnel), final bit for bit final_reference with roles "
+        f"{LTS.final_roles(sites):02b}; a residuals2_lag launch at the final subset's "
         f"shapes ({rows} x 1 x {P}) {ms:.4f} ms, plain version on the card "
         f"{pms:.4f} ms, bound {bound:.4f} ms by {by} ({flops / 1e6:.1f} MFLOP, "
         f"{nbytes / 1e6:.2f} MB); the one-band solve {with_lag:.4f} ms with the lags "
@@ -2272,17 +2521,22 @@ def _eager_refit(tau, X, weight, eps=1e-12, contract=None):
 
 
 class SweepRoute:
-    """While installed (``with``), runs `ops.lts`'s candidate sweep by one
-    of three routes: "sweep" (`lts_sweep.sweep`, one launch a candidate
-    block, on the route it picks by P: one thread a row at P = 28),
-    "kernels" (its plain composition on the separate passes of
+    """While installed (``with``), runs `ops.lts`'s solve by one of four
+    routes: "final" (`lts_sweep.sweep`, one launch a candidate block on the
+    route it picks by P, and the final subset in one `lts_sweep.final`
+    launch), "sweep" (the same sweep, the final subset on the separate
+    passes of `ops.lts._final_passes`: the route before `final`),
+    "kernels" (the sweep's plain composition on the separate passes of
     csrc/lts_sweep.cu: residuals2 and refit a C-step, the eager rank
     between them; the route before `sweep`) or "eager" (that composition
     on eager arithmetic, the elemental solves and the final subset too; the
-    port before csrc/lts_sweep.cu).  "kernels" and "sweep" give the same
-    bits; "eager" rounds every operation on its own."""
+    port before csrc/lts_sweep.cu).  "kernels", "sweep" and "final" give
+    the same objective, s and flags; "eager" rounds every operation on its
+    own."""
 
     def __init__(self, route):
+        if route not in ("eager", "kernels", "sweep", "final"):
+            raise ValueError(f"unknown sweep route {route!r}")
         self.route = route
 
     def __enter__(self):
@@ -2291,7 +2545,9 @@ class SweepRoute:
         from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
 
         self._LS = LS
-        self._saved = (LS.sweep, LS.residuals2, LS.refit, LS.elemental)
+        self._saved = (LS.sweep, LS.residuals2, LS.refit, LS.elemental, LS.final_route)
+        if self.route != "final":
+            LS.final_route = lambda P, dtype: "passes"
         if self.route == "kernels":
             LS.sweep = functools.partial(
                 LS.sweep_reference, passes=(LS.residuals2, LS.residuals2_lag, LS.refit))
@@ -2301,13 +2557,11 @@ class SweepRoute:
                                             _eager_refit))
             LS.residuals2, LS.refit, LS.elemental = (_eager_residuals2, _eager_refit,
                                                      _eager_elemental)
-        elif self.route != "sweep":
-            raise ValueError(f"unknown sweep route {self.route!r}")
         return self
 
     def __exit__(self, *exc):
         LS = self._LS
-        LS.sweep, LS.residuals2, LS.refit, LS.elemental = self._saved
+        LS.sweep, LS.residuals2, LS.refit, LS.elemental, LS.final_route = self._saved
 
 
 def step_peak_mib(step):
@@ -2325,7 +2579,7 @@ def step_peak_mib(step):
 
 def lts_before_after(label, st, freqlist, winlens):
     """The canonical LTS step (exhaustive) by each `SweepRoute`, in turns
-    eager, kernels, sweep, sweep, kernels, eager: step ms by
+    eager, kernels, sweep, final, final, sweep, kernels, eager: step ms by
     CUDA events over 20 steps, the solve's device time and kernel count in
     one profiled solve, and the step's peak memory."""
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
@@ -2335,8 +2589,9 @@ def lts_before_after(label, st, freqlist, winlens):
     pipe = NarrowBandPipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
                               alpha=LTS_ALPHA, device="cuda")
     tau, _, md = pipe._delays(pipe._filter(pipe._to_device(st.data)))
-    out = {"eager": [], "kernels": [], "sweep": []}
-    for route in ("eager", "kernels", "sweep", "sweep", "kernels", "eager"):
+    order = ("eager", "kernels", "sweep", "final")
+    out = {r: [] for r in order}
+    for route in order + order[::-1]:
         with SweepRoute(route):
             step = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
             busy, rows = profile_once(lambda: pipe._solve_masked(tau, md))
@@ -2353,17 +2608,24 @@ def phase_lts(label):
     """Canonical LTS with one incoherent element through the API, card
     against CPU, exhaustive and with PRODUCTION_DEFAULTS; the lts_sweep
     kernels against their plain versions, `sweep` at every thread-route
-    size, its warp and thread routes in turns; the capped-candidate case card
-    against CPU; one-band ltsva card against CPU (`lts_one_band`);
-    multi-array and large-array LTS; the LTS timings, the sweep before and
-    after its kernels.  Returns the kernels-line records of lts_sweep."""
+    size, its warp and thread routes in turns, `final` in every cell that
+    reaches it; the capped-candidate case card against CPU; one-band ltsva
+    card against CPU (`lts_one_band`) and at P = 120; multi-array and
+    large-array LTS; the LTS timings, the solve before and after its
+    kernels.  Returns the kernels-line records of lts_sweep, their launches
+    from the runs of the paths that launch them: sweep, elemental and final
+    from the exhaustive API run, residuals2 and refit from the large array
+    (P = 120, whose final subset takes the separate passes), residuals2_lag
+    from its one-band run."""
     st, freqlist, winlens = canonical_inputs(outlier_channels=(LTS_OUTLIER,))
     recs = lts_kernel_check(label, st, freqlist, winlens)
+    recs.append(lts_final_check(label, st))
     lts_sweep_sizes(label)
     routes = lts_sweep_routes(label, st)
     for r in recs:
         if r["name"] == "lts_sweep.sweep":     # the thread route at P = 28
             r.update(sweep_route="thread", warp_ms=sum(routes["warp"]) / 2)
+    launches = {}
     for production in (False, True):
         tag = "lts production" if production else "lts exhaustive"
         gpu, tau_g, secs, sweep = run_api_lts(st, freqlist, winlens, "cuda", production)
@@ -2376,13 +2638,19 @@ def phase_lts(label):
         ground_truth(gpu, ncl, label=f"{tag} ")
         check_outlier(gpu[4], NCHANS, LTS_OUTLIER, tag)
         if not production:
-            for r in recs:
-                r["launches"] = sweep[r["name"].split(".")[1]]
+            launches.update({k: (sweep[k], "the canonical exhaustive API run")
+                             for k in ("sweep", "elemental", "final")})
     lts_capped_case(label)
     recs.append(lts_one_band(label, st))
     lts_rank_check(label, st, freqlist, winlens)
     lts_multiarray()
-    lts_large_array()
+    large = lts_large_array()
+    launches.update({k: (large[k], "the large-array run (P = 120)")
+                     for k in ("residuals2", "refit")})
+    launches["residuals2_lag"] = (lts_one_band_large(label)["residuals2_lag"],
+                                  "one-band ltsva at P = 120")
+    for r in recs:
+        r["launches"], r["launches_run"] = launches[r["name"].split(".")[1]]
     lts_before_after(label, st, freqlist, winlens)
     lts_timing(label, st)
     return recs

@@ -8,8 +8,17 @@
 // multiply-add.  LTS flags hang on the last bits of the squared residuals,
 // so these kernels compute the same roundings: __fmaf_rn where XLA
 // contracts, __fmul_rn / __fadd_rn / __fsub_rn / __fdiv_rn everywhere else
-// (nvcc never contracts those).  Five entry points:
+// (nvcc never contracts those).  Six entry points:
 //
+//   nbls_lts_final       the final subset of a solve in one launch, one warp
+//                        a window (P <= 64): the first minimum of the
+//                        candidates' objectives, the ranks of its fit's
+//                        squared residuals, the refit of the h smallest,
+//                        sigma_tau and the uncertainty ellipse; its
+//                        arithmetic is that of
+//                        ops/kernels/lts_sweep.py::final_reference, bit for
+//                        bit (each operation rounded on its own outside the
+//                        residuals and the refit, fixed-tree sums);
 //   nbls_lts_sweep       the candidate sweep of one block of candidates in
 //                        one launch: per (window, candidate) row, n_steps
 //                        C-steps (residuals, rank keys, ranks by
@@ -106,6 +115,18 @@
 // <= 64: thread-route instances for them would lengthen the build, and no
 // LTS run of the canonical plans sweeps in a narrow dtype.
 //
+// What bounds nbls_lts_final: one warp's dependent chain and the launch.
+// It reads each window's K objectives once (~1 MB at the canonical 632
+// windows x 378 candidates) and writes a few values a window, so its byte
+// bound is a fraction of a microsecond; with a few thousand windows at
+// most, the time is the chain of one window: the strided minimum and its
+// five shuffles, one rank pass, the refit's trees, three more sums and
+// some thirty rounded operations of the ellipse in lane 0.  A window is
+// spread over 32 lanes to shorten that chain, where the sweep, with
+// hundreds of thousands of rows, gives each row one thread.  It replaces
+// the ~95 small launches that computed the same values one operation at a
+// time, each writing its result to memory and reading its inputs back.
+//
 // Plain C interface, bound from Python with ctypes; built with
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 // by narrow_band_least_squares_tpu_torch/ops/kernels/_build.py.
@@ -155,6 +176,7 @@ template <class T> struct Ops {
   static __device__ __forceinline__ float add(float a, float b) { return N::rn(__fadd_rn(a, b)); }
   static __device__ __forceinline__ float sub(float a, float b) { return N::rn(__fsub_rn(a, b)); }
   static __device__ __forceinline__ float div(float a, float b) { return N::rn(__fdiv_rn(a, b)); }
+  static __device__ __forceinline__ float sqrt(float a) { return N::rn(__fsqrt_rn(a)); }
   static __device__ __forceinline__ float fma(float a, float b, float c) {
     if constexpr (N::kContracts) return __fmaf_rn(a, b, c);
     else return add(mul(a, b), c);
@@ -810,6 +832,193 @@ sweep_thread_kernel(SweepArgs a) {
   ((T*)a.s_out)[2 * row + 1] = N::st(s1);
 }
 
+// ---------------------------------------------------------------------------
+// nbls_lts_final: the final subset, one warp a window
+// ---------------------------------------------------------------------------
+
+constexpr int FINAL_WARPS = 4;   // windows a block
+// Which of the final subset's squared residuals take the unrounded delay
+// lag * inv_fs (ops/kernels/lts_sweep.py::FINAL_ROLES): the ranks of the
+// retained subset (the one-band programs' "final.i" and "final.j", always
+// together) and sigma_tau's.
+constexpr int FINAL_RANKS = 1, FINAL_SIGMA2 = 2;
+// The constants of the ellipse, each the float32 of the double that PyTorch
+// casts a Python scalar from: smag2's floor, the determinant's threshold and
+// torch.rad2deg's factor (ATen's M_180_PI).
+constexpr float SMAG2_MIN = static_cast<float>(1e-30);
+constexpr float DET_EPS = static_cast<float>(1e-12);
+constexpr float RAD2DEG = static_cast<float>(57.295779513082320876798154814105170332405472466564);
+
+struct FinalArgs {
+  const void* tau;       // (rows, P)
+  const void* X;         // (P, 2)
+  const void* obj;       // (rows, K)
+  const void* s;         // (rows, K, 2)
+  const float* lag;      // (rows, P) or null when roles == 0
+  float inv_fs;
+  void* obj_out;         // (rows): the first minimum's objective
+  void* s_out;           // (rows, 2): the refit of the retained subset
+  unsigned char* retained;   // (rows, P), 0 or 1
+  void* sig_tau;         // (rows)
+  void* vel_uncert;      // (rows)
+  void* baz_uncert;      // (rows)
+  long long rows;
+  int K, P, h, contract, roles;
+  float dof, eps;
+};
+
+// (va, ia) comes before (vb, ib) in torch.argmin's order: NaN first (the
+// minimum, as argmin propagates it), then the smaller value, equal values
+// (-0 == +0) and NaNs by index.
+__device__ __forceinline__ bool first_min_before(float va, int ia, float vb, int ib) {
+  const bool na = isnan(va), nb = isnan(vb);
+  if (na != nb) return na;
+  if (na || va == vb) return ia < ib;
+  return va < vb;
+}
+
+// torch.clamp(x, min=lo): NaN stays NaN (fmaxf would drop it).
+__device__ __forceinline__ float clamp_min(float x, float lo) { return x < lo ? lo : x; }
+
+// S = 1 for P <= 32, 2 for P <= 64.  Block: FINAL_WARPS windows, one a warp;
+// lane k owns equations k and k + 32.
+template <class T, int S>
+__global__ void __launch_bounds__(FINAL_WARPS * 32)
+final_kernel(FinalArgs a) {
+  using N = Num<T>;
+  using O = Ops<T>;
+  __shared__ __align__(16) int skeys[FINAL_WARPS][WARP_P];   // a row of keys a warp
+  const long long row = blockIdx.x * (long long)FINAL_WARPS + (threadIdx.x >> 5);
+  const int lane = threadIdx.x & 31;
+  if (row >= a.rows) return;   // whole warps; no block barrier follows
+  const int P = a.P, K = a.K;
+
+  // The first minimum of the row's objectives: each lane strides over K
+  // (neighbouring lanes on neighbouring addresses) keeping its first
+  // minimum, then the lanes merge, the lower index winning a tie.  (+inf,
+  // K) stands for "none": any objective comes before it.
+  const T* obj = (const T*)a.obj + row * K;
+  float best = __int_as_float(0x7f800000);
+  int bi = K;
+  for (int k = lane; k < K; k += 32) {
+    const float v = N::ld(obj[k]);
+    if (first_min_before(v, k, best, bi)) {
+      best = v;
+      bi = k;
+    }
+  }
+#pragma unroll
+  for (int m = 16; m >= 1; m >>= 1) {
+    const float v = __shfl_down_sync(FULL_MASK, best, m);
+    const int i = __shfl_down_sync(FULL_MASK, bi, m);
+    if (first_min_before(v, i, best, bi)) {
+      best = v;
+      bi = i;
+    }
+  }
+  bi = __shfl_sync(FULL_MASK, bi, 0);
+  const T* sb = (const T*)a.s + (row * K + bi) * 2;
+  float s0 = N::ld(sb[0]), s1 = N::ld(sb[1]);
+
+  float x0[S], x1[S], t[S], lg[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = 32 * k + lane;
+    const bool in = i < P;
+    x0[k] = in ? N::ld(((const T*)a.X)[2 * i]) : 0.f;
+    x1[k] = in ? N::ld(((const T*)a.X)[2 * i + 1]) : 0.f;
+    t[k] = in ? N::ld(((const T*)a.tau)[row * P + i]) : 0.f;
+    lg[k] = in && a.roles ? a.lag[row * P + i] : 0.f;
+  }
+  const int half = P == 1 ? 0 : 1 << (31 - __clz(P - 1));
+  // Element lane + half, the upper operand of lane's first tree level: the
+  // lane's second element when half is 32, else lane + half's.
+  const bool in_hi = lane + half < P;
+  const float x0h = S == 2 ? x0[S - 1] : __shfl_down_sync(FULL_MASK, x0[0], half);
+  const float x1h = S == 2 ? x1[S - 1] : __shfl_down_sync(FULL_MASK, x1[0], half);
+  const float th = S == 2 ? t[S - 1] : __shfl_down_sync(FULL_MASK, t[0], half);
+  // Equation k's squared residual at (s0, s1), from the rounded delay or,
+  // where `un`, from the unrounded lag * inv_fs.
+  auto residual2 = [&](int k, bool un) {
+    const float xs = O::fma(x1[k], s1, O::mul(x0[k], s0));
+    if (un) {
+      const float ru = __fmaf_rn(lg[k], a.inv_fs, -xs);
+      return __fmul_rn(ru, ru);
+    }
+    const float r = O::sub(t[k], xs);
+    return O::mul(r, r);
+  };
+
+  // The retained subset: rank < h, ranks by (key, index) as rank_along_last.
+  int key[S], rank[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) key[k] = rank_key(residual2(k, a.roles & FINAL_RANKS));
+  warp_ranks<S>(lane, P, skeys[threadIdx.x >> 5], key, key, rank);
+  float w[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    const int i = 32 * k + lane;
+    const bool keep = i < P && rank[k] < a.h;
+    w[k] = keep ? 1.f : 0.f;
+    if (i < P) a.retained[row * P + i] = keep;
+  }
+
+  // The refit of the retained subset, as sweep_warp_kernel's C-step.
+  const float wh = S == 2 ? w[S - 1] : __shfl_down_sync(FULL_MASK, w[0], half);
+  const float wx0 = O::mul(w[0], x0[0]), wx1 = O::mul(w[0], x1[0]), wt = O::mul(w[0], t[0]);
+  const float wx0h = O::mul(wh, x0h), wx1h = O::mul(wh, x1h), wth = O::mul(wh, th);
+  const int c = a.contract;
+  const float r00 = warp_dot<T>(half, c & 1, wx0, x0[0], in_hi, wx0h, x0h);
+  const float r01 = warp_dot<T>(half, c & 2, wx0, x1[0], in_hi, wx0h, x1h);
+  const float r11 = warp_dot<T>(half, c & 4, wx1, x1[0], in_hi, wx1h, x1h);
+  const float b0 = warp_dot<T>(half, c & 8, wt, x0[0], in_hi, wth, x0h);
+  const float b1 = warp_dot<T>(half, c & 16, wt, x1[0], in_hi, wth, x1h);
+  const float2 sol = solve2<T>(r00, r01, r11, b0, b1, a.eps);   // right in lane 0
+  s0 = __shfl_sync(FULL_MASK, sol.x, 0);
+  s1 = __shfl_sync(FULL_MASK, sol.y, 0);
+
+  // sigma_tau's sum of w r2 and the ellipse's sums of (w X_a) X_b, each the
+  // halving tree of tree_sum_last.
+  float v[S], e00[S], e01[S], e11[S];
+#pragma unroll
+  for (int k = 0; k < S; ++k) {
+    v[k] = O::mul(w[k], residual2(k, a.roles & FINAL_SIGMA2));
+    const float u0 = O::mul(w[k], x0[k]), u1 = O::mul(w[k], x1[k]);
+    e00[k] = O::mul(u0, x0[k]);
+    e01[k] = O::mul(u0, x1[k]);
+    e11[k] = O::mul(u1, x1[k]);
+  }
+  const float sum = warp_sum<T, S>(lane, P, half, v);
+  const float m00 = warp_sum<T, S>(lane, P, half, e00);
+  const float m01 = warp_sum<T, S>(lane, P, half, e01);
+  const float m11 = warp_sum<T, S>(lane, P, half, e11);
+  if (lane != 0) return;
+
+  // The ellipse in the order ops/kernels/lts_sweep.py::final_reference
+  // writes it, each operation rounded on its own.
+  const float sigma2 = O::div(sum, a.dof);
+  const float det = O::sub(O::mul(m00, m11), O::mul(m01, m01));
+  const float safe = fabsf(det) > DET_EPS ? det : 1.f;
+  const float i00 = O::div(m11, safe), i01 = O::div(-m01, safe), i11 = O::div(m00, safe);
+  const float sx = s0, sy = s1;
+  const float smag2 = N::rn(clamp_min(O::add(O::mul(sx, sx), O::mul(sy, sy)), SMAG2_MIN));
+  const float smag = O::sqrt(smag2);
+  const float gvx = O::div(-sx, O::mul(smag2, smag)), gvy = O::div(-sy, O::mul(smag2, smag));
+  // sigma2 (i00 gx gx + 2 i01 gx gy + i11 gy gy), left to right
+  auto quad = [&](float gx, float gy) {
+    const float q = O::add(O::mul(O::mul(i00, gx), gx), O::mul(O::mul(O::mul(2.f, i01), gx), gy));
+    return O::mul(sigma2, O::add(q, O::mul(O::mul(i11, gy), gy)));
+  };
+  const float var_v = quad(gvx, gvy);
+  const float var_t = quad(O::div(-sy, smag2), O::div(sx, smag2));
+  ((T*)a.obj_out)[row] = obj[bi];
+  ((T*)a.s_out)[2 * row] = N::st(s0);
+  ((T*)a.s_out)[2 * row + 1] = N::st(s1);
+  ((T*)a.sig_tau)[row] = N::st(O::sqrt(sigma2));
+  ((T*)a.vel_uncert)[row] = N::st(O::sqrt(clamp_min(var_v, 0.f)));
+  ((T*)a.baz_uncert)[row] = N::st(O::mul(O::sqrt(clamp_min(var_t, 0.f)), RAD2DEG));
+}
+
 unsigned grid_for(long long n) {
   const long long blocks = (n + THREADS - 1) / THREADS;
   return (unsigned)(blocks < (1LL << 30) ? blocks : (1LL << 30));
@@ -894,6 +1103,18 @@ int sweep(const SweepArgs& a, int route, int* launched, cudaStream_t stream) {
     sweep_block_kernel<T><<<(unsigned)blocks, ROW_THREADS, 0, stream>>>(a);
     *launched = LAUNCHED_BLOCK;
   }
+  return (int)cudaGetLastError();
+}
+
+template <class T>
+int final_launch(const FinalArgs& a, int* launched, cudaStream_t stream) {
+  const long long blocks = (a.rows + FINAL_WARPS - 1) / FINAL_WARPS;
+  if (blocks > kMaxGrid) return (int)cudaErrorInvalidValue;
+  if (a.P <= 32)
+    final_kernel<T, 1><<<(unsigned)blocks, FINAL_WARPS * 32, 0, stream>>>(a);
+  else
+    final_kernel<T, 2><<<(unsigned)blocks, FINAL_WARPS * 32, 0, stream>>>(a);
+  *launched = LAUNCHED_WARP;
   return (int)cudaGetLastError();
 }
 
@@ -984,6 +1205,37 @@ int nbls_lts_sweep(int dtype, const void* tau, const void* X, const void* s_in,
     case 0: return sweep<float>(a, route, launched, stream);
     case 1: return sweep<__nv_bfloat16>(a, route, launched, stream);
     case 2: return sweep<__half>(a, route, launched, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
+
+// The final subset of rows windows: the first minimum of obj (rows, K)
+// and its fit of s (rows, K, 2), the ranks of that fit's squared residuals
+// on tau (rows, P) through X (P, 2), retained = rank < h into retained
+// (rows, P; bytes 0/1), the refit of the retained subset (contract as
+// nbls_lts_refit's, eps) into s_out (rows, 2), the first minimum into
+// obj_out (rows), sigma_tau (the tree sum of the retained squared
+// residuals of s_out over dof) and the two uncertainties into sig_tau,
+// vel_uncert, baz_uncert (rows).  Bit FINAL_RANKS / FINAL_SIGMA2 of `roles`
+// takes the ranks' / sigma_tau's residuals from the unrounded delay lag
+// (rows, P) * inv_fs (float32 only).  P <= WARP_P; dtype code 0/1/2.  The
+// route launched (LAUNCHED_WARP, one warp a window) goes to *launched.
+int nbls_lts_final(int dtype, const void* tau, const void* X, const void* obj, const void* s,
+                   const float* lag, float inv_fs, void* obj_out, void* s_out,
+                   void* retained, void* sig_tau, void* vel_uncert, void* baz_uncert,
+                   long long rows, int K, int P, int h, int dof, int contract, int roles,
+                   float eps, int* launched, cudaStream_t stream) {
+  if (rows <= 0 || K <= 0 || P <= 0 || P > WARP_P || dof <= 0 || launched == nullptr)
+    return (int)cudaErrorInvalidValue;
+  if (roles && (dtype != 0 || lag == nullptr)) return (int)cudaErrorInvalidValue;
+  const FinalArgs a{tau,     X,         obj,        s,          roles ? lag : nullptr,
+                    inv_fs,  obj_out,   s_out,      (unsigned char*)retained,
+                    sig_tau, vel_uncert, baz_uncert, rows, K, P, h, contract, roles,
+                    (float)dof, eps};
+  switch (dtype) {
+    case 0: return final_launch<float>(a, launched, stream);
+    case 1: return final_launch<__nv_bfloat16>(a, launched, stream);
+    case 2: return final_launch<__half>(a, launched, stream);
   }
   return (int)cudaErrorInvalidValue;
 }

@@ -6,7 +6,7 @@ package's sweep (``narrow_band_least_squares_tpu/ops/lts.py``) is plain
 XLA, and XLA's CPU backend contracts a multiply whose product feeds an add
 inside one fusion into a fused multiply-add (one rounding).  The flags
 hang on the last bits of the squared residuals, so the port computes the
-same roundings, in five entry points:
+same roundings, in six entry points:
 
 - `sweep` (the candidate sweep, ``ops.lts._candidate_sweep``): for each
   (window, candidate) row, ``n_steps`` C-steps (the residuals, their rank
@@ -15,8 +15,8 @@ same roundings, in five entry points:
   over ``sel * r2``, NaN -> inf), in one launch; its plain version,
   `sweep_reference`, composes the plain versions of the passes below and
   `rank_along_last`, as the sweep did before it had a kernel;
-- `residuals2` (``_residuals2`` and the final subset): ``r = tau -
-  fma(X[p,1], s1, X[p,0] * s0)``, ``r2 = r * r``;
+- `residuals2` (``_residuals2`` and the final subset's separate passes):
+  ``r = tau - fma(X[p,1], s1, X[p,0] * s0)``, ``r2 = r * r``;
 - `residuals2_lag` (the sites where the one-band programs fuse the delays'
   product into the residual, `ops.lts.delay_contracted`; float32 only):
   ``r = fma(lag, inv_fs, -fma(X[p,1], s1, X[p,0] * s0))``, the delay ``lag
@@ -31,7 +31,12 @@ same roundings, in five entry points:
   numerators ``fma(b0, m11, -(b1 m01))`` and ``fma(b1, m00, -(b0 m01))``,
   one division each and zeros where ``|det| <= eps``;
 - `elemental` (the candidates' 2x2 solves): ``s_i = fma(Ainv[q,i,1], t1,
-  Ainv[q,i,0] * t0)`` with ``t = tau[cand[q]]``.
+  Ainv[q,i,0] * t0)`` with ``t = tau[cand[q]]``;
+- `final` (the final subset of a solve, ``ops.lts.lts_solve``): the first
+  minimum of the candidates' objectives, the ranks of its fit's residuals,
+  the refit of the h smallest, sigma_tau and the uncertainty ellipse, one
+  launch a solve; its plain version, `final_reference`, composes the plain
+  versions of the passes above with eager arithmetic and fixed-tree sums.
 
 Every other multiply, add and division is rounded on its own.  In a dtype
 narrower than float32 nothing is contracted: each operation is taken in
@@ -41,9 +46,11 @@ within their rounding, ``tests/test_torch_dtypes.py``).
 
 A CUDA tensor goes to the kernel of its entry point, which counts a launch
 in ``launches_sweep``, ``launches_residuals2``, ``launches_residuals2_lag``,
-``launches_refit`` or ``launches_elemental``; `sweep` has three routes,
-chosen by P alone (`sweep_route`), and also counts the launches that the
-launcher reports on its thread route in ``launches_sweep_thread``; a
+``launches_refit``, ``launches_elemental`` or ``launches_final``; `sweep`
+has three routes, chosen by P alone (`sweep_route`), and also counts the
+launches that the launcher reports on its thread route in
+``launches_sweep_thread``; `final` takes rows of at most `WARP_P`
+equations (`final_route`); a
 CPU tensor goes to its plain version (``*_reference``), which the kernels
 equal bit for bit.  The plain versions build on `fma`, an exact float32
 fused multiply-add: the float32 product is exact in float64, and the
@@ -67,6 +74,7 @@ launches_residuals2 = 0
 launches_residuals2_lag = 0
 launches_refit = 0
 launches_elemental = 0
+launches_final = 0
 
 # Longest row `refit` takes on the card (P delay equations, 45 elements).
 MAX_P = 1024
@@ -84,8 +92,17 @@ ROLES = ("step.i", "step.j", "objective.i", "objective.j", "objective.lo", "obje
 # other P <= WARP_P, one block a row above
 THREAD_SIZES = (3, 6, 10, 15, 21, 28, 36)
 WARP_P = 64
-# the routes by the code nbls_lts_sweep reports for the one it launched
+# the routes by the code nbls_lts_sweep and nbls_lts_final report for the
+# one they launched
 ROUTES = ("thread", "warp", "block")
+# The final subset's squared residuals that may take the unrounded delay
+# (``ops.lts.delay_contracted``'s sites), in the bit order of `final`'s
+# ``roles``: the ranks of the retained subset ("final.i" and "final.j",
+# always together) and sigma_tau's ("sigma2").
+FINAL_ROLES = ("final", "sigma2")
+# The constants of the uncertainty ellipse: the floor of |s|^2 and the
+# threshold of the retained subset's normal determinant.
+SMAG2_MIN, DET_EPS = 1e-30, 1e-12
 # dtype codes of the C interface
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 # Byte budget of the (rows, P, P) boolean temporary of one `rank_along_last`
@@ -110,8 +127,11 @@ def _lib():
         lib.nbls_lts_sweep.argtypes = [i, p, p, p, p, ctypes.c_float, p, p, ll,
                                        i, i, i, i, i, i, i, ctypes.c_float, i,
                                        ctypes.POINTER(ctypes.c_int), p]
+        lib.nbls_lts_final.argtypes = [i, p, p, p, p, p, ctypes.c_float, p, p, p, p, p, p,
+                                       ll, i, i, i, i, i, i, ctypes.c_float,
+                                       ctypes.POINTER(ctypes.c_int), p]
         for fn in (lib.nbls_lts_residuals2, lib.nbls_lts_residuals2_lag, lib.nbls_lts_refit,
-                   lib.nbls_lts_elemental, lib.nbls_lts_sweep):
+                   lib.nbls_lts_elemental, lib.nbls_lts_sweep, lib.nbls_lts_final):
             fn.restype = ctypes.c_int
         _bound = lib
     return _bound
@@ -313,6 +333,70 @@ def sweep_reference(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int,
     v = lo if hi is lo else torch.cat([lo[..., :half], hi[..., half:]], dim=-1)
     obj = tree_sum_last(sel * v)                      # (..., Q)
     return s, torch.where(torch.isnan(obj), torch.full_like(obj, float("inf")), obj)
+
+
+def _clamp_min(x: torch.Tensor, lo: float) -> torch.Tensor:
+    """``torch.clamp(x, min=lo)`` against the float32 of ``lo``, rounded to
+    x's dtype: a narrower dtype would round ``lo`` first on the card."""
+    return torch.clamp(x.float(), min=lo).to(x.dtype)
+
+
+def final_reference(tau: torch.Tensor, X: torch.Tensor, obj: torch.Tensor, s: torch.Tensor,
+                    h: int, dof: int, contract: int = ALL_CONTRACTED, lag: torch.Tensor = None,
+                    inv_fs: float = 0.0, roles: int = 0, eps: float = 1e-12) -> dict:
+    """The plain version of `final`: the final subset of an LTS solve.
+
+    Of the candidates' objectives obj (..., K) and fits s (..., K, 2) on tau
+    (..., P): the first minimum (``torch.argmin``'s index; its objective
+    ``obj[b]`` and fit ``s[b]``); the ranks of that fit's squared residuals
+    (`rank_along_last`), retained = rank < h; the refit of the retained
+    subset (`refit_reference`, ``contract``, ``eps``); sigma_tau = sqrt(
+    `tree_sum_last` (w r2) / dof) on the refit's residuals; and the
+    uncertainty ellipse of the retained co-array (its normal sums
+    `tree_sum_last` of (w X_a) X_b), each operation rounded on its own.  A
+    role bit of ``roles`` (`FINAL_ROLES`) takes that pass's residuals from
+    the lags (`residuals2_lag_reference`).  Every scalar is taken as on the
+    CPU, on either device: the division by dof is a true division, and a
+    clamp's floor is the float32 of its constant.  Returns objective (...),
+    s (..., 2), retained (..., P bool), sig_tau, vel_uncert and baz_uncert
+    (...)."""
+    passes = (residuals2_reference, residuals2_lag_reference, refit_reference)
+    bit = {r: 1 << k for k, r in enumerate(FINAL_ROLES)}
+    b = torch.argmin(obj, dim=-1, keepdim=True)
+    s_best = s.gather(-2, b[..., None].expand(b.shape + (2,)))      # (..., 1, 2)
+    r2, = _role_residuals2(passes, tau, X, s_best, lag, inv_fs, roles, (bit["final"],))
+    retained = rank_along_last(r2[..., 0, :]) < h
+    weight = retained.to(tau.dtype)
+    s_fin = refit_reference(tau, X, weight, eps, contract)
+    r2, = _role_residuals2(passes, tau, X, s_fin[..., None, :], lag, inv_fs, roles,
+                           (bit["sigma2"],))
+    sigma2 = tree_sum_last(weight * r2[..., 0, :]) / torch.full(
+        (), dof, dtype=tau.dtype, device=tau.device)
+
+    Xw = weight[..., None] * X
+    m00 = tree_sum_last(Xw[..., 0] * X[..., 0])
+    m01 = tree_sum_last(Xw[..., 0] * X[..., 1])
+    m11 = tree_sum_last(Xw[..., 1] * X[..., 1])
+    det = m00 * m11 - m01 * m01
+    safe = torch.where(det.float().abs() > DET_EPS, det, torch.ones_like(det))
+    i00, i01, i11 = m11 / safe, -m01 / safe, m00 / safe
+
+    sx, sy = s_fin[..., 0], s_fin[..., 1]
+    smag2 = _clamp_min(sx * sx + sy * sy, SMAG2_MIN)
+    smag = torch.sqrt(smag2)
+    gvx, gvy = -sx / (smag2 * smag), -sy / (smag2 * smag)
+    var_v = sigma2 * (i00 * gvx * gvx + 2 * i01 * gvx * gvy + i11 * gvy * gvy)
+    gtx, gty = -sy / smag2, sx / smag2
+    var_t = sigma2 * (i00 * gtx * gtx + 2 * i01 * gtx * gty + i11 * gty * gty)
+    baz_uncert = torch.sqrt(_clamp_min(var_t, 0.0))
+    return {
+        "objective": obj.gather(-1, b)[..., 0],
+        "s": s_fin,
+        "retained": retained,
+        "sig_tau": torch.sqrt(sigma2),
+        "vel_uncert": torch.sqrt(_clamp_min(var_v, 0.0)),
+        "baz_uncert": torch.rad2deg(baz_uncert.float()).to(baz_uncert.dtype),
+    }
 
 
 # --------------------------------------------------------------------------
@@ -531,3 +615,72 @@ def sweep(tau: torch.Tensor, X: torch.Tensor, s: torch.Tensor, h: int, n_steps: 
         raise RuntimeError(f"lts_sweep launched its {launched} route for {P} equations of "
                            f"{tau.dtype}; sweep_route says {sweep_route(P, tau.dtype)}")
     return s_out, obj
+
+
+def final_route(P: int, dtype: torch.dtype) -> str:
+    """The route of an LTS solve's final subset for rows of P equations of
+    ``dtype``, the same on every device: "warp" (`final`, one warp a window,
+    P <= `WARP_P` in a dtype the kernels take), else "passes" (the separate
+    passes of ``ops.lts._final_passes``).  `final` raises where its launcher
+    reports another route."""
+    return "warp" if P <= WARP_P and dtype in _DTYPES else "passes"
+
+
+def final(tau: torch.Tensor, X: torch.Tensor, obj: torch.Tensor, s: torch.Tensor, h: int,
+          dof: int, contract: int = ALL_CONTRACTED, lag: torch.Tensor = None,
+          inv_fs: float = 0.0, roles: int = 0, eps: float = 1e-12) -> dict:
+    """The final subset of an LTS solve of the candidates' objectives obj
+    (..., K) and fits s (..., K, 2) on tau (..., P) through the co-array X
+    (P, 2): the first minimum, the retained subset (rank < h), its refit
+    (``contract``, ``eps``), sigma_tau (over ``dof``) and the uncertainty
+    ellipse; ``roles`` (bits of `FINAL_ROLES`) names the residuals taken
+    from the unrounded delay ``lag * inv_fs`` (lag tau's shape, float32).
+    Returns objective, s, retained, sig_tau, vel_uncert and baz_uncert.  On
+    the card one launch, one warp a window (`final_route` "warp": P <=
+    `WARP_P`), on the CPU `final_reference`."""
+    global launches_final
+    inv_fs = float(torch.tensor(inv_fs, dtype=torch.float32))
+    if roles and (lag is None or lag.dtype != torch.float32):
+        raise TypeError("lts_final: delay roles need float32 lags (only float32 programs "
+                        f"contract); got {None if lag is None else lag.dtype}")
+    if tau.device.type == "cpu":
+        return final_reference(tau, X, obj, s, h, dof, contract, lag, inv_fs, roles, eps)
+    code = _check_cuda("lts_final", tau, X, obj, s)
+    P, K = tau.shape[-1], obj.shape[-1]
+    if (obj.shape[:-1] != tau.shape[:-1] or s.shape != obj.shape + (2,) or X.shape != (P, 2)
+            or K == 0):
+        raise ValueError(f"lts_final needs tau (..., P), X (P, 2), obj (..., K), s (..., K, 2) "
+                         f"with K > 0; got {tuple(tau.shape)}, {tuple(X.shape)}, "
+                         f"{tuple(obj.shape)}, {tuple(s.shape)}")
+    if final_route(P, tau.dtype) != "warp":
+        raise ValueError(f"lts_final on the card takes rows of at most {WARP_P} equations; "
+                         f"got {P} (ops.lts._final_passes takes longer rows)")
+    lag_c = None
+    if roles:
+        if lag.shape != tau.shape or lag.device != tau.device:
+            raise ValueError(f"lts_final: lag must be tau's shape on {tau.device}; got "
+                             f"{tuple(lag.shape)} on {lag.device}")
+        lag_c = lag.contiguous()
+    tau_c, X_c, obj_c, s_c = tau.contiguous(), X.contiguous(), obj.contiguous(), s.contiguous()
+    out = {"objective": torch.empty(obj.shape[:-1], dtype=tau.dtype, device=tau.device),
+           "s": torch.empty(tau.shape[:-1] + (2,), dtype=tau.dtype, device=tau.device),
+           "retained": torch.empty(tau.shape, dtype=torch.bool, device=tau.device)}
+    for k in ("sig_tau", "vel_uncert", "baz_uncert"):
+        out[k] = torch.empty_like(out["objective"])
+    if tau.numel() == 0:
+        return out
+    route = ctypes.c_int(-1)
+    with torch.cuda.device(tau.device):
+        _launched("lts_final", _lib().nbls_lts_final(
+            code, tau_c.data_ptr(), X_c.data_ptr(), obj_c.data_ptr(), s_c.data_ptr(),
+            None if lag_c is None else lag_c.data_ptr(), inv_fs,
+            *(out[k].data_ptr() for k in ("objective", "s", "retained", "sig_tau",
+                                          "vel_uncert", "baz_uncert")),
+            tau_c.numel() // P, K, P, int(h), int(dof), int(contract), int(roles), eps,
+            ctypes.byref(route), torch.cuda.current_stream(tau.device).cuda_stream))
+    launches_final += 1
+    if ROUTES[route.value] != final_route(P, tau.dtype):
+        raise RuntimeError(f"lts_final launched its {ROUTES[route.value]} route for {P} "
+                           f"equations of {tau.dtype}; final_route says "
+                           f"{final_route(P, tau.dtype)}")
+    return out

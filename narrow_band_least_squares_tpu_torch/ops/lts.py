@@ -39,7 +39,10 @@ fused multiply-add on the CPU; compared sums are fixed trees
 (`ops.kernels.lts_sweep.tree_sum_last`), ranks are comparison counts and
 ties resolve by index.  On the card the C-steps and the trimmed objective
 of a candidate block are one launch (`ops.kernels.lts_sweep.sweep`), whose
-plain version composes those pieces.  The model holds in ``lts_solve``
+plain version composes those pieces, and so is the final subset at up to 64
+equations (`ops.kernels.lts_sweep.final`: the first minimum, the retained
+subset, its refit, sigma_tau and the uncertainty ellipse; `sigma_tau`'s and
+the ellipse's sums are fixed trees there).  The model holds in ``lts_solve``
 jitted alone and in the
 pipeline's step, the chunked ``lax.map`` sweep, the funnel, the merged
 multi-array program and the sharded step.
@@ -305,6 +308,64 @@ def _best(obj, s):
     return torch.amin(obj, dim=-1), _take(s, i[..., None])[..., 0, :]
 
 
+def final_roles(sites) -> int:
+    """The ``roles`` bits (`ops.kernels.lts_sweep.FINAL_ROLES`) of
+    `lts_sweep.final` for the `delay_contracted` ``sites``: "final" where
+    they hold the retained subset's rank keys ("final.i" and "final.j",
+    which the one-band programs fuse together), "sigma2" where they hold
+    it."""
+    if ("final.i" in sites) != ("final.j" in sites):
+        raise ValueError(f"the final ranks' keys take the lags together or not at all; "
+                         f"got sites {sorted(sites)}")
+    site = {"final": "final.i", "sigma2": "sigma2"}
+    return sum(1 << k for k, r in enumerate(LS.FINAL_ROLES) if site[r] in sites)
+
+
+def _final_passes(tau, X, obj, s, h, dof, delay=None):
+    """The final subset as separate passes: the first minimum (`_best`),
+    the ranks of its fit's residuals (`_site_residuals2`,
+    `_rank_along_last`), the refit of the retained subset (`masked_refit`),
+    sigma_tau and the uncertainty ellipse in eager arithmetic with
+    ``torch.sum``; the route of rows longer than `lts_sweep.WARP_P`
+    (`lts_sweep.final_route`), where `lts_sweep.final` has no kernel.
+    Returns what `lts_sweep.final` returns."""
+    obj_best, s_best = _best(obj, s)
+    r2i, r2j = _site_residuals2(tau, X, s_best[..., None, :], delay, "final", ("i", "j"))
+    retained = _rank_along_last(r2i, r2j)[..., 0, :] < h                  # (..., P)
+    weight = retained.to(tau.dtype)
+    s_fin = masked_refit(tau, X, weight, contract=refit_contractions(tau.shape[-1], "final"))
+
+    # weight is 0 or 1: weight * r2 is JAX's weight * r * r, bit for bit
+    r2, = _site_residuals2(tau, X, s_fin[..., None, :], delay, "sigma2", ("",))
+    sigma2 = torch.sum(weight * r2[..., 0, :], dim=-1) / dof
+    sig_tau = torch.sqrt(sigma2)
+
+    # per-cell (Xs^T Xs)^-1 for the uncertainty ellipse
+    Xw = weight[..., None] * X
+    m00 = torch.sum(Xw[..., 0] * X[..., 0], dim=-1)
+    m01 = torch.sum(Xw[..., 0] * X[..., 1], dim=-1)
+    m11 = torch.sum(Xw[..., 1] * X[..., 1], dim=-1)
+    det = m00 * m11 - m01 * m01
+    safe = torch.where(torch.abs(det) > 1e-12, det, torch.ones_like(det))
+    i00, i01, i11 = m11 / safe, -m01 / safe, m00 / safe
+
+    sx, sy = s_fin[..., 0], s_fin[..., 1]
+    smag2 = torch.clamp(sx * sx + sy * sy, min=1e-30)
+    smag = torch.sqrt(smag2)
+    gvx, gvy = -sx / (smag2 * smag), -sy / (smag2 * smag)
+    var_v = sigma2 * (i00 * gvx * gvx + 2 * i01 * gvx * gvy + i11 * gvy * gvy)
+    gtx, gty = -sy / smag2, sx / smag2
+    var_t = sigma2 * (i00 * gtx * gtx + 2 * i01 * gtx * gty + i11 * gty * gty)
+    return {
+        "objective": obj_best,
+        "s": s_fin,
+        "retained": retained,
+        "sig_tau": sig_tau,
+        "vel_uncert": torch.sqrt(torch.clamp(var_v, min=0.0)),
+        "baz_uncert": degrees(torch.sqrt(torch.clamp(var_t, min=0.0))),
+    }
+
+
 def lts_solve(
     tau: torch.Tensor,       # (..., P)
     X: torch.Tensor,         # (P, 2)
@@ -333,6 +394,11 @@ def lts_solve(
     from the unrounded delay, as the JAX package's one-band programs do;
     without them every residual takes tau, as its jitted ``lts_solve``.
 
+    The final subset (the first minimum over the candidates or blocks, the
+    retained subset, its refit, sigma_tau and the uncertainty ellipse) is
+    one `lts_sweep.final` at P <= `lts_sweep.WARP_P` (on the card one
+    launch), else `_final_passes` (`lts_sweep.final_route`).
+
     Returns vel, baz, sig_tau, vel_uncert, baz_uncert, s, retained (..., P
     bool; True = equation kept) and objective.
     """
@@ -353,49 +419,21 @@ def lts_solve(
             for sl in (slice(k * candidate_chunk, (k + 1) * candidate_chunk)
                        for k in range(nchunk))
         ]
-        obj_blocks = torch.stack([b[0] for b in blocks], dim=-1)   # (..., n)
-        s_blocks = torch.stack([b[1] for b in blocks], dim=-2)     # (..., n, 2)
-        obj_best, s_best = _best(obj_blocks, s_blocks)
+        obj = torch.stack([b[0] for b in blocks], dim=-1)   # (..., n)
+        s = torch.stack([b[1] for b in blocks], dim=-2)     # (..., n, 2)
     else:
-        obj_best, s_best = _best(*_candidate_sweep(
-            tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k, delay))
+        obj, s = _candidate_sweep(tau, X, cand, Ainv, cand_ok, h, c_steps, funnel_k, delay)
 
     # final subset + refit (idempotent when converged, like the oracle)
-    r2i, r2j = _site_residuals2(tau, X, s_best[..., None, :], delay, "final", ("i", "j"))
-    retained = _rank_along_last(r2i, r2j)[..., 0, :] < h                  # (..., P)
-    weight = retained.to(tau.dtype)
-    s_fin = masked_refit(tau, X, weight, contract=refit_contractions(tau.shape[-1], "final"))
-
-    # weight is 0 or 1: weight * r2 is JAX's weight * r * r, bit for bit
-    r2, = _site_residuals2(tau, X, s_fin[..., None, :], delay, "sigma2", ("",))
-    sigma2 = torch.sum(weight * r2[..., 0, :], dim=-1) / dof
-    sig_tau = torch.sqrt(sigma2)
-
-    # per-cell (Xs^T Xs)^-1 for the uncertainty ellipse
-    Xw = weight[..., None] * X
-    m00 = torch.sum(Xw[..., 0] * X[..., 0], dim=-1)
-    m01 = torch.sum(Xw[..., 0] * X[..., 1], dim=-1)
-    m11 = torch.sum(Xw[..., 1] * X[..., 1], dim=-1)
-    det = m00 * m11 - m01 * m01
-    safe = torch.where(torch.abs(det) > 1e-12, det, torch.ones_like(det))
-    i00, i01, i11 = m11 / safe, -m01 / safe, m00 / safe
-
-    sx, sy = s_fin[..., 0], s_fin[..., 1]
-    smag2 = torch.clamp(sx * sx + sy * sy, min=1e-30)
-    smag = torch.sqrt(smag2)
-    gvx, gvy = -sx / (smag2 * smag), -sy / (smag2 * smag)
-    var_v = sigma2 * (i00 * gvx * gvx + 2 * i01 * gvx * gvy + i11 * gvy * gvy)
-    gtx, gty = -sy / smag2, sx / smag2
-    var_t = sigma2 * (i00 * gtx * gtx + 2 * i01 * gtx * gty + i11 * gty * gty)
-
-    vel, baz = vel_baz_from_slowness(s_fin)
-    return {
-        "vel": vel,
-        "baz": baz,
-        "sig_tau": sig_tau,
-        "vel_uncert": torch.sqrt(torch.clamp(var_v, min=0.0)),
-        "baz_uncert": degrees(torch.sqrt(torch.clamp(var_t, min=0.0))),
-        "s": s_fin,
-        "retained": retained,
-        "objective": obj_best,
-    }
+    P = tau.shape[-1]
+    if LS.final_route(P, tau.dtype) == "warp":
+        roles = 0 if delay is None else final_roles(delay.sites)
+        out = LS.final(tau, X, obj, s, h, dof, refit_contractions(P, "final"),
+                       lag=delay.lag if roles else None,
+                       inv_fs=delay.inv_fs if roles else 0.0, roles=roles)
+    else:
+        out = _final_passes(tau, X, obj, s, h, dof, delay)
+    vel, baz = vel_baz_from_slowness(out["s"])
+    return {"vel": vel, "baz": baz,
+            **{k: out[k] for k in ("sig_tau", "vel_uncert", "baz_uncert", "s", "retained",
+                                   "objective")}}

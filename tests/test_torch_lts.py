@@ -566,8 +566,9 @@ def test_lts_solve_lag_needs_sites(geom):
 
 def test_sigma2_takes_the_lags(geom):
     """With "sigma2" a site, sigma_tau sums the retained subset's residuals
-    on the lags (`lts_sweep.residuals2_lag`); they differ from the rounded
-    delays' on these windows."""
+    on the lags (`lts_sweep.residuals2_lag`) as a fixed tree
+    (`lts_sweep.tree_sum_last`, the final subset's sum on every device);
+    they differ from the rounded delays' on these windows."""
     X, ci, tau = geom
     args = _args(X, ci, "torch")
     h = TL.lts_h(0.75, X.shape[0])
@@ -576,5 +577,5 @@ def test_sigma2_takes_the_lags(geom):
     out = TL.lts_solve(t, *args, h, lag=lag, inv_fs=0.1, delay_sites={"sigma2"})
     r2 = LS.residuals2_lag(lag, 0.1, args[0], out["s"][..., None, :])[..., 0, :]
     w = out["retained"].to(torch.float32)
-    assert torch.equal(out["sig_tau"], torch.sqrt(torch.sum(w * r2, dim=-1) / (h - 2)))
+    assert torch.equal(out["sig_tau"], torch.sqrt(LS.tree_sum_last(w * r2) / (h - 2)))
     assert not torch.equal(out["sig_tau"], TL.lts_solve(t, *args, h)["sig_tau"])

@@ -19,7 +19,10 @@ Phases, in order (``--phases`` picks a subset for a quick check):
 
 - ``build``: ``nvcc`` on every ``csrc/*.cu``, all at once, and a look at
   the SASS of the tensor-core libraries (``xcorr_peak_tc``,
-  ``fused_xcorr``) for tf32 ``HGMMA`` (always runs);
+  ``fused_xcorr``) for tf32 ``HGMMA``, and of the fp32 ('highest')
+  kernels for ``FFMA`` and no tensor-core instruction; each kernel's
+  ptxas registers and spills, and the fp32 ring tile's shared memory and
+  cluster shapes with the clusters the card holds at once (always runs);
 - ``kernel``: ``icorr_peak`` against its plain version at each
   ``matmul_precision``: 'highest' (fp32 CUDA cores), 'high' (3xTF32) and
   'default' (1xTF32) on the tensor cores;
@@ -28,7 +31,9 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   and 'default';
 - ``fused-kernel``: ``fused_xcorr_bucket`` at each precision against its
   plain version of the same precision on every canonical bucket, a
-  mixed-length bucket and a ragged random one;
+  mixed-length bucket and a ragged random one, at 'highest' also every
+  dense50 bucket; chunked launches against one launch bit for bit (at
+  'highest' on every bucket);
 - ``fused-main``: the canonical run through the API with
   ``set_performance_defaults(xcorr_method='fused')`` at 'high', 'highest'
   and 'default', each on its own route;
@@ -126,7 +131,9 @@ Phases, in order (``--phases`` picks a subset for a quick check):
   the canonical OLS and LTS runs against the port's NumPy oracle; the
   neighbour route's times beside the integer route's, and peak memory;
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
-  times, profiles (device time through ``utils.profiling``).
+  times, profiles (device time through ``utils.profiling``; the fused
+  'highest' step also at dense50), and the fused 'highest' route per step
+  with 1, 2 and 4 K parts of its inverse DFT.
 
 The ``build`` phase also compiles the port's native host runtime
 (``narrow_band_least_squares_tpu_torch/native``, ``g++``) and fails if it
@@ -643,11 +650,12 @@ def check_fused_chunks(name, args, precision, windows=8):
     shape = (Bg, C, T, lm.shape[1], W, Ec.shape[0], Ec.shape[1], pairs.shape[0],
              precision)
     whole, _ = FX.plan_chunks(*shape)
-    _, one = FX.plan_chunks(*shape, budget=1)
+    at = FX.scratch_shapes(C, lm.shape[1], Ec.shape[0], Ec.shape[1], pairs.shape[0],
+                           precision, windows)
     prepared = FX.prepare(*args[6:10], precision)
     ref = FX.fused_xcorr_bucket(*args, precision=precision, prepared=prepared)
     saved = FX.SCRATCH_FLOATS
-    FX.SCRATCH_FLOATS = windows * max(int(np.prod(v)) for v in one.values())
+    FX.SCRATCH_FLOATS = max(int(np.prod(v)) for v in at.values())
     try:
         chunk, _ = FX.plan_chunks(*shape)
         got = FX.fused_xcorr_bucket(*args, precision=precision, prepared=prepared)
@@ -697,18 +705,33 @@ def fused_pipeline(plan, rij, **kw):
                               xcorr_method="fused", device="cuda", **kw)
 
 
+def dense50_plan(st):
+    """The 50-band plan (bench.py:345-347) on the canonical stream."""
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_winlenlist, make_plan,
+    )
+
+    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
+    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
+    return make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)
+
+
 def phase_fused_kernel():
     """Every precision against its own plain version on the canonical
     buckets, the mixed-length bucket and the ragged random case, and a
-    launch in several chunks against one.  Returns max |rho error| per
-    precision."""
+    launch in several chunks against one; at 'highest' (the fp32 ring tile,
+    whose K parts meet in a cluster) also every dense50 bucket, and chunks
+    on every bucket.  Returns max |rho error| per precision."""
+    import torch
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     st, freqlist, winlens = canonical_inputs()
     plan = make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs)
-    pipe = fused_pipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans))
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    pipe = fused_pipeline(plan, rij)
     canon = capture_fused_inputs(pipe, st.data)
+    dense = capture_fused_inputs(fused_pipeline(dense50_plan(st), rij), st.data)
     # tests/test_xcorr_methods.py:457: one bucket of a 30 s and a 29 s band
     sm = synthetic_plane_wave(nchans=5, duration_s=300, fs=10.0, baz_deg=200.0,
                               trace_vel_kms=0.33, f0=0.6, bandwidth=0.8,
@@ -730,8 +753,18 @@ def phase_fused_kernel():
         worst = max(worst, check_fused("mixed-length bucket", mixed, prec)[0])
         worst = max(worst, check_fused("ragged-random", ragged, prec)[0])
         errs[prec] = worst
-        check_fused_chunks("canonical bucket 0", canon[0], prec)
-        check_fused_chunks("ragged-random", ragged, prec)
+        if prec != "highest":
+            check_fused_chunks("canonical bucket 0", canon[0], prec)
+            check_fused_chunks("ragged-random", ragged, prec)
+            continue
+        for i, args in enumerate(dense):
+            errs[prec] = max(errs[prec], check_fused(f"dense50 bucket {i}", args, prec)[0])
+            torch.cuda.empty_cache()
+        cases = ([(f"canonical bucket {i}", a) for i, a in enumerate(canon)]
+                 + [(f"dense50 bucket {i}", a) for i, a in enumerate(dense)]
+                 + [("mixed-length bucket", mixed), ("ragged-random", ragged)])
+        for name, args in cases:
+            check_fused_chunks(name, args, prec)
     return errs
 
 
@@ -1549,16 +1582,12 @@ def lts_timing(label, st):
     device time and kernel count in one profiled solve."""
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
-    from narrow_band_least_squares_tpu_torch.utils import (
-        get_freqlist, get_rij, get_winlenlist, make_plan,
-    )
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
     _, freqlist, winlens = canonical_inputs()
-    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
-    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
     plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
-             "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+             "dense50": dense50_plan(st)}
 
     def step_line(pipe):
         ms = cuda_time_ms(lambda: pipe.run_raw(st.data), reps=20)
@@ -1871,16 +1900,12 @@ def lts_sweep_routes(label, st):
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.ops import lts as LTS
     from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
-    from narrow_band_least_squares_tpu_torch.utils import (
-        get_freqlist, get_rij, get_winlenlist, make_plan,
-    )
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
     _, freqlist, winlens = canonical_inputs()
-    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
-    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
     plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
-             "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+             "dense50": dense50_plan(st)}
     canonical = None
     for name, plan in plans.items():
         pipe = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, device="cuda")
@@ -2041,16 +2066,12 @@ def lts_final_check(label, st):
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.ops import lts as LTS
     from narrow_band_least_squares_tpu_torch.ops.kernels import lts_sweep as LS
-    from narrow_band_least_squares_tpu_torch.utils import (
-        get_freqlist, get_rij, get_winlenlist, make_plan,
-    )
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
     _, freqlist, winlens = canonical_inputs()
-    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
-    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
     plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER, st.npts, st.fs),
-             "dense50": make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)}
+             "dense50": dense50_plan(st)}
     inputs = {}
     for name, plan in plans.items():
         pipe = NarrowBandPipeline(plan, rij, alpha=LTS_ALPHA, device="cuda")
@@ -4470,14 +4491,14 @@ def device_profile(fn):
                                       for k in summary["kernels"]]
 
 
-def profile_step(label, pipe, data, steps=5):
+def profile_step(label, pipe, data, steps=5, name="canonical"):
     """Device time by kernel name over a few steps (torch.profiler), and the
     device's busy share of the wall time."""
     wall = []
     busy, rows = device_profile(
         lambda: wall.append(wall_s(lambda: [pipe.run_raw(data) for _ in range(steps)])))
     wall = wall[0]
-    log(f"[{label}] profile, canonical, {steps} steps: wall "
+    log(f"[{label}] profile, {name}, {steps} steps: wall "
         f"{wall / steps * 1e3:.4f} ms/step, device busy "
         f"{busy / steps * 1e3:.4f} ms/step ({100 * busy / wall:.1f}% busy)")
     for dev_us, key, count in rows[:12]:
@@ -4512,6 +4533,61 @@ def fused_bound_ms(fwd, inv, nbytes, precision):
     return route_bound_ms(fwd + inv, nbytes, precision)
 
 
+class SmClock:
+    """Samples the card's SM clock and power draw (``nvidia-smi``, every
+    100 ms) while the block runs: a kernel at the fp32 FMA rate may run
+    below the clock its published peak assumes."""
+
+    def __enter__(self):
+        self.proc = subprocess.Popen(
+            ["nvidia-smi", "--query-gpu=clocks.sm,power.draw",
+             "--format=csv,noheader,nounits", "-lms", "100"],
+            stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+        return self
+
+    def __exit__(self, *exc):
+        self.proc.terminate()
+        out, _ = self.proc.communicate(timeout=30)
+        rows = [ln.split(",") for ln in out.splitlines() if ln.count(",") == 1]
+        self.mhz = [float(a) for a, _ in rows]
+        self.watts = [float(b) for _, b in rows]
+
+    def summary(self) -> str:
+        if not self.mhz:
+            return "SM clock: no samples"
+        return (f"SM clock median {np.median(self.mhz):.0f} MHz (min {min(self.mhz):.0f}, "
+                f"max {max(self.mhz):.0f}), power median {np.median(self.watts):.1f} W "
+                f"over {len(self.mhz)} samples")
+
+
+# the fused 'highest' route's variants timed by time_fused: the inverse
+# DFT's K parts (fused_xcorr.KPARTS_INV_F32), a cluster's CTAs
+FUSED_HIGHEST_VARIANTS = (1, 2, 4)
+
+
+def fused_highest_variants(args):
+    """Device ms of one 'highest' launch on ``args`` with each K-part count
+    of the inverse DFT (FUSED_HIGHEST_VARIANTS), in turns, each checked
+    against the route's own rho; launches not counted."""
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
+
+    saved = (FX.KPARTS_INV_F32, FX.launches)
+    own = FX.fused_xcorr_bucket(*args, precision="highest")[0]
+    out = {}
+    try:
+        for parts in FUSED_HIGHEST_VARIANTS:
+            FX.KPARTS_INV_F32 = parts
+            run = lambda: FX.fused_xcorr_bucket(*args, precision="highest")
+            rho = run()[0]
+            if bool(((rho - own).abs() > 2 * KERNEL_RTOL * (1 + own.abs())).any()):
+                fail(f"fused_xcorr_bucket 'highest' with {parts} inverse parts moves rho "
+                     f"by {float((rho - own).abs().max()):.3e} from the route's own")
+            out[parts] = device_ms(run, reps=10)
+    finally:
+        FX.KPARTS_INV_F32, FX.launches = saved
+    return out
+
+
 def time_fused(label, plans, st, fused_errs, launches_main):
     """Per precision: fused step times, per-bucket and per-step kernel /
     plain / bound on the canonical plan (kernel and bound on dense50), the
@@ -4537,9 +4613,10 @@ def time_fused(label, plans, st, fused_errs, launches_main):
                 f"step, {nwin / ms * 1e3:.1f} windows solved/s, "
                 f"fused_xcorr_bucket launches per step: fp32 route "
                 f"{per_step[0]}, tensor-core route {per_step[1]}")
-            if name == "canonical" and prec != "default":
-                profile_step(f"{label} fused {prec}", pipe, st.data)
+            if prec == "highest" or (name == "canonical" and prec != "default"):
+                profile_step(f"{label} fused {prec}", pipe, st.data, name=name)
         canonical = name == "canonical"
+        variants = {v: 0.0 for v in FUSED_HIGHEST_VARIANTS}
         tot = {p: dict(ms=0.0, event_ms=0.0, plain_ms=0.0, fwd=0.0, inv=0.0,
                        nbytes=0.0) for p in PRECISIONS}
         for i, args in enumerate(capture_fused_inputs(pipe, st.data)):
@@ -4565,11 +4642,17 @@ def time_fused(label, plans, st, fused_errs, launches_main):
                 t["fwd"] += ff
                 t["inv"] += fi
                 t["nbytes"] += b
+            for v, ms in fused_highest_variants(args).items():
+                variants[v] += ms
             log(f"[{label}] fused_xcorr_bucket {name} bucket {i}: y "
                 f"{tuple(args[0].shape)} Lg={args[5].shape[1]} "
                 f"Kp={args[6].shape[1]} nlag={args[8].shape[1]} W={args[11]} "
                 f"({f / 1e9:.3f} GFLOP), kernel (events)/"
                 + ("plain/" if canonical else "") + "bound us: " + ", ".join(parts))
+        log(f"[{label}] fused_xcorr_bucket per {name} step at highest by the "
+            f"inverse's K parts, device ms: "
+            + ", ".join(f"{k}: {ms:.4f}" for k, ms in variants.items())
+            + f"; the route's own: {FX.KPARTS_INV_F32}")
         for prec in PRECISIONS:
             t = tot[prec]
             t["flops"] = t["fwd"] + t["inv"]
@@ -4688,17 +4771,13 @@ def phase_timing(label, launches_main):
     import torch
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
-    from narrow_band_least_squares_tpu_torch.utils import (
-        get_freqlist, get_rij, get_winlenlist, make_plan,
-    )
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     st, freqlist, winlens = canonical_inputs()
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
     plans = {"canonical": make_plan(freqlist, "log", winlens, WINOVER,
                                     st.npts, st.fs)}
-    fl50, nb50, _ = get_freqlist(FMIN, FMAX, "log", 50)
-    wl50 = get_winlenlist("adaptive", nb50, WINLEN, WINLEN_1, WINLEN_X)
-    plans["dense50"] = make_plan(fl50, "log", wl50, WINOVER, st.npts, st.fs)
+    plans["dense50"] = dense50_plan(st)
 
     recs = []
     for name, plan in plans.items():
@@ -4733,24 +4812,62 @@ def phase_timing(label, launches_main):
     return recs, plans, st
 
 
-def check_sass():
-    """The tensor-core libraries must hold tf32 HGMMA (wgmma) instructions."""
-    import re
+def sass_functions(lib):
+    """{mangled name: SASS lines} of every kernel in a built library."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import _build
+
+    funcs, name = {}, None
+    for ln in _build.sass(lib).splitlines():
+        if ln.strip().startswith("Function :"):
+            name = ln.split(":", 1)[1].strip()
+            funcs[name] = []
+        elif name is not None:
+            funcs[name].append(ln.strip())
+    return funcs
+
+
+def check_sass():
+    """The tensor-core libraries must hold tf32 HGMMA (wgmma) instructions;
+    the fp32 ('highest') kernels of both lag searches FFMA and no tensor-core
+    instruction (3xTF32 would also pass their tolerance)."""
+    import re
+    from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 
     for lib in ("xcorr_peak_tc", "fused_xcorr"):
-        sass = _build.sass(lib).splitlines()
-        hgmma = [ln.strip() for ln in sass if re.search(r"HGMMA\S*TF32", ln)]
+        sass = [ln for body in sass_functions(lib).values() for ln in body]
+        hgmma = [ln for ln in sass if re.search(r"HGMMA\S*TF32", ln)]
         if not hgmma:
-            mma = [ln.strip() for ln in sass if "MMA" in ln][:5]
+            mma = [ln for ln in sass if "MMA" in ln][:5]
             fail(f"{lib}'s SASS holds no HGMMA with TF32 operands; its MMA "
                  f"lines: {mma}")
         log(f"{lib} SASS: {len(hgmma)} tf32 HGMMA, e.g. {hgmma[0][:100]}")
+    fp32 = {"fused_xcorr": "ring_tile_kernel", "xcorr_peak": "icorr_peak_tile_kernel"}
+    for lib, kernel in fp32.items():
+        funcs = {k: v for k, v in sass_functions(lib).items() if kernel in k}
+        if not funcs:
+            fail(f"{lib}'s SASS has no {kernel}")
+        for name, body in funcs.items():
+            ffma = sum(bool(re.search(r"\bFFMA\b", ln)) for ln in body)
+            mma = [ln for ln in body if re.search(r"\b(HGMMA|HMMA|IMMA)\b", ln)]
+            if mma or not ffma:
+                fail(f"{lib} {name[:60]}: the fp32 route must be FFMA only; "
+                     f"{ffma} FFMA, tensor-core lines {mma[:3]}")
+            log(f"{lib} {name[:70]}: {ffma} FFMA, no HGMMA/HMMA (IEEE fp32)")
     lib = XP._lib_tc()
     log(f"tensor-core tile dynamic shared memory: "
         f"{lib.nbls_icorr_peak_tc_smem_bytes(3)} B at 'high', "
         f"{lib.nbls_icorr_peak_tc_smem_bytes(1)} B at 'default'")
+    lib = FX._lib()
+    clusters = ", ".join(
+        f"{what} x{parts}: {lib.nbls_fused_xcorr_max_clusters(store, parts)}"
+        for what, store in (("inverse", 0), ("forward", 1)) for parts in (1, 2, 4))
+    log(f"fused fp32 ring tile (64 x 128, 8 x 8 a thread, 128 threads): "
+        f"{lib.nbls_fused_xcorr_ring_smem()} B dynamic shared memory a CTA; "
+        f"clusters (1, 1, parts) the card holds at once "
+        f"(cudaOccupancyMaxActiveClusters): {clusters}; the route's K parts, "
+        f"each one cluster: the inverse's {FX.KPARTS_INV_F32}, the forward's "
+        f"{FX.KSPLIT_F32} (fewer where Lg is short)")
 
 
 def main() -> int:

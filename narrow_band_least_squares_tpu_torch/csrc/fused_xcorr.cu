@@ -37,37 +37,43 @@
 // so the lag axis is split across blocks, and the forward DFT, which every
 // lag block would otherwise recompute, is its own product.  Per launch, on
 // one stream, the same passes at every precision, each product on the fp32
-// tile of simt_tile.cuh ('highest') or the tensor-core tile of
+// ring tile of simt_ring.cuh ('highest') or the tensor-core tile of
 // peak_tile.cuh ('high', 'default'):
 //   1. window_stats: per (g, w, c), the mean and energy of the masked
 //      window (one warp each).
 //   2. windows: the masked, demeaned windows into an L2-resident scratch of
 //      (windows of the chunk)*C x Lgp floats (Lg rounded up to 32, zeros
-//      past Lg), as fp32
-//      ('highest') or as tf32 hi (and lo at 'high') planes.
+//      past Lg): fp32 and K-major, Lgp rows of the chunk's (g, w, c) rows,
+//      as the ring tile reads A ('highest'), or row-major tf32 hi (and lo
+//      at 'high') planes.
 //   3. forward DFT: the spectra F = win @ [Cf | -Sf], 2 Kp floats a (g, w,
 //      c) row, Re F then Im F.  A bucket has only a few hundred such rows,
-//      so the samples are split in KSPLIT parts across blocks (4 on the fp32
-//      tile, 3 on the tensor cores: a wave each on the canonical buckets)
-//      and spectra_sum adds the parts in a fixed order: every run gives the
-//      same bits.  The tensor cores take [Cf | Sf]^T, split once per bucket
-//      with the pipeline.
+//      so the samples are split in KSPLIT parts (4 on the fp32 tile, 3 on
+//      the tensor cores: a wave each on the canonical buckets), added in a
+//      fixed order: every run gives the same bits.  At 'highest' the parts
+//      are the CTAs of one cluster, added on chip, and the spectra are
+//      stored K-major; on the tensor cores each part is stored and
+//      spectra_sum adds them.  The tensor cores take [Cf | Sf]^T, split
+//      once per bucket with the pipeline.
 //   4. cross-spectra: [Re CS | -Im CS] of every (g, w, p) row, 2 Kp floats,
-//      fp32 ('highest'), tf32 hi and lo planes ('high') or the hi plane
-//      ('default'), into an L2-resident scratch.
+//      fp32 and K-major ('highest'), tf32 hi and lo planes ('high') or the
+//      hi plane ('default'), into an L2-resident scratch.
 //   5. inverse DFT and masked first-max, one block per (rows of (g, w, p),
 //      128 lags), against [Ec ; Es] (or its split transpose): each block
 //      reduces its tile at once to a per-row (max, first argmax) within
 //      [lo, hi]; the correlation never reaches device memory.  A tile no
-//      row of the block searches is skipped.
+//      row of the block searches is skipped.  At 'highest' the 2 Kp terms
+//      are split in kpart_inv parts, the CTAs of one cluster (2: the Ec and
+//      the Es half), added on chip in order before the first-max, and the
+//      rows of Ec and Es past the Lg + 1 frequencies, zero, are skipped.
 //   6. merge: per row, fold the lag tiles' partials in ascending order,
 //      replacing only on a strictly greater value (the first maximum wins,
 //      as in jnp.argmax), and divide by sqrt(E[i] E[j]).
 // The windows and cross-spectra pass through scratch instead of being
-// formed on their way to shared memory: on the fp32 tile a loader that
-// formed them waited for its loads before the math (xcorr 2.87 ms per
-// canonical step against 2.25 ms for the same tile on a stored matrix,
-// H100 80GB HBM3 at 700 W), and the tensor cores' TMA loads need a stored
+// formed on their way to shared memory: on the fp32 tile before the ring
+// tile a loader that formed them waited for its loads before the math
+// (xcorr 2.87 ms per canonical step against 2.25 ms for the same tile on a
+// stored matrix, H100 80GB HBM3 at 700 W), and TMA loads need a stored
 // operand.  Forming the split cross-spectra in shared memory inside the
 // tensor-core producer warpgroup, so that they never reach device memory,
 // is left for later.
@@ -80,12 +86,18 @@
 // sum fixed by its own (g, w, c) or (g, w, p) and the tables, not by how
 // many rows share the launch or the chunk, so merging arrays into one launch
 // changes no bit of any row.
+// Measured ('highest', H100 80GB HBM3 at 700 W, PERF.md): 2.88 ms a
+// canonical step against a 1.28 ms bound (2.93 before the ring tile), 14.66
+// ms a 50-band step against 8.11 ms (15.63); the inverse's FMAs run at
+// about two thirds of the fp32 rate on every tile shape tried, and a part
+// plan of 4 loses to 2 where the card is full (4-CTA clusters fit 496
+// CTAs, 2-CTA ones 528).
 //
 // Limits: the band rows, the rows of rho and one window's scratch must have
 // 32-bit flat offsets; the Python wrapper refuses other sizes with a
 // ValueError that names the shape.  Shared memory does not depend on the
-// shapes (25 KB for the fp32 tile, 160 KB for the tensor-core tile), so the
-// element count and window length are not otherwise limited.  Kp and the
+// shapes (48 KB for the fp32 ring tile, 160 KB for the tensor-core tile),
+// so the element count and window length are not otherwise limited.  Kp and the
 // lag columns are multiples of 128 (precompute_fused_tables), so no tile
 // straddles Cf and Sf or Ec and Es.
 //
@@ -93,15 +105,17 @@
 //   nvcc -gencode=arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
 // by narrow_band_least_squares_tpu_torch/ops/kernels/_build.py.
 
+#include <climits>
+
 #include "peak_tile.cuh"
-#include "simt_tile.cuh"
+#include "simt_ring.cuh"
 
 namespace {
 
 using namespace nbls;
-namespace st = nbls::simt;
 
-constexpr int BK = 16;         // K chunk of the fp32 tile
+constexpr int LAG_TILE = ring::BN;  // lags per inverse tile, both tiles
+static_assert(LAG_TILE == TILE_N, "the tiles share the partials' layout");
 constexpr int KSPLIT_F32 = 4;  // sample parts of the forward DFT, fp32 tile
 constexpr int KSPLIT_TC = 3;   // and tensor-core tile
 
@@ -132,14 +146,10 @@ struct WindowRow {
   }
 };
 
-// Stores x as an fp32 value (planes 0), its tf32 hi (planes 1) or hi and
-// lo (planes 2) at offset o of the planes hi / lo.
+// Stores x's tf32 hi (planes 1) or hi and lo (planes 2) at offset o of the
+// planes hi / lo (the tensor-core routes' scratch).
 __device__ __forceinline__ void put(float x, float* hi, float* lo, size_t o,
                                    int planes) {
-  if (planes == 0) {
-    hi[o] = x;
-    return;
-  }
   const float h = tf32_rna(x);
   hi[o] = h;
   if (planes == 2) lo[o] = tf32_rna(x - h);
@@ -197,24 +207,35 @@ __global__ void windows_kernel(const float* __restrict__ y,
   }
 }
 
-// ---- pass 3 (fp32): part z of the spectra, win @ [Cf | -Sf] over samples
-// [z * kpart, (z + 1) * kpart), into spec + z * M * 2 Kp ---------------------
-__global__ void __launch_bounds__(st::NT, st::MIN_CTAS)
-spectra_simt_kernel(const float* __restrict__ win,
-                    const float* __restrict__ Cf, const float* __restrict__ Sf,
-                    float* __restrict__ spec, int M, int Lg, int Lgp, int Kp,
-                    int kpart) {
-  const int row0 = blockIdx.x * st::BM;
-  const int col0 = blockIdx.y * st::BN;
-  const int k0 = blockIdx.z * kpart;
-  const int nk = (min(Lgp, k0 + kpart) - k0) / BK;
-  const st::RowsA<BK> A(win, row0, M, Lgp);
-  const st::RowsB B{col0 < Kp ? Cf + col0 : Sf + (col0 - Kp), Kp, Lg};
-  __shared__ __align__(16) st::Smem<BK> s;
-  float acc[st::TM][st::TN];
-  st::mainloop<BK>(s, A, B, k0, nk, acc);
-  st::store_tile(acc, row0, col0, M, spec + (size_t)blockIdx.z * M * 2 * Kp,
-                 2 * Kp, Kp);
+// ---- pass 2 (fp32): the same windows, K-major: win[t * ldm + r] for t <
+// Lgp, as the ring tile reads A.  A block transposes 32 rows x 32 samples
+// through shared memory, so that both the reads of y and the stores run
+// along consecutive addresses --------------------------------------------
+__global__ void windows_t_kernel(const float* __restrict__ y,
+                                 const int* __restrict__ hop,
+                                 const int* __restrict__ maxstart,
+                                 const float* __restrict__ len_mask,
+                                 const float* __restrict__ mean,
+                                 float* __restrict__ win, int row0, int M,
+                                 int C, int T, int Lg, int W, int Lgp,
+                                 int ldm) {
+  __shared__ float tile[32][33];
+  const int t0 = blockIdx.x * 32, r0 = blockIdx.y * 32;
+  const int tx = threadIdx.x, ty = threadIdx.y;  // 32 x 8
+  for (int i = ty; i < 32; i += 8) {
+    const int r = r0 + i, t = t0 + tx;
+    float x = 0.f;
+    if (r < M && t < Lg) {
+      const WindowRow wr(row0 + r, y, hop, maxstart, len_mask, C, T, Lg, W);
+      x = __fmul_rn(__fsub_rn(wr.masked(t, T), mean[r]), wr.lm[t]);
+    }
+    tile[i][tx] = x;
+  }
+  __syncthreads();
+  for (int i = ty; i < 32; i += 8) {
+    const int t = t0 + i, r = r0 + tx;
+    if (t < Lgp && r < M) win[(size_t)t * ldm + r] = tile[tx][i];
+  }
 }
 
 // Adds the parts of the spectra into part 0, in a fixed order.
@@ -248,43 +269,27 @@ __global__ void cross_kernel(const float* __restrict__ spec,
   }
 }
 
-// The tile's 128 lags of [Ec ; Es] (2 Kp, nlag): rows below Kp from Ec.
-struct InverseB {
-  const float* ec;
-  const float* es;
-  int ld, Kp;
-  __device__ bool in(int) const { return true; }
-  __device__ const float* src(int k, int n) const {
-    return k < Kp ? ec + (size_t)k * ld + n : es + (size_t)(k - Kp) * ld + n;
+// ---- pass 4 (fp32): the same cross-spectra, K-major from K-major spectra:
+// cs[k * ldr + r] = Re CS, cs[(Kp + k) * ldr + r] = -Im CS; threads along
+// the rows, so a warp's pairs read a few neighbouring spectra rows --------
+__global__ void cross_t_kernel(const float* __restrict__ spec,
+                               const int* __restrict__ pairs,
+                               float* __restrict__ cs, int R, int C, int P,
+                               int Kp, int ldm, int ldr) {
+  const size_t n = (size_t)R * Kp;
+  for (size_t e = blockIdx.x * (size_t)blockDim.x + threadIdx.x; e < n;
+       e += (size_t)gridDim.x * blockDim.x) {
+    const int r = (int)(e % R), k = (int)(e / R);
+    const int p = r % P, gw = r / P;
+    const int ri = gw * C + pairs[2 * p], rj = gw * C + pairs[2 * p + 1];
+    const float* re = spec + (size_t)k * ldm;
+    const float* im = spec + (size_t)(Kp + k) * ldm;
+    const float reI = re[ri], imI = im[ri], reJ = re[rj], imJ = im[rj];
+    cs[(size_t)k * ldr + r] =
+        __fadd_rn(__fmul_rn(reJ, reI), __fmul_rn(imJ, imI));
+    cs[(size_t)(Kp + k) * ldr + r] =
+        -__fsub_rn(__fmul_rn(imJ, reI), __fmul_rn(reJ, imI));
   }
-};
-
-// ---- pass 5 (fp32): inverse DFT of the cross-spectra, masked first-max; the
-// chunk's row 0 is row row_base of rho --------------------------------------
-__global__ void __launch_bounds__(st::NT, st::MIN_CTAS)
-xcorr_simt_kernel(const float* __restrict__ cs, const int* __restrict__ lo,
-                  const int* __restrict__ hi, const float* __restrict__ Ec,
-                  const float* __restrict__ Es, float* __restrict__ part_val,
-                  int* __restrict__ part_idx, int row_base, int R, int WP,
-                  int Kp, int nlag) {
-  const int row0 = blockIdx.x * st::BM;
-  const int lag0 = blockIdx.y * st::BN;
-  float* pv = part_val + (size_t)blockIdx.y * R;
-  int* pi = part_idx + (size_t)blockIdx.y * R;
-  const auto bounds = [&](int r, int& l, int& h) {  // r within the chunk
-    l = lo[(row_base + r) / WP];
-    h = hi[(row_base + r) / WP];
-  };
-  if (!st::tile_needed(row0, lag0, R, bounds)) {
-    st::skip_partials(row0, R, pv, pi);
-    return;
-  }
-  const st::RowsA<BK> A(cs, row0, R, 2 * Kp);
-  const InverseB B{Ec + lag0, Es + lag0, nlag, Kp};
-  __shared__ __align__(16) st::Smem<BK> s;
-  float acc[st::TM][st::TN];
-  st::mainloop<BK>(s, A, B, 0, 2 * Kp / BK, acc);
-  st::first_max_partials(acc, row0, lag0, R, nlag, bounds, pv, pi);
 }
 
 // ---- pass 6: fold the lag tiles in order, rho = peak / sqrt(Ei Ej) --------
@@ -318,12 +323,46 @@ unsigned grid_for(size_t n) {
   return (unsigned)(blocks < 132 * 16 ? blocks : 132 * 16);
 }
 
+int round4(int x) { return (x + 3) / 4 * 4; }
+
+// ---- pass 3 (fp32): the spectra [Re F | Im F] = win . [Cf | -Sf] on the
+// ring tile, K-major into spec (2 Kp, ldm), the samples in parts of kpart,
+// one cluster a tile ---------------------------------------------------------
+int forward_ring(const float* win, int M, int ldm, int Lgp, int kpart,
+                 const float* Cf, const float* Sf, int Lg, int Kp, float* spec,
+                 cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int err = ring::encode_ring(maps, win, M, ldm, Lgp, Cf, Sf, Lg, Kp);
+  if (err != 0) return err;
+  const ring::RingOut o{nullptr, nullptr, 1, 0, nullptr, nullptr, spec, ldm, Kp};
+  return ring::launch_ring<ring::RING_STORE>(
+      maps, o, M, Lgp, kpart, 2 * Kp, INT_MAX, Kp, Lgp, stream);
+}
+
+// ---- pass 5 (fp32): the inverse DFT of the K-major cross-spectra (2 Kp,
+// ldr) against [Ec ; Es], K in parts of kpart, one cluster a tile, reduced
+// on chip to the tile's masked first-max partials; the chunk's row 0 is
+// row row_base of rho.  Rows of Ec and Es at or past kinv are zero and
+// skipped ----------------------------------------------------------------
+int inverse_ring(const float* cs, int R, int ldr, int Kp, int kpart, int kinv,
+                 const float* Ec, const float* Es, int nlag, const int* lo,
+                 const int* hi, int bdiv, int row_base, float* part_val,
+                 int* part_idx, cudaStream_t stream) {
+  CUtensorMap maps[3];
+  const int err = ring::encode_ring(maps, cs, R, ldr, 2 * Kp, Ec, Es, Kp, nlag);
+  if (err != 0) return err;
+  const ring::RingOut o{lo, hi, bdiv, row_base, part_val, part_idx, nullptr, 0, 0};
+  const int kvalid = (kinv + ring::BK - 1) / ring::BK * ring::BK;
+  return ring::launch_ring<ring::RING_PEAK>(
+      maps, o, R, 2 * Kp, kpart, nlag, Kp, INT_MAX, kvalid, stream);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Lags per xcorr block: the partial buffers hold nlag / lag_tile * R.
-int nbls_fused_xcorr_lag_tile(void) { return st::BN; }
+int nbls_fused_xcorr_lag_tile(void) { return LAG_TILE; }
 
 // Samples per tensor-core K block: the windows' scratch and the split
 // forward table have Lg rounded up to a multiple of this.
@@ -333,6 +372,18 @@ int nbls_fused_xcorr_k_block(void) { return TILE_K; }
 // 1, 3: tensor cores): the spectra scratch holds parts * gw_chunk*C * 2 Kp.
 int nbls_fused_xcorr_ksplit(int nprod) {
   return nprod == 0 ? KSPLIT_F32 : KSPLIT_TC;
+}
+
+// Samples or frequencies per K chunk at nprod: every K part is whole chunks.
+int nbls_fused_xcorr_k_chunk(int nprod) { return nprod == 0 ? ring::BK : TILE_K; }
+
+// The fp32 ring tile's dynamic shared memory a CTA, and how many clusters
+// of `parts` CTAs of its forward (store != 0) or inverse kernel the card
+// holds at once (negative: -cudaError_t).
+int nbls_fused_xcorr_ring_smem(void) { return ring::SMEM; }
+int nbls_fused_xcorr_max_clusters(int store, int parts) {
+  return store ? ring::max_active_clusters<ring::RING_STORE>(parts)
+               : ring::max_active_clusters<ring::RING_PEAK>(parts);
 }
 
 // Launches the passes on `stream`, chunk by chunk; returns 0, or 10000 *
@@ -346,12 +397,20 @@ int nbls_fused_xcorr_ksplit(int nprod) {
 //   2 Kp) = split [Ec ; Es]^T (nprod > 0 only; the lo plane, after hi, is
 //   read at nprod 3);
 //   gw_chunk: windows (g, w) per chunk, at least 1;
-// scratch, allocated by the caller for one chunk (n = gw_chunk):
+//   kpart_inv (nprod 0): the inverse DFT's K part, a multiple of
+//   k_chunk(0) with 2 Kp / kpart_inv <= 8 parts (a cluster);
+//   kinv (nprod 0): the rows of Ec and Es that may be nonzero (Lg + 1 in
+//   the tables of precompute_fused_tables), 1 .. Kp: the rows past it are
+//   skipped;
+// scratch, allocated by the caller for one chunk (n = gw_chunk; r4(x): x
+// rounded up to a multiple of 4):
 //   mean, energy: n*C floats each;
 //   win: (nprod == 3 ? 2 : 1) * n*C * Lgp floats (Lgp: Lg rounded up to
-//   the K block);
-//   spec: ksplit(nprod) * n*C * 2 Kp floats;
-//   cs: (nprod == 3 ? 2 : 1) * n*P * 2 Kp floats;
+//   the K block); K-major Lgp x r4(n*C) at nprod 0;
+//   spec: ksplit(nprod) * n*C * 2 Kp floats; K-major 2 Kp x r4(n*C) at
+//   nprod 0 (the parts meet on chip);
+//   cs: (nprod == 3 ? 2 : 1) * n*P * 2 Kp floats; K-major 2 Kp x r4(n*P)
+//   at nprod 0;
 //   part_val, part_idx: nlag / lag_tile * n*P each.
 int nbls_fused_xcorr(const float* y, const int* hop, const int* maxstart,
                      const int* lo, const int* hi, const float* len_mask,
@@ -361,19 +420,23 @@ int nbls_fused_xcorr(const float* y, const int* hop, const int* maxstart,
                      float* energy, float* win, float* spec, float* cs,
                      float* part_val, int* part_idx, int Bg, int C, int T,
                      int Lg, int W, int Kp, int nlag, int P, int nprod,
-                     int gw_chunk, cudaStream_t stream) {
+                     int gw_chunk, int kpart_inv, int kinv,
+                     cudaStream_t stream) {
   if (Bg <= 0 || C <= 0 || T <= 0 || Lg <= 0 || W <= 0 || Kp <= 0 ||
-      nlag <= 0 || P <= 0 || gw_chunk <= 0 || Kp % st::BN != 0 ||
-      nlag % st::BN != 0 || (nprod != 0 && nprod != 1 && nprod != 3))
+      nlag <= 0 || P <= 0 || gw_chunk <= 0 || Kp % LAG_TILE != 0 ||
+      nlag % LAG_TILE != 0 || (nprod != 0 && nprod != 1 && nprod != 3) ||
+      (nprod == 0 && (kpart_inv <= 0 || kpart_inv % ring::BK != 0 ||
+                      (2 * Kp + kpart_inv - 1) / kpart_inv > ring::MAX_PARTS ||
+                      kinv <= 0 || kinv > Kp)))
     return (int)cudaErrorInvalidValue;
   const int ngw = Bg * W;
-  const int ntiles = nlag / st::BN;
+  const int ntiles = nlag / LAG_TILE;
   const int Lgp = (Lg + TILE_K - 1) / TILE_K * TILE_K;
   const bool tc = nprod != 0;
-  const int planes = nprod == 3 ? 2 : tc ? 1 : 0;  // as put() takes them
+  const int planes = nprod == 3 ? 2 : 1;  // the tensor cores', as put() takes them
   const int ksplit = nbls_fused_xcorr_ksplit(nprod);
   // samples per part: whole K chunks (fp32) or K blocks (tensor cores)
-  const int kq = tc ? TILE_K : BK;
+  const int kq = nbls_fused_xcorr_k_chunk(nprod);
   const int kpart = (Lgp / kq + ksplit - 1) / ksplit * kq;
   const auto failed = [](int pass, int e) {
     return 10000 * pass + (e < 0 ? 1000 - e : e);
@@ -389,19 +452,21 @@ int nbls_fused_xcorr(const float* y, const int* hop, const int* maxstart,
         y, hop, maxstart, len_mask, mean, energy, gw0 * C, M, C, T, Lg, W);
     if ((err = (int)cudaGetLastError()) != 0) return failed(1, err);
 
+    const int ldm = round4(M), ldr = round4(R);  // K-major rows (fp32)
     float* w_lo = nprod == 3 ? win + (size_t)M * Lgp : win;
-    windows_kernel<<<M, 256, 0, stream>>>(y, hop, maxstart, len_mask, mean,
-                                          win, w_lo, gw0 * C, C, T, Lg, W, Lgp,
-                                          planes);
+    if (!tc)
+      windows_t_kernel<<<dim3(Lgp / 32, (M + 31) / 32), dim3(32, 8), 0,
+                         stream>>>(y, hop, maxstart, len_mask, mean, win,
+                                   gw0 * C, M, C, T, Lg, W, Lgp, ldm);
+    else
+      windows_kernel<<<M, 256, 0, stream>>>(y, hop, maxstart, len_mask, mean,
+                                            win, w_lo, gw0 * C, C, T, Lg, W,
+                                            Lgp, planes);
     if ((err = (int)cudaGetLastError()) != 0) return failed(2, err);
 
     CUtensorMap maps[4];
     if (!tc) {
-      const dim3 grid((M + st::BM - 1) / st::BM, 2 * Kp / st::BN,
-                      (Lgp + kpart - 1) / kpart);
-      spectra_simt_kernel<<<grid, st::NT, 0, stream>>>(win, Cf, Sf, spec, M,
-                                                       Lg, Lgp, Kp, kpart);
-      err = (int)cudaGetLastError();
+      err = forward_ring(win, M, ldm, Lgp, kpart, Cf, Sf, Lg, Kp, spec, stream);
     } else {
       const float* f_lo = nprod == 3 ? fwd_t + (size_t)2 * Kp * Lgp : fwd_t;
       err = encode_operands(maps, win, w_lo, M, fwd_t, f_lo, 2 * Kp, Lgp);
@@ -412,7 +477,7 @@ int nbls_fused_xcorr(const float* y, const int* hop, const int* maxstart,
                          : launch_tc_tiles<1, EPI_STORE>(maps, fo, M, Lgp,
                                                          kpart, 2 * Kp, stream);
     }
-    if (err == 0) {
+    if (err == 0 && tc) {
       const int ns = M * 2 * Kp;
       spectra_sum_kernel<<<(ns + 255) / 256, 256, 0, stream>>>(
           spec, ns, (Lgp + kpart - 1) / kpart);
@@ -421,15 +486,17 @@ int nbls_fused_xcorr(const float* y, const int* hop, const int* maxstart,
     if (err != 0) return failed(3, err);
 
     float* c_lo = nprod == 3 ? cs + (size_t)R * 2 * Kp : cs;
-    cross_kernel<<<grid_for((size_t)R * Kp), 256, 0, stream>>>(
-        spec, pairs, cs, c_lo, R, C, P, Kp, planes);
+    if (!tc)
+      cross_t_kernel<<<grid_for((size_t)R * Kp), 256, 0, stream>>>(
+          spec, pairs, cs, R, C, P, Kp, ldm, ldr);
+    else
+      cross_kernel<<<grid_for((size_t)R * Kp), 256, 0, stream>>>(
+          spec, pairs, cs, c_lo, R, C, P, Kp, planes);
     if ((err = (int)cudaGetLastError()) != 0) return failed(4, err);
 
     if (!tc) {
-      const dim3 grid((R + st::BM - 1) / st::BM, ntiles);
-      xcorr_simt_kernel<<<grid, st::NT, 0, stream>>>(
-          cs, lo, hi, Ec, Es, part_val, part_idx, gw0 * P, R, W * P, Kp, nlag);
-      err = (int)cudaGetLastError();
+      err = inverse_ring(cs, R, ldr, Kp, kpart_inv, kinv, Ec, Es, nlag, lo, hi,
+                         W * P, gw0 * P, part_val, part_idx, stream);
     } else {
       const float* i_lo = nprod == 3 ? inv_t + (size_t)nlag * 2 * Kp : inv_t;
       err = encode_operands(maps, cs, c_lo, R, inv_t, i_lo, nlag, 2 * Kp);

@@ -16,8 +16,9 @@ window w and element pair p = (i, j)::
 The two products run at the caller's ``precision``, mapped from the TPU's
 as in `xcorr_peak` (the TPU kernel's ``_kdot``: bf16x3 at 'high'):
 
-- ``'highest'``: IEEE fp32 on the CUDA cores (the tile of
-  ``csrc/simt_tile.cuh``);
+- ``'highest'``: IEEE fp32 on the CUDA cores (the ring tile of
+  ``csrc/simt_ring.cuh``): each product's K parts (`k_parts`) are the CTAs
+  of one thread-block cluster, added on chip in part order;
 - ``'high'``: 3xTF32 and ``'default'``: one tf32 pass in both products, on
   the tensor cores (the tile of ``csrc/peak_tile.cuh``), against the
   transposed split tables of `prepare`, built once per bucket with the
@@ -60,6 +61,14 @@ launches_tc = 0   # 'high' / 'default': the tensor-core tiles
 TILE = 128
 # parts of the forward DFT's sum over the samples: fp32 tile, tensor cores
 KSPLIT_F32, KSPLIT_TC = 4, 3
+# samples (frequencies) per K chunk: fp32 tile, tensor cores; every K part
+# is whole chunks
+K_CHUNK_F32, K_CHUNK_TC = 16, 32
+# parts of the inverse DFT's sum over the frequencies at 'highest' (the
+# CTAs of a cluster: the Ec and the Es half; 1 on the tensor cores).  On an
+# H100 4 parts fit fewer CTAs at once (496 against 528) and lost where the
+# card is full, 1 lost the canonical plan's tail
+KPARTS_INV_F32 = 2
 # the most floats one scratch buffer of the card route holds: the launch
 # runs over chunks of windows that fit (the canonical and 50-band buckets
 # fit one chunk)
@@ -243,6 +252,30 @@ def prepare(Cf: torch.Tensor, Sf: torch.Tensor, Ec: torch.Tensor,
             "inv": XP.transpose_split_table(torch.cat([Ec, Es], dim=0))}
 
 
+def k_parts(Lg: int, Kp: int, precision: str,
+            inverse_parts: Optional[int] = None) -> Dict[str, list]:
+    """The K parts of both products on the card: ``{"forward": [(k0, k1),
+    ...] over [0, Lgp), "inverse": [...] over [0, 2 Kp)}``, ascending whole
+    K chunks.  Each part is one fmaf chain from 0 and the parts are added in
+    order, so an output is fixed by its own row, the tables and this plan,
+    which depends on the shapes alone (``inverse_parts``, default
+    ``KPARTS_INV_F32`` at 'highest', 1 on the tensor cores, sets how many
+    parts the inverse aims at)."""
+    XP.check_precision(precision)
+    highest = precision == "highest"
+    q = K_CHUNK_F32 if highest else K_CHUNK_TC
+    if inverse_parts is None:
+        inverse_parts = KPARTS_INV_F32 if highest else 1
+
+    def split(K, parts):
+        kpart = -(-K // q // parts) * q
+        return [(k, min(K, k + kpart)) for k in range(0, K, kpart)]
+
+    return {"forward": split(XP._round_up(Lg, XP.K_BLOCK_TC),
+                             KSPLIT_F32 if highest else KSPLIT_TC),
+            "inverse": split(2 * Kp, inverse_parts)}
+
+
 def _lib():
     global _bound
     if _bound is None:
@@ -250,7 +283,7 @@ def _lib():
 
         lib = load_library("fused_xcorr")
         p, i = ctypes.c_void_p, ctypes.c_int
-        lib.nbls_fused_xcorr.argtypes = [p] * 22 + [i] * 10 + [p]
+        lib.nbls_fused_xcorr.argtypes = [p] * 22 + [i] * 12 + [p]
         lib.nbls_fused_xcorr.restype = ctypes.c_int
         for fn, want in ((lib.nbls_fused_xcorr_lag_tile, TILE),
                          (lib.nbls_fused_xcorr_k_block, XP.K_BLOCK_TC)):
@@ -260,11 +293,20 @@ def _lib():
                                    f"tables assume {want}")
         lib.nbls_fused_xcorr_ksplit.argtypes = [i]
         lib.nbls_fused_xcorr_ksplit.restype = ctypes.c_int
-        for nprod, want in ((0, KSPLIT_F32), (1, KSPLIT_TC), (3, KSPLIT_TC)):
-            if lib.nbls_fused_xcorr_ksplit(nprod) != want:
-                raise RuntimeError(f"fused_xcorr splits the forward DFT in "
-                                   f"{lib.nbls_fused_xcorr_ksplit(nprod)} parts at "
-                                   f"nprod {nprod}, the scratch assumes {want}")
+        lib.nbls_fused_xcorr_k_chunk.argtypes = [i]
+        lib.nbls_fused_xcorr_k_chunk.restype = ctypes.c_int
+        lib.nbls_fused_xcorr_ring_smem.argtypes = []
+        lib.nbls_fused_xcorr_ring_smem.restype = ctypes.c_int
+        lib.nbls_fused_xcorr_max_clusters.argtypes = [i, i]
+        lib.nbls_fused_xcorr_max_clusters.restype = ctypes.c_int
+        for nprod, split, chunk in ((0, KSPLIT_F32, K_CHUNK_F32),
+                                    (1, KSPLIT_TC, K_CHUNK_TC),
+                                    (3, KSPLIT_TC, K_CHUNK_TC)):
+            got = (lib.nbls_fused_xcorr_ksplit(nprod), lib.nbls_fused_xcorr_k_chunk(nprod))
+            if got != (split, chunk):
+                raise RuntimeError(f"fused_xcorr splits the forward DFT in {got[0]} "
+                                   f"parts of {got[1]}-wide chunks at nprod {nprod}, "
+                                   f"k_parts assumes {split} of {chunk}")
         _bound = lib
     return _bound
 
@@ -282,36 +324,52 @@ def _check_prepared(prepared, precision, Lg, Kp, nlag, dev):
                              f"contiguous on {dev} (prepare); got {got}")
 
 
+def scratch_shapes(C: int, Lg: int, Kp: int, nlag: int, P: int, precision: str,
+                   chunk: int) -> Dict[str, tuple]:
+    """The card route's scratch shapes for ``chunk`` windows (g, w).  At
+    'highest' the windows, spectra and cross-spectra are K-major, ``(Lgp or
+    2 Kp, the chunk's rows rounded up to 4)``: the ring tile reads A so, and
+    the spectra's K parts meet on chip, so they take one plane."""
+    XP.check_precision(precision)
+    planes = 2 if precision == "high" else 1
+    Lgp = XP._round_up(Lg, XP.K_BLOCK_TC)
+    ntiles = nlag // TILE
+    out = {"mean": (C * chunk,), "energy": (C * chunk,),
+           "part_val": (ntiles, P * chunk), "part_idx": (ntiles, P * chunk)}
+    if precision == "highest":
+        r4 = lambda rows: XP._round_up(rows * chunk, 4)
+        out.update(win=(Lgp, r4(C)), spec=(2 * Kp, r4(C)), cs=(2 * Kp, r4(P)))
+    else:
+        out.update(win=(planes, C * chunk, Lgp), spec=(KSPLIT_TC, C * chunk, 2 * Kp),
+                   cs=(planes, P * chunk, 2 * Kp))
+    return out
+
+
 def plan_chunks(Bg: int, C: int, T: int, Lg: int, W: int, Kp: int, nlag: int,
                 P: int, precision: str,
                 budget: Optional[int] = None) -> Tuple[int, Dict[str, tuple]]:
     """The card route's windows per chunk and its scratch shapes for one
-    chunk: the most (g, w) windows, at least one, whose largest scratch
-    buffer holds at most ``budget`` floats (``SCRATCH_FLOATS``).  Raises a
-    ValueError that names the shape where a flat offset would need more
-    than 32 bits: the band rows, the rows of rho, or one window's
-    scratch."""
-    XP.check_precision(precision)
+    chunk (`scratch_shapes`): the most (g, w) windows, at least one, whose
+    largest scratch buffer holds at most ``budget`` floats
+    (``SCRATCH_FLOATS``).  Raises a ValueError that names the shape where a
+    flat offset would need more than 32 bits: the band rows, the rows of
+    rho, or one window's scratch."""
     budget = SCRATCH_FLOATS if budget is None else budget
-    planes = 2 if precision == "high" else 1
-    ksplit = KSPLIT_F32 if precision == "highest" else KSPLIT_TC
-    Lgp = XP._round_up(Lg, XP.K_BLOCK_TC)
-    ntiles = nlag // TILE
-    per_window = {"mean": (C,), "energy": (C,), "win": (planes, C, Lgp),
-                  "spec": (ksplit, C, 2 * Kp), "cs": (planes, P, 2 * Kp),
-                  "part_val": (ntiles, P), "part_idx": (ntiles, P)}
     size = lambda shape: int(np.prod(shape, dtype=np.int64))
+    largest = lambda n: max(map(size, scratch_shapes(C, Lg, Kp, nlag, P, precision,
+                                                     n).values()))
+    # one window's floats per buffer, without the K-major rows' rounding
+    per_window = (largest(4) + 3) // 4
     for what, n in (("Bg*C*T", Bg * C * T), ("Bg*Wmax*C", Bg * W * C),
-                    ("Bg*Wmax*P", Bg * W * P),
-                    ("the scratch of one window", max(map(size, per_window.values())))):
+                    ("Bg*Wmax*P", Bg * W * P), ("the scratch of one window", per_window)):
         if n >= 2**31:
             raise ValueError(f"fused_xcorr_bucket: {what} = {n} needs 64-bit offsets "
                              f"(y ({Bg}, {C}, {T}), Wmax {W}, Kp {Kp}, nlag {nlag}, "
                              f"P {P})")
-    chunk = max(1, min(Bg * W, budget // max(map(size, per_window.values()))))
-    shapes = {k: (v[0] * chunk,) if len(v) == 1 else (v[0], chunk * v[1], *v[2:])
-              for k, v in per_window.items()}
-    return chunk, shapes
+    chunk = max(1, min(Bg * W, budget // per_window))
+    while chunk > 1 and largest(chunk) > budget:
+        chunk -= 1   # the K-major rows' rounding
+    return chunk, scratch_shapes(C, Lg, Kp, nlag, P, precision, chunk)
 
 
 def fused_xcorr_bucket(
@@ -338,7 +396,9 @@ def fused_xcorr_bucket(
     ``precision`` picks the CUDA route (module docstring); on the CPU the
     products are IEEE fp32 whatever it says.  On the card ``prepared`` must
     be the bucket's ``prepare(Cf, Sf, Ec, Es, precision)``, and Kp and nlag
-    multiples of 128, as `precompute_fused_tables` pads them."""
+    multiples of 128, as `precompute_fused_tables` pads them; at 'highest'
+    the card skips the rows of Ec and Es past the Lg + 1 frequencies, which
+    that padding leaves zero."""
     global launches, launches_tc
     XP.check_precision(precision)
     _check(y, hop, maxstart, lo, hi, len_mask, Cf, Sf, Ec, Es, pairs, Wmax)
@@ -361,6 +421,7 @@ def fused_xcorr_bucket(
                          f"columns padded to multiples of {TILE} "
                          f"(precompute_fused_tables); got Kp {Kp}, nlag {nlag}")
     nprod = 0 if precision == "highest" else XP.TF32_PRODUCTS[precision]
+    kpart_inv = k_parts(Lg, Kp, precision)["inverse"][0][1]
     lib = _lib()
     chunk, shapes = plan_chunks(Bg, C, T, Lg, W, Kp, nlag, P, precision)
     for name, t in zip(names, args):
@@ -383,7 +444,7 @@ def fused_xcorr_bucket(
             *(t.data_ptr() for t in args), ptr(fwd_t), ptr(inv_t),
             rho.data_ptr(), idx.data_ptr(), *(t.data_ptr() for t in scratch),
             part_idx.data_ptr(), Bg, C, T, Lg, W, Kp, nlag, P, nprod, chunk,
-            stream,
+            kpart_inv, min(Kp, Lg + 1), stream,
         )
     if err != 0:
         stage, code = divmod(err, 10000)

@@ -36,6 +36,7 @@ from narrow_band_least_squares_tpu_torch.utils.plan import (
     get_winlenlist,
     make_plan,
 )
+from narrow_band_least_squares_tpu_torch.utils.profiling import span
 
 __all__ = [
     "get_freqlist",
@@ -85,13 +86,14 @@ def set_performance_defaults(**kwargs) -> dict:
 @functools.lru_cache(maxsize=32)
 def _cached_pipeline(plan, rij_key, filter_type, filter_order, filter_ripple,
                      alpha, apply_filter, perf_key, device):
-    rij = np.asarray(rij_key, dtype=np.float64)
-    return NarrowBandPipeline(
-        plan, rij,
-        filter_type=filter_type, filter_order=filter_order,
-        filter_ripple=filter_ripple, alpha=alpha, apply_filter=apply_filter,
-        device=device, **dict(perf_key),
-    )
+    with span("nbls.pipeline.build"):     # a cache miss only
+        rij = np.asarray(rij_key, dtype=np.float64)
+        return NarrowBandPipeline(
+            plan, rij,
+            filter_type=filter_type, filter_order=filter_order,
+            filter_ripple=filter_ripple, alpha=alpha, apply_filter=apply_filter,
+            device=device, **dict(perf_key),
+        )
 
 
 def _get_pipeline(plan, rij, filter_type="cheby1", filter_order=2,
@@ -168,48 +170,51 @@ def ltsva(
     (`ops.solve.subset_normal_inverses`).  ``stdict`` is None for OLS and
     the flagged elements per window (no band prefix) for LTS.
     """
-    rij = get_rij(list(lat_list), list(lon_list), st.nchans)
-    plan = make_plan([0.0, st.fs / 2], "linear", [WINLEN], WINOVER, st.npts, st.fs)
-    pipe = _get_pipeline(plan, rij, alpha=ALPHA, apply_filter=False,
-                         device=device)
-    res = pipe.run(st)
-    n = res.num_compute_list[0]
-    vel = res.vel_array[0, :n]
-    baz = res.baz_array[0, :n]
-    t = res.t_array[0, :n]
-    mdccm = res.mdccm_array[0, :n]
-    sig_tau = res.sig_tau_array[0, :n]
-    vel_uncert = res.vel_uncert_array[0, :n]
-    baz_uncert = res.baz_uncert_array[0, :n]
-    if conf is not None:
-        xtx_inv = pipe.XtX_inv64
-        if res.flags is not None:
-            xtx_inv = subset_normal_inverses(pipe.X64, ~res.flags[0, :n, :])
-        vel_uncert, baz_uncert = chi2_ellipse_uncertainties(
-            vel, baz, sig_tau, xtx_inv, conf=conf,
-        )
-    stdict = None   # OLS flags no element
-    if ALPHA < 1.0:
-        stdict = flags_to_stdict(
-            res.flags, res.t_array, res.num_compute_list, res.pairs,
-            st.nchans, band_prefix=False,
-        )
-    if plot_array_coordinates:  # parity convenience plot, best-effort
-        try:
-            import matplotlib.pyplot as plt
-
-            fig, ax = plt.subplots()
+    with span("nbls.api"):
+        with span("nbls.api.plan"):
+            rij = get_rij(list(lat_list), list(lon_list), st.nchans)
+            plan = make_plan([0.0, st.fs / 2], "linear", [WINLEN], WINOVER,
+                             st.npts, st.fs)
+            pipe = _get_pipeline(plan, rij, alpha=ALPHA, apply_filter=False,
+                                 device=device)
+        res = pipe.run(st)
+        n = res.num_compute_list[0]
+        vel = res.vel_array[0, :n]
+        baz = res.baz_array[0, :n]
+        t = res.t_array[0, :n]
+        mdccm = res.mdccm_array[0, :n]
+        sig_tau = res.sig_tau_array[0, :n]
+        vel_uncert = res.vel_uncert_array[0, :n]
+        baz_uncert = res.baz_uncert_array[0, :n]
+        if conf is not None:
+            xtx_inv = pipe.XtX_inv64
+            if res.flags is not None:
+                xtx_inv = subset_normal_inverses(pipe.X64, ~res.flags[0, :n, :])
+            vel_uncert, baz_uncert = chi2_ellipse_uncertainties(
+                vel, baz, sig_tau, xtx_inv, conf=conf,
+            )
+        stdict = None   # OLS flags no element
+        if ALPHA < 1.0:
+            stdict = flags_to_stdict(
+                res.flags, res.t_array, res.num_compute_list, res.pairs,
+                st.nchans, band_prefix=False,
+            )
+        if plot_array_coordinates:  # parity convenience plot, best-effort
             try:
-                ax.scatter(rij[0], rij[1])
-                ax.set_xlabel("X [km]")
-                ax.set_ylabel("Y [km]")
-                ax.axis("square")
-                fig.savefig("array_coordinates.png", dpi=150)
-            finally:
-                plt.close(fig)
-        except Exception:
-            pass
-    return vel, baz, t, mdccm, stdict, sig_tau, vel_uncert, baz_uncert
+                import matplotlib.pyplot as plt
+
+                fig, ax = plt.subplots()
+                try:
+                    ax.scatter(rij[0], rij[1])
+                    ax.set_xlabel("X [km]")
+                    ax.set_ylabel("Y [km]")
+                    ax.axis("square")
+                    fig.savefig("array_coordinates.png", dpi=150)
+                finally:
+                    plt.close(fig)
+            except Exception:
+                pass
+        return vel, baz, t, mdccm, stdict, sig_tau, vel_uncert, baz_uncert
 
 
 def narrow_band_least_squares(
@@ -238,23 +243,26 @@ def narrow_band_least_squares(
     ``narrow_band_least_squares.py:127``.  ``w``/``h`` are accepted for
     signature parity.
     """
-    rij = get_rij(list(lat_list), list(lon_list), st.nchans)
-    plan = make_plan(freqlist, FREQ_BAND_TYPE, WINLEN_list, WINOVER, st.npts, st.fs)
-    if plan.nbands != NBANDS:
-        raise ValueError(
-            f"freqlist implies {plan.nbands} bands but NBANDS={NBANDS}"
+    with span("nbls.api"):
+        with span("nbls.api.plan"):
+            rij = get_rij(list(lat_list), list(lon_list), st.nchans)
+            plan = make_plan(freqlist, FREQ_BAND_TYPE, WINLEN_list, WINOVER,
+                             st.npts, st.fs)
+            if plan.nbands != NBANDS:
+                raise ValueError(
+                    f"freqlist implies {plan.nbands} bands but NBANDS={NBANDS}"
+                )
+            pipe = _get_pipeline(
+                plan, rij, filter_type=FILTER_TYPE, filter_order=FILTER_ORDER,
+                filter_ripple=FILTER_RIPPLE, alpha=ALPHA, device=device,
+            )
+        res = pipe.run(st, freq_resp_list=np.asarray(freq_resp_list))
+        stdict_all = res.stdict(band_prefix=True) if ALPHA < 1.0 else None
+        return (
+            res.vel_array, res.baz_array, res.mdccm_array, res.t_array,
+            stdict_all, res.sig_tau_array, res.num_compute_list,
+            res.w_array, res.h_array,
         )
-    pipe = _get_pipeline(
-        plan, rij, filter_type=FILTER_TYPE, filter_order=FILTER_ORDER,
-        filter_ripple=FILTER_RIPPLE, alpha=ALPHA, device=device,
-    )
-    res = pipe.run(st, freq_resp_list=np.asarray(freq_resp_list))
-    stdict_all = res.stdict(band_prefix=True) if ALPHA < 1.0 else None
-    return (
-        res.vel_array, res.baz_array, res.mdccm_array, res.t_array,
-        stdict_all, res.sig_tau_array, res.num_compute_list,
-        res.w_array, res.h_array,
-    )
 
 
 def narrow_band_loop(

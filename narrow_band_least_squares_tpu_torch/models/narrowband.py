@@ -52,6 +52,7 @@ from narrow_band_least_squares_tpu_torch.state import state_from_numpy
 from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
 from narrow_band_least_squares_tpu_torch.utils.geometry import coarray
 from narrow_band_least_squares_tpu_torch.utils.plan import NarrowBandPlan
+from narrow_band_least_squares_tpu_torch.utils.profiling import span
 from narrow_band_least_squares_tpu_torch.utils.timeutils import (
     epoch_to_datenum,
     stdict_timestamp_key,
@@ -531,24 +532,25 @@ class NarrowBandPipeline:
     def _extract(self, y: torch.Tensor, bk: Optional[dict] = None):
         """Windows of one array's filtered bank (B, C, T): over the global
         grid, or over bucket ``bk``'s compact (Bg, Wg, C, Lg) grid."""
-        s, pre = self._state, "tables." if bk is None else bk["prefix"]
-        if self.window_method == "patches":      # never bucketed
-            return extract_windows_patches(y, self.plan, s[pre + "len_mask"],
-                                           s[pre + "lengths"])
-        if self.window_method == "strided":
-            if bk is None:
-                return extract_windows_strided(y, self.plan, s[pre + "len_mask"],
+        with span("nbls.windows"):
+            s, pre = self._state, "tables." if bk is None else bk["prefix"]
+            if self.window_method == "patches":      # never bucketed
+                return extract_windows_patches(y, self.plan, s[pre + "len_mask"],
                                                s[pre + "lengths"])
-            g = bk["grid"]
-            return extract_windows_strided_rows(
-                y, g.band_idx, [self.plan.windows[int(b)].hop for b in g.band_idx],
-                g.Wmax, g.Lmax, s[pre + "len_mask"], s[pre + "lengths"],
-            )
-        if bk is not None:
-            y = y[torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
-                                  device=y.device)]
-        return extract_windows(y, s[pre + "idx"], s[pre + "len_mask"],
-                               s[pre + "lengths"])
+            if self.window_method == "strided":
+                if bk is None:
+                    return extract_windows_strided(y, self.plan, s[pre + "len_mask"],
+                                                   s[pre + "lengths"])
+                g = bk["grid"]
+                return extract_windows_strided_rows(
+                    y, g.band_idx, [self.plan.windows[int(b)].hop for b in g.band_idx],
+                    g.Wmax, g.Lmax, s[pre + "len_mask"], s[pre + "lengths"],
+                )
+            if bk is not None:
+                y = y[torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
+                                      device=y.device)]
+            return extract_windows(y, s[pre + "idx"], s[pre + "len_mask"],
+                                   s[pre + "lengths"])
 
     def _delays(self, y: torch.Tensor):
         """Filtered bank (B, C, T) -> (tau, rho, mdccm) over the window grid."""
@@ -629,12 +631,14 @@ class NarrowBandPipeline:
         for i, bk in enumerate(self._buckets):
             pre, g = bk["prefix"], bk["grid"]
             rows, hop, maxstart, lo, hi, len_mask = self._fused_inputs(i, A)
-            rho, idx = FX.fused_xcorr_bucket(
-                y[rows], hop, maxstart, lo, hi, len_mask,
-                s[pre + "Cf"], s[pre + "Sf"], s[pre + "Ec"], s[pre + "Es"],
-                self._pairs32, g.Wmax, precision=self.matmul_precision,
-                prepared=self._prepared.get(pre),
-            )
+            yb = y[rows]
+            with span("nbls.lag_search"):
+                rho, idx = FX.fused_xcorr_bucket(
+                    yb, hop, maxstart, lo, hi, len_mask,
+                    s[pre + "Cf"], s[pre + "Sf"], s[pre + "Ec"], s[pre + "Es"],
+                    self._pairs32, g.Wmax, precision=self.matmul_precision,
+                    prepared=self._prepared.get(pre),
+                )
             tau = XC.lag_seconds(idx.to(y.dtype) + bk["lag_min"], plan.fs)
             md = XC.median_last(rho)
             pad = plan.max_windows - g.Wmax
@@ -676,27 +680,28 @@ class NarrowBandPipeline:
         program's delays of several merge chunks, concatenated first).
         With LTS the result also holds ``flags`` (B, Wmax, P): the dropped
         pairs of valid windows."""
-        g = geometry or self._geometry
-        if self.alpha < 1.0:
-            sites, lag = self._delay_sites if fused else frozenset(), None
-            if sites:
-                # integer lags: tau = lag * (1/fs) rounded, so this is exact
-                lag = torch.round(tau.double() * self.plan.fs).to(tau.dtype)
-            out = LTS.lts_solve(
-                tau, g["X"], g["cand"], g["Ainv"], g["cand_ok"], self.h,
-                self.c_steps, candidate_chunk=self.lts_candidate_chunk,
-                funnel_k=self.lts_funnel_k, lag=lag, inv_fs=1.0 / self.plan.fs,
-                delay_sites=sites,
-            )
-        else:
-            out = SOLVE.ols_solve(tau, g["X"], g["pinv"], g["XtX_inv"])
-        wm = self._state["win_mask"] if win_mask is None else win_mask
-        zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
-        res = {k: torch.where(wm, out[k], zero) for k in _OUTPUTS}
-        res["mdccm"] = torch.where(wm, mdccm, zero)
-        if self.alpha < 1.0:
-            res["flags"] = ~out["retained"] & wm[..., None]
-        return res
+        with span("nbls.solve"):
+            g = geometry or self._geometry
+            if self.alpha < 1.0:
+                sites, lag = self._delay_sites if fused else frozenset(), None
+                if sites:
+                    # integer lags: tau = lag * (1/fs) rounded, so this is exact
+                    lag = torch.round(tau.double() * self.plan.fs).to(tau.dtype)
+                out = LTS.lts_solve(
+                    tau, g["X"], g["cand"], g["Ainv"], g["cand_ok"], self.h,
+                    self.c_steps, candidate_chunk=self.lts_candidate_chunk,
+                    funnel_k=self.lts_funnel_k, lag=lag, inv_fs=1.0 / self.plan.fs,
+                    delay_sites=sites,
+                )
+            else:
+                out = SOLVE.ols_solve(tau, g["X"], g["pinv"], g["XtX_inv"])
+            wm = self._state["win_mask"] if win_mask is None else win_mask
+            zero = torch.zeros((), dtype=tau.dtype, device=tau.device)
+            res = {k: torch.where(wm, out[k], zero) for k in _OUTPUTS}
+            res["mdccm"] = torch.where(wm, mdccm, zero)
+            if self.alpha < 1.0:
+                res["flags"] = ~out["retained"] & wm[..., None]
+            return res
 
     def _filter(self, x: torch.Tensor, nfft: Optional[int] = None,
                 halo: int = 0) -> torch.Tensor:
@@ -707,13 +712,14 @@ class NarrowBandPipeline:
         dropped, and only then is the pipeline's taper applied.  Any dtype
         of ``x`` is cast to the pipeline's on its device first."""
         s = self._state
-        x = x.to(self.dtype)
-        if self.apply_filter:
-            y = F.filter_bank_fft(x, s["h_bank"], None, nfft or self.nfft_filter,
-                                  self.zerophase)
-            return y[..., halo:] * s["taper"]
-        # ltsva contract: the caller already filtered and tapered the data
-        return x[None].expand((self.plan.nbands,) + tuple(x.shape))
+        with span("nbls.filter"):
+            x = x.to(self.dtype)
+            if self.apply_filter:
+                y = F.filter_bank_fft(x, s["h_bank"], None, nfft or self.nfft_filter,
+                                      self.zerophase)
+                return y[..., halo:] * s["taper"]
+            # ltsva contract: the caller already filtered and tapered the data
+            return x[None].expand((self.plan.nbands,) + tuple(x.shape))
 
     def _step(self, x: torch.Tensor) -> Dict[str, torch.Tensor]:
         tau, rho, mdccm = self._delays(self._filter(x))
@@ -721,7 +727,8 @@ class NarrowBandPipeline:
 
     def _to_device(self, data: np.ndarray) -> torch.Tensor:
         # cast on the host, as the JAX pipeline does, then copy
-        return torch.as_tensor(np.asarray(data, dtype=np.float32)).to(self.device)
+        with span("nbls.h2d"):
+            return torch.as_tensor(np.asarray(data, dtype=np.float32)).to(self.device)
 
     # ------------------------------------------------------------------
     def run(self, st: ArrayStream, freq_resp_list: Optional[np.ndarray] = None
@@ -731,12 +738,14 @@ class NarrowBandPipeline:
             raise ValueError(
                 f"stream has {st.npts} samples but plan was built for {self.plan.npts}"
             )
-        dev = self._step(self._to_device(st.data))
+        with span("nbls.step"):
+            dev = self._step(self._to_device(st.data))
         return self._package(dev, st.start_epoch, freq_resp_list)
 
     def run_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
         """Raw device outputs for one (C, T) array (benchmark path)."""
-        return self._step(self._to_device(data))
+        with span("nbls.step"):
+            return self._step(self._to_device(data))
 
     def run_batch_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
         """Raw device outputs for a batch (A, C, T) of arrays, stacked on a
@@ -750,36 +759,39 @@ class NarrowBandPipeline:
         self, dev: Dict[str, torch.Tensor], start_epoch: float,
         freq_resp_list: Optional[np.ndarray],
     ) -> NarrowBandResult:
-        plan = self.plan
-        B, width, Wmax = plan.nbands, plan.width, plan.max_windows
-
-        def dense(name):
-            a = np.zeros((B, width))
-            a[:, :Wmax] = dev[name].detach().cpu().double().numpy()
-            return a
-
-        t_array = epoch_to_datenum(
-            np.where(self._t_epoch_rel > 0, self._t_epoch_rel + start_epoch, 0.0)
-        )
-        flags = dev["flags"].cpu().numpy() if "flags" in dev else None
-        w_array = h_array = None
-        if self.sos_list is not None and freq_resp_list is not None:
-            w_array, h_array = F.sosfreqz_bank(
-                self.sos_list, np.asarray(freq_resp_list), plan.fs
+        with span("nbls.package"):
+            plan = self.plan
+            B, width, Wmax = plan.nbands, plan.width, plan.max_windows
+            t_array = epoch_to_datenum(
+                np.where(self._t_epoch_rel > 0, self._t_epoch_rel + start_epoch, 0.0)
             )
-        return NarrowBandResult(
-            vel_array=dense("vel"),
-            baz_array=dense("baz"),
-            mdccm_array=dense("mdccm"),
-            t_array=t_array,
-            sig_tau_array=dense("sig_tau"),
-            vel_uncert_array=dense("vel_uncert"),
-            baz_uncert_array=dense("baz_uncert"),
-            num_compute_list=list(plan.num_compute_list),
-            flags=flags,
-            pairs=self.pairs_np,
-            nchans=self.nchans,
-            plan=plan,
-            w_array=w_array,
-            h_array=h_array,
-        )
+            w_array = h_array = None
+            if self.sos_list is not None and freq_resp_list is not None:
+                with span("nbls.freqz"):
+                    w_array, h_array = F.sosfreqz_bank(
+                        self.sos_list, np.asarray(freq_resp_list), plan.fs
+                    )
+            # the host work above overlaps the step's tail on the device;
+            # the copies wait for it
+            dense = {}
+            with span("nbls.d2h"):
+                for name in _OUTPUTS + ("mdccm",):
+                    dense[name] = np.zeros((B, width))
+                    dense[name][:, :Wmax] = dev[name].detach().cpu().double().numpy()
+                flags = dev["flags"].cpu().numpy() if "flags" in dev else None
+            return NarrowBandResult(
+                vel_array=dense["vel"],
+                baz_array=dense["baz"],
+                mdccm_array=dense["mdccm"],
+                t_array=t_array,
+                sig_tau_array=dense["sig_tau"],
+                vel_uncert_array=dense["vel_uncert"],
+                baz_uncert_array=dense["baz_uncert"],
+                num_compute_list=list(plan.num_compute_list),
+                flags=flags,
+                pairs=self.pairs_np,
+                nchans=self.nchans,
+                plan=plan,
+                w_array=w_array,
+                h_array=h_array,
+            )

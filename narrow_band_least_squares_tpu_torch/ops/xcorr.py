@@ -34,6 +34,7 @@ import torch.nn.functional as Fnn
 
 from narrow_band_least_squares_tpu_torch.ops.kernels.xcorr_peak import icorr_peak
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
+from narrow_band_least_squares_tpu_torch.utils.profiling import span
 
 
 def cross_correlate(
@@ -190,20 +191,21 @@ def _cross_spectra(win, pairs, Cf, Sf):
     """Energies (B, W, C) in the windows' dtype and stacked cross-spectra
     (B*W*P, 2K); the spectra matmuls are IEEE fp32 (on narrower windows,
     their exact float32 values) whatever ``matmul_precision`` says."""
-    B, W, C, Lmax = win.shape
-    energy = torch.sum(win * win, dim=-1)
-    flat = win.reshape(B * W * C, Lmax).to(Cf.dtype)
-    with fp32_matmul():
-        ReF = torch.matmul(flat, Cf).reshape(B, W, C, -1)
-        ImF = (-torch.matmul(flat, Sf)).reshape(B, W, C, -1)
-    i, j = pairs[:, 0], pairs[:, 1]
-    ReI, ImI = ReF[:, :, i, :], ImF[:, :, i, :]
-    ReJ, ImJ = ReF[:, :, j, :], ImF[:, :, j, :]
-    ReCS = ReJ * ReI + ImJ * ImI                     # F_j * conj(F_i)
-    ImCS = ImJ * ReI - ReJ * ImI
-    K = ReCS.shape[-1]
-    cs2 = torch.cat([ReCS, ImCS], dim=-1).reshape(-1, 2 * K)
-    return energy, cs2
+    with span("nbls.spectra"):
+        B, W, C, Lmax = win.shape
+        energy = torch.sum(win * win, dim=-1)
+        flat = win.reshape(B * W * C, Lmax).to(Cf.dtype)
+        with fp32_matmul():
+            ReF = torch.matmul(flat, Cf).reshape(B, W, C, -1)
+            ImF = (-torch.matmul(flat, Sf)).reshape(B, W, C, -1)
+        i, j = pairs[:, 0], pairs[:, 1]
+        ReI, ImI = ReF[:, :, i, :], ImF[:, :, i, :]
+        ReJ, ImJ = ReF[:, :, j, :], ImF[:, :, j, :]
+        ReCS = ReJ * ReI + ImJ * ImI                     # F_j * conj(F_i)
+        ImCS = ImJ * ReI - ReJ * ImI
+        K = ReCS.shape[-1]
+        cs2 = torch.cat([ReCS, ImCS], dim=-1).reshape(-1, 2 * K)
+        return energy, cs2
 
 
 def lag_seconds(lag: torch.Tensor, fs: float) -> torch.Tensor:
@@ -252,8 +254,9 @@ def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
     cs2 = Fnn.pad(cs2, (0, e2.shape[0] - cs2.shape[1])).contiguous()
     lo = lo_b[:, None].expand(B, W * P).reshape(-1).contiguous()
     hi = hi_b[:, None].expand(B, W * P).reshape(-1).contiguous()
-    found = icorr_peak(cs2, e2, lo, hi, precision=precision, prepared=prepared,
-                       neighbours=subsample)
+    with span("nbls.lag_search"):
+        found = icorr_peak(cs2, e2, lo, hi, precision=precision, prepared=prepared,
+                           neighbours=subsample)
     peak, idx = found[0], found[1]
     lag = idx.to(win.dtype)
     if subsample:   # a float32 frac promotes a narrower lag, as in JAX

@@ -9,6 +9,8 @@ The port's copy of ``narrow_band_least_squares_tpu/utils/profiling.py``:
 - `op_profile_summary`: the device time of a captured trace, in total and
   by kernel name (`device_rows` is the one definition of device busy time
   that the command line and ``chip_smoke.py`` share),
+- `span`: a named range of the program's host work, recorded into the
+  trace while a ``torch.profiler`` session records and free otherwise,
 - `RunSummary`: the per-run record (windows per band, solves per second,
   device) serializable to JSON.
 """
@@ -102,6 +104,28 @@ def trace(log_dir: str):
         os.path.join(log_dir, f"{time.time_ns():020d}{TRACE_SUFFIX}"))
 
 
+# what `span` returns while no profiler records: one shared, reusable no-op
+NO_SPAN = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A context manager naming the block ``name`` in a trace.
+
+    While a ``torch.profiler`` session records, it is
+    ``torch.profiler.record_function(name)``: a ``user_annotation`` event on
+    the host thread, in the same Chrome trace and on the same clock as the
+    device's kernels and copies, so a launch inside the block can be traced
+    back to it.  Otherwise it is `NO_SPAN`, and entering it costs a check
+    of the profiler's state (``record_function`` itself costs microseconds
+    with no profiler running).  The program's spans are named ``nbls.*``,
+    one per layer boundary of a call; none is put inside a loop finer than
+    the window-length buckets.
+    """
+    if not torch.autograd._profiler_enabled():
+        return NO_SPAN
+    return torch.profiler.record_function(name)
+
+
 def device_rows(events: Iterable[dict]) -> List[Tuple[float, str, int]]:
     """``(device us, name, calls)`` per kernel, copy or memset name among
     Chrome-trace ``events`` (complete events of `DEVICE_CATEGORIES`),
@@ -122,11 +146,8 @@ def op_profile_summary(trace_dir: str) -> Dict:
 
     ``device_busy_s`` is the summed duration of the kernel, memcpy and
     memset events; ``kernels`` lists them by name, largest first, as
-    ``{"name", "total_s", "calls"}``.  ``torch.profiler`` records no
-    hardware counters (the JAX package reads its ``hw_flop_util``,
-    ``hbm_util``, ``hbm_bytes``, ``hbm_gbps`` and ``tflops`` from the TPU's
-    op profile), so those keys are ``None`` here rather than estimates.
-    Raises RuntimeError when the directory holds no trace.
+    ``{"name", "total_s", "calls"}``.  Raises RuntimeError when the
+    directory holds no trace.
     """
     files = sorted(glob.glob(os.path.join(trace_dir, "*" + TRACE_SUFFIX)))
     if not files:
@@ -135,12 +156,7 @@ def op_profile_summary(trace_dir: str) -> Dict:
         events = json.load(f).get("traceEvents", [])
     rows = device_rows(events)
     return {
-        "hw_flop_util": None,
-        "hbm_util": None,
-        "hbm_bytes": None,
         "device_busy_s": sum(r[0] for r in rows) * 1e-6,
-        "hbm_gbps": None,
-        "tflops": None,
         "kernels": [{"name": name, "total_s": us * 1e-6, "calls": n}
                     for us, name, n in rows],
     }

@@ -133,7 +133,20 @@ Phases, in order (``--phases`` picks a subset for a quick check):
 - ``timing``: step, per-bucket kernel (per precision) and multi-array
   times, profiles (device time through ``utils.profiling``; the fused
   'highest' step also at dense50), and the fused 'highest' route per step
-  with 1, 2 and 4 K parts of its inverse DFT.
+  with 1, 2 and 4 K parts of its inverse DFT;
+- ``graph``: ``NarrowBandPipeline.run`` replays its step from CUDA graphs
+  cut at its spans from its second call (``models/graphs.py``): for each
+  of the benchmark's two plans ('mxu' at 'high'), 'fused' at 'high' and
+  'highest', 'mxu' at 'highest' and 'default', ``subsample_delays``, LTS
+  (flags included) and one-band ``api.ltsva``, five graphed calls on five
+  segments bit for bit the eager ``run_raw`` of the same segment, one
+  capture, no fallback, the graphs a step; replays advance no launch
+  counter; graphed against eager ``run`` in turns on the two plans.
+
+Phases that look inside a step (``LtsRecorder``, ``EagerRanks``,
+``capture_fused_inputs``, the launch counters) run eager steps:
+``run_raw``, or an API call on a pipeline built by that call
+(`first_call`).
 
 The ``build`` phase also compiles the port's native host runtime
 (``narrow_band_least_squares_tpu_torch/native``, ``g++``) and fails if it
@@ -178,7 +191,7 @@ MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
 PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
           "multiarray", "sharded", "lts", "monitor", "ingest", "golden", "cli",
-          "options", "timing")
+          "options", "timing", "graph")
 LTS_ALPHA = 0.75
 LTS_OUTLIER = 2       # the canonical element given an incoherent trace (0-based)
 LTS_SAME_MIN = 0.99   # share of valid windows whose delays must be bit-identical
@@ -203,6 +216,10 @@ GOLDEN_RTOL = 1e-4    # per-band medians
 # cli: the figure files `run` writes with the default config (ALPHA = 1)
 CLI_FIGURES = ("Broadband_Least_Squares", "Narrow_Band_Least_Squares",
                "Narrow_Band_Processing_Parameters", "Narrow_Band_Least_Squares_Sigma_Tau")
+# graph: graphed calls a configuration, each on a segment of its own, after
+# the eager first call; graphed and eager `run` timed in turns this often
+GRAPH_SEGMENTS = 5
+GRAPH_TURNS = 12
 
 # H100 SXM published peaks (NVIDIA data sheet, dense, 700 W)
 PEAK_FP32_FLOPS = 67e12
@@ -434,6 +451,16 @@ def run_api(st, freqlist, winlens, device, alpha=1.0):
         winlens, WINOVER, alpha, st, st.latitudes, st.longitudes, NBANDS,
         None, None, freqlist, "log", fr, "cheby1", 2, 0.01, device=device,
     )
+
+
+def first_call():
+    """Empties the API's pipeline cache, so that the next API call builds
+    its pipeline and runs its step eagerly: from a pipeline's second `run`
+    on, the card replays the step from CUDA graphs, where hooks inside the
+    step see nothing run."""
+    from narrow_band_least_squares_tpu_torch import api
+
+    api.set_performance_defaults()
 
 
 def compare_outputs(gpu, cpu, ncl, label="main path"):
@@ -1487,6 +1514,7 @@ def lts_one_band_large(label, device="cuda"):
 
     big = synthetic_plane_wave(**LTS_LARGE_STREAM)
     stf, _, _ = api.filter_data(big, "cheby1", 0.3, 1.2, 2, 0.01, device="cpu")
+    first_call()
     with LtsRecorder() as rec, EagerRanks() as ranks:
         zero_launches()
         out = api.ltsva(stf, stf.latitudes, stf.longitudes, 30.0, 0.5, LTS_ALPHA,
@@ -2390,6 +2418,7 @@ def lts_one_band(label, st):
     args = (stf.latitudes, stf.longitudes, WINLEN, WINOVER, LTS_ALPHA)
     runs = {}
     for dev in ("cuda", "cpu"):
+        first_call()
         with LtsRecorder() as rec:
             zero_launches()
             out = api.ltsva(stf, *args, device=dev)
@@ -3486,6 +3515,7 @@ def phase_golden(label):
     runs = {}
     for alpha in (1.0, 0.75):
         for device in ("cuda", "cpu"):
+            first_call()
             with LtsRecorder() as rec:
                 zero_launches()
                 runs[alpha, device] = run(alpha, device), rec.taus
@@ -4812,6 +4842,184 @@ def phase_timing(label, launches_main):
     return recs, plans, st
 
 
+# --------------------------------------------------------------------------
+# the step replayed from CUDA graphs
+# --------------------------------------------------------------------------
+
+def graph_counts():
+    from narrow_band_least_squares_tpu_torch.models import narrowband as NB
+
+    return {k: getattr(NB, k) for k in
+            ("eager_steps", "graph_captures", "graph_replays", "graph_fallbacks")}
+
+
+def zero_graph_counts():
+    from narrow_band_least_squares_tpu_torch.models import narrowband as NB
+
+    NB.eager_steps = NB.graph_captures = NB.graph_replays = NB.graph_fallbacks = 0
+
+
+def differing(got, want) -> int:
+    """Elements whose float32 (or bool) bits differ."""
+    got, want = np.asarray(got), np.asarray(want)
+    if got.shape != want.shape:
+        return max(got.size, want.size)
+    if want.dtype == bool:
+        return int((got != want).sum())
+    return int((got.astype(np.float32).view(np.uint32)
+                != want.astype(np.float32).view(np.uint32)).sum())
+
+
+def graph_against_eager(name, pipe, streams):
+    """`pipe.run` on ``streams`` (an eager first call, a capture, replays)
+    against `pipe.run_raw` (eager) of each segment, bit for bit."""
+    zero_graph_counts()
+    pipe.run(streams[0])
+    bad = 0
+    for st in streams[1:]:
+        res = pipe.run(st)
+        raw = {k: v.cpu().numpy() for k, v in pipe.run_raw(st.data).items()}
+        W = raw["vel"].shape[-1]
+        for k in ("vel", "baz", "mdccm", "sig_tau", "vel_uncert", "baz_uncert"):
+            bad += differing(getattr(res, k + "_array")[:, :W], raw[k])
+        if "flags" in raw or res.flags is not None:
+            bad += differing(res.flags, raw["flags"])
+    return bad
+
+
+def check_graph_counts(name, pipe, want_replays):
+    counts = graph_counts()
+    want = {"eager_steps": 1, "graph_captures": 1, "graph_replays": want_replays,
+            "graph_fallbacks": 0}
+    if counts != want:
+        fail(f"graph {name}: step counts {counts}, not {want}")
+    g = pipe._graphs
+    return g.graphs, sum(op != "graph" for op, _ in g.program) // 2
+
+
+def graph_timing(label, name, pipe, twin, streams):
+    """Host ms of graphed `run` (``pipe``) and eager `run` (``twin``, its
+    graphs off) in turns, to the end of the call (its copies wait for the
+    device)."""
+    twin.run(streams[0])
+    times = {"graph": [], "eager": []}
+    for i in range(GRAPH_TURNS):
+        st = streams[i % len(streams)]
+        order = (("graph", pipe), ("eager", twin)) if i % 2 == 0 else \
+            (("eager", twin), ("graph", pipe))
+        for side, p in order:
+            times[side].append(wall_s(lambda: p.run(st)) * 1e3)
+    med = {k: float(np.median(v)) for k, v in times.items()}
+    log(f"[{label}] graph {name}: run {med['graph']:.3f} ms graphed, "
+        f"{med['eager']:.3f} ms eager (medians of {GRAPH_TURNS} in turns; graphed "
+        f"{sorted(round(v, 3) for v in times['graph'])}, eager "
+        f"{sorted(round(v, 3) for v in times['eager'])})")
+
+
+def phase_graph(label):
+    """Graphed `run` bit for bit eager `run_raw` over GRAPH_SEGMENTS
+    segments in every configuration the step's code paths differ in, one
+    capture and no fallback each; a replay advances no launch counter;
+    graphed against eager `run` on the benchmark's two plans."""
+    import torch
+    from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+    from narrow_band_least_squares_tpu_torch.models import narrowband as NB
+    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+
+    def streams(outliers=()):
+        return [synthetic_plane_wave(
+            nchans=NCHANS, duration_s=DURATION_S, fs=FS, baz_deg=(37.0 + 61.0 * k) % 360.0,
+            trace_vel_kms=0.30 + 0.02 * k, f0=0.8, bandwidth=1.2, snr=8.0,
+            seed=SEED + 100 + k, outlier_channels=outliers)
+            for k in range(GRAPH_SEGMENTS + 1)]
+
+    segs = streams()
+    rij = get_rij(segs[0].latitudes, segs[0].longitudes, NCHANS)
+    winlens = {}
+    plans = {}
+    for kind in ("log", "onethird_octave"):
+        fl, nb, _ = get_freqlist(FMIN, FMAX, kind, NBANDS)
+        winlens[kind] = get_winlenlist("adaptive", nb, WINLEN, WINLEN_1, WINLEN_X)
+        plans[kind] = make_plan(fl, kind, winlens[kind], WINOVER, segs[0].npts, FS)
+    configs = [
+        ("i53_example mxu high", "log", {}),
+        ("i53_onethird mxu high", "onethird_octave", {}),
+        ("fused high", "log", {"xcorr_method": "fused"}),
+        ("fused highest", "log", {"xcorr_method": "fused", "matmul_precision": "highest"}),
+        ("mxu highest", "log", {"matmul_precision": "highest"}),
+        ("mxu default", "log", {"matmul_precision": "default"}),
+        ("mxu high subsample", "log", {"subsample_delays": True}),
+        ("lts 0.75", "log", {"alpha": LTS_ALPHA}),
+    ]
+    lts_segs = None
+    for name, kind, kw in configs:
+        data = segs
+        if kw.get("alpha", 1.0) < 1.0:
+            data = lts_segs = streams(outliers=(LTS_OUTLIER,))
+        pipe = NarrowBandPipeline(plans[kind], rij, device="cuda", **kw)
+        t0 = time.perf_counter()
+        bad = graph_against_eager(name, pipe, data)
+        secs = time.perf_counter() - t0
+        graphs, spans = check_graph_counts(name, pipe, GRAPH_SEGMENTS)
+        if bad:
+            fail(f"graph {name}: {bad} elements of graphed run differ from eager run_raw")
+        log(f"[{label}] graph {name}: {GRAPH_SEGMENTS} graphed calls bit for bit eager "
+            f"run_raw (0 differing elements), {graphs} graphs and {spans} spans a step, "
+            f"1 capture, 0 fallbacks ({secs:.2f} s with the checks)")
+        if name == "i53_example mxu high":
+            zero_launches()
+            pipe.run(data[1])
+            replayed = lag_search_launches()
+            pipe.run_raw(data[1].data)
+            eager = lag_search_launches()
+            torch.cuda.synchronize()
+            if replayed != (0, 0, 0, 0) or eager[1] != len(pipe._buckets):
+                fail(f"graph: a replay must advance no launch counter ({replayed}) and an "
+                     f"eager step one a bucket ({eager})")
+        if name.startswith("i53_"):
+            twin = NarrowBandPipeline(plans[kind], rij, device="cuda", **kw)
+            twin._graph_backend = None
+            graph_timing(label, name, pipe, twin, data[1:])
+        del pipe
+        torch.cuda.synchronize()
+
+    # one-band ltsva through the API: its cached pipeline replays
+    stfs = [api.filter_data(st, "cheby1", FMIN, FMAX, 2, 0.01, device="cpu")[0]
+            for st in lts_segs]
+    first_call()
+    zero_graph_counts()
+    args = (stfs[0].latitudes, stfs[0].longitudes, WINLEN, WINOVER, LTS_ALPHA)
+    api.ltsva(stfs[0], *args, device="cuda")
+    plan = make_plan([0.0, FS / 2], "linear", [WINLEN], WINOVER, stfs[0].npts, FS)
+    pipe = api._get_pipeline(plan, get_rij(*args[:2], NCHANS), alpha=LTS_ALPHA,
+                             apply_filter=False, device="cuda")
+    bad = 0
+    for stf in stfs[1:]:
+        out = api.ltsva(stf, *args, device="cuda")
+        raw = {k: v.cpu().numpy() for k, v in pipe.run_raw(stf.data).items()}
+        n = len(out[0])
+        for i, k in ((0, "vel"), (1, "baz"), (3, "mdccm"), (5, "sig_tau"),
+                     (6, "vel_uncert"), (7, "baz_uncert")):
+            bad += differing(out[i], raw[k][0, :n])
+        want = NB.flags_to_stdict(raw["flags"][:, :n], out[2][None, :], [n],
+                                  pipe.pairs_np, NCHANS, band_prefix=False)
+        if set(want) != set(out[4]) or any(
+                not np.array_equal(want[k], out[4][k]) for k in want if k != "size"):
+            bad += 1
+    graphs, spans = check_graph_counts("ltsva", pipe, GRAPH_SEGMENTS)
+    if bad:
+        fail(f"graph one-band ltsva: {bad} elements differ from eager run_raw")
+    log(f"[{label}] graph one-band ltsva (ALPHA {LTS_ALPHA}): {GRAPH_SEGMENTS} graphed "
+        f"API calls bit for bit eager run_raw, stdict included; {graphs} graphs and "
+        f"{spans} spans a step, 1 capture, 0 fallbacks")
+    first_call()
+
+
 def sass_functions(lib):
     """{mangled name: SASS lines} of every kernel in a built library."""
     from narrow_band_least_squares_tpu_torch.ops.kernels import _build
@@ -4959,6 +5167,9 @@ def main() -> int:
         phase_done("timing (icorr_peak)")
         recs += time_fused(label, plans, st, fused_errs, fused_launches or {})
         phase_done("timing (fused)")
+    if "graph" in phases:
+        phase_graph(label)
+        phase_done("graph")
     if "options" in phases:
         recs += orecs
     recs += lrecs

@@ -26,6 +26,7 @@ from __future__ import annotations
 
 import logging
 import math
+import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
 
@@ -34,6 +35,7 @@ import torch
 import torch.nn.functional as Fnn
 
 from narrow_band_least_squares_tpu_torch.io.stream import ArrayStream
+from narrow_band_least_squares_tpu_torch.models.graphs import CudaGraphs, StepGraphs
 from narrow_band_least_squares_tpu_torch.ops import filters as F
 from narrow_band_least_squares_tpu_torch.ops import lts as LTS
 from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
@@ -61,6 +63,17 @@ from narrow_band_least_squares_tpu_torch.utils.timeutils import (
 logger = logging.getLogger("nbls_torch")
 
 _OUTPUTS = ("vel", "baz", "sig_tau", "vel_uncert", "baz_uncert")
+
+# Steps of `NarrowBandPipeline.run` since the counts were last set to 0:
+# captured into CUDA graphs, replayed from them, run eagerly (on the CPU,
+# a pipeline's first call on the card, after a fallback), and captures
+# that raised, after which their pipeline runs eagerly.  A replay launches
+# the step's kernels without advancing the kernels' launch counters
+# (`ops.kernels.*.launches*`), which count launches by the host.
+graph_captures = 0
+graph_replays = 0
+eager_steps = 0
+graph_fallbacks = 0
 
 
 @dataclass
@@ -448,6 +461,11 @@ class NarrowBandPipeline:
 
         self._pairs = torch.as_tensor(pairs, dtype=torch.int64, device=self.device)
         self._pairs32 = self._pairs.to(torch.int32)
+        # `run`'s CUDA graphs (`_run_step`): on the card only
+        self._graph_backend = CudaGraphs(self.device) if self.device.type == "cuda" else None
+        self._runs, self._x_static, self._graphs_failed = 0, None, False
+        # one `run` at a time: a replay's outputs are the graphs' own tensors
+        self._run_lock = threading.Lock()
         self.load_state(state_from_numpy(st))
 
     # ------------------------------------------------------------------
@@ -483,7 +501,19 @@ class NarrowBandPipeline:
                     )
         self._state = {k: v.to(self.device) for k, v in state.items()}
         self._geometry = self._solve_constants(self._state)
+        self._graphs = None     # they read the old state's tensors
+        # the device constants a step reads besides the state, built here:
+        # a captured step may not copy from the host
         self._fused_rows = {}   # per (bucket, arrays), see _fused_inputs
+        self._band_rows = {}    # per bucket prefix, its bands ('gather')
+        if self.xcorr_method == "fused":
+            for i in range(len(self._buckets)):
+                self._fused_inputs(i, 1)
+        elif self.window_method == "gather":
+            self._band_rows = {
+                bk["prefix"]: torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
+                                              device=self.device)
+                for bk in self._buckets}
         # per table prefix, the lag search's tables: Cf/Sf and the
         # inverse-DFT operand e2 of icorr_peak (derived from Ec/Es with
         # 'mxu'), rounded to a narrow dtype's values where the JAX step
@@ -547,8 +577,7 @@ class NarrowBandPipeline:
                     g.Wmax, g.Lmax, s[pre + "len_mask"], s[pre + "lengths"],
                 )
             if bk is not None:
-                y = y[torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
-                                      device=y.device)]
+                y = y[self._band_rows[bk["prefix"]]]
             return extract_windows(y, s[pre + "idx"], s[pre + "len_mask"],
                                    s[pre + "lengths"])
 
@@ -730,26 +759,74 @@ class NarrowBandPipeline:
         with span("nbls.h2d"):
             return torch.as_tensor(np.asarray(data, dtype=np.float32)).to(self.device)
 
+    def _to_static(self, data: np.ndarray) -> torch.Tensor:
+        """`_to_device` into the one input buffer that `run`'s graphs read."""
+        with span("nbls.h2d"):
+            host = torch.as_tensor(np.asarray(data, dtype=np.float32))
+            if self._x_static is None:
+                self._x_static = torch.empty(host.shape, dtype=host.dtype,
+                                             device=self.device)
+            return self._x_static.copy_(host)
+
+    def _run_step(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
+        """`run`'s step.  Eager on the CPU and on a pipeline's first call on
+        the card, which loads the kernels and builds cuFFT's and cuBLAS's
+        plans.  The second call captures the step into CUDA graphs
+        (`models.graphs.StepGraphs`, on `_to_static`'s buffer) and replays
+        them; later calls replay, until `load_state` drops the graphs.  A
+        capture that raises logs a warning, and the pipeline runs eagerly
+        from then on.  The outputs of a replay are the graphs' own tensors,
+        which the next replay overwrites."""
+        global eager_steps, graph_captures, graph_replays, graph_fallbacks
+        self._runs += 1
+        shape = tuple(np.shape(data))
+        if (self._graph_backend is None or self._runs == 1 or self._graphs_failed
+                or (self._x_static is not None and shape != tuple(self._x_static.shape))):
+            eager_steps += 1
+            return self._step(self._to_device(data))
+        x = self._to_static(data)
+        if self._graphs is None:
+            try:
+                with span("nbls.graph.capture"):
+                    self._graphs = StepGraphs(self._graph_backend, self._step, x)
+            except Exception as e:   # whatever the capture met: run eagerly instead
+                self._graphs_failed = True
+                graph_fallbacks += 1
+                logger.warning("capturing the step into CUDA graphs failed (%s: %s); "
+                               "this pipeline runs its steps eagerly",
+                               type(e).__name__, e)
+                eager_steps += 1
+                return self._step(x)
+            graph_captures += 1
+        with span("nbls.graph.replay"):
+            self._graphs.replay()
+        graph_replays += 1
+        return self._graphs.outputs
+
     # ------------------------------------------------------------------
     def run(self, st: ArrayStream, freq_resp_list: Optional[np.ndarray] = None
             ) -> NarrowBandResult:
-        """Execute on one ArrayStream (shape-checked against the plan)."""
+        """Execute on one ArrayStream (shape-checked against the plan).  On
+        the card the step is replayed from CUDA graphs from the second call
+        on (`_run_step`)."""
         if st.npts != self.plan.npts:
             raise ValueError(
                 f"stream has {st.npts} samples but plan was built for {self.plan.npts}"
             )
-        with span("nbls.step"):
-            dev = self._step(self._to_device(st.data))
-        return self._package(dev, st.start_epoch, freq_resp_list)
+        with self._run_lock:
+            with span("nbls.step"):
+                dev = self._run_step(st.data)
+            return self._package(dev, st.start_epoch, freq_resp_list)
 
     def run_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
-        """Raw device outputs for one (C, T) array (benchmark path)."""
+        """Raw device outputs for one (C, T) array (benchmark path), from an
+        eager step: the tensors are the caller's to keep."""
         with span("nbls.step"):
             return self._step(self._to_device(data))
 
     def run_batch_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
         """Raw device outputs for a batch (A, C, T) of arrays, stacked on a
-        leading axis."""
+        leading axis (eager steps)."""
         x = self._to_device(data)
         outs = [self._step(x[a]) for a in range(x.shape[0])]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

@@ -53,7 +53,8 @@ import torch
 from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
 
-# Launches of each CUDA route since the count was last set to 0.
+# Launches of each CUDA route by the host since the count was last set to 0
+# (a CUDA graph's replay launches them again uncounted: models/graphs.py).
 launches = 0      # 'highest': the fp32 CUDA-core tiles
 launches_tc = 0   # 'high' / 'default': the tensor-core tiles
 

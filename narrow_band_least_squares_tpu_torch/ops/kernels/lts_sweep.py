@@ -66,7 +66,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as Fnn
 
-# Launches of each kernel since its count was last set to 0.
+# Launches of each kernel by the host since its count was last set to 0
+# (a CUDA graph's replay launches them again uncounted: models/graphs.py).
 launches_sweep = 0
 launches_sweep_thread = 0     # of launches_sweep, those the launcher reports on
                               # its thread route
@@ -172,7 +173,9 @@ def residuals2_lag_reference(lag: torch.Tensor, inv_fs: float, X: torch.Tensor,
     ``lag * inv_fs`` (lag (..., P), float32), each ``fma(lag, inv_fs,
     -xs)``: the delay's product unrounded."""
     xs = fma(X[:, 1], s[..., 1, None], X[:, 0] * s[..., 0, None])
-    inv = torch.tensor(inv_fs, dtype=torch.float32, device=lag.device)
+    # a fill on the device, not a copy from the host: a captured step may
+    # not read the host (models/graphs.py)
+    inv = torch.full((), inv_fs, dtype=torch.float32, device=lag.device)
     r = fma(lag[..., None, :], inv, -xs)
     return r * r
 

@@ -34,7 +34,8 @@ import torch
 
 from narrow_band_least_squares_tpu_torch.ops.kernels.lts_sweep import fma
 
-# Launches of the kernel since the count was last set to 0.
+# Launches of the kernel by the host since the count was last set to 0 (a
+# CUDA graph's replay launches it again uncounted: models/graphs.py).
 launches = 0
 
 _bound = None

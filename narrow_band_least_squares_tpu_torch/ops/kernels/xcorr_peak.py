@@ -58,7 +58,8 @@ K_BLOCK_TC = 32
 LAG_TILE_F32 = 128
 K_CHUNK_F32 = 16
 
-# Launches of each CUDA route since the count was last set to 0.
+# Launches of each CUDA route by the host since the count was last set to 0
+# (a CUDA graph's replay launches them again uncounted: models/graphs.py).
 launches = 0         # 'highest': the fp32 CUDA-core kernel
 launches_tc = 0      # 'high' / 'default': the tensor-core kernel
 launches_nb = 0      # 'highest' with neighbours

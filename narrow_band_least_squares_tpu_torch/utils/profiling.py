@@ -10,7 +10,9 @@ The port's copy of ``narrow_band_least_squares_tpu/utils/profiling.py``:
   by kernel name (`device_rows` is the one definition of device busy time
   that the command line and ``chip_smoke.py`` share),
 - `span`: a named range of the program's host work, recorded into the
-  trace while a ``torch.profiler`` session records and free otherwise,
+  trace while a ``torch.profiler`` session records and free otherwise
+  (while a step is captured into CUDA graphs, also where one graph ends
+  and the next begins: `capturing`),
 - `RunSummary`: the per-run record (windows per band, solves per second,
   device) serializable to JSON.
 """
@@ -107,6 +109,10 @@ def trace(log_dir: str):
 # what `span` returns while no profiler records: one shared, reusable no-op
 NO_SPAN = contextlib.nullcontext()
 
+# the recorder of a step's capture into CUDA graphs while one runs
+# (`models.graphs`), else None: it cuts the capture at every span
+_capture = None
+
 
 def span(name: str):
     """A context manager naming the block ``name`` in a trace.
@@ -120,10 +126,37 @@ def span(name: str):
     with no profiler running).  The program's spans are named ``nbls.*``,
     one per layer boundary of a call; none is put inside a loop finer than
     the window-length buckets.
+
+    While a step is captured into CUDA graphs (`capturing`), the
+    recorder's span comes first: entering and leaving it also ends one
+    graph and begins the next, so that a replay launches each graph inside
+    the span that launched its work.  With no capture running that costs
+    one test of None.
     """
+    if _capture is not None:
+        return _capture.span(name)
+    return tracing_span(name)
+
+
+def tracing_span(name: str):
+    """`span` as the profiler alone decides it: ``record_function(name)``
+    while a profiler records, `NO_SPAN` otherwise."""
     if not torch.autograd._profiler_enabled():
         return NO_SPAN
     return torch.profiler.record_function(name)
+
+
+@contextlib.contextmanager
+def capturing(recorder):
+    """`span` defers to ``recorder`` (its ``span(name)``) inside the block."""
+    global _capture
+    if _capture is not None:
+        raise RuntimeError("a capture is already running")
+    _capture = recorder
+    try:
+        yield recorder
+    finally:
+        _capture = None
 
 
 def device_rows(events: Iterable[dict]) -> List[Tuple[float, str, int]]:

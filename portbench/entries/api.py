@@ -7,6 +7,11 @@ A traffic file names its entry point (``"entry"``); the harness loads
 traffic's parameters and pool, the device, and the pipeline options (the
 configuration's ``options`` and the traffic's, as keyword arguments of the
 port's ``NarrowBandPipeline``; none leaves the port's defaults).
+
+With ``ALPHA < 1`` the call's ``stdict`` is kept too, and the answer holds
+for each band and valid window the sorted 1-based elements under the key
+of the answer's own window time (None where the key is absent), and the
+``stdict``'s ``size``.
 """
 
 from __future__ import annotations
@@ -14,6 +19,8 @@ from __future__ import annotations
 from typing import Dict
 
 import numpy as np
+
+from portbench.reference.timeutils import stdict_timestamp_key
 
 
 class Entry:
@@ -51,15 +58,27 @@ class Entry:
 
     def keep(self, g: int) -> None:
         """Keep the last call's answer for segment ``g``'s check."""
-        vel, baz, mdccm, t, _, sig_tau, ncl = self.last[:7]
+        vel, baz, mdccm, t, stdict, sig_tau, ncl = self.last[:7]
         self.answers[g] = {"vel": vel, "baz": baz, "mdccm": mdccm, "t": t,
                            "sig_tau": sig_tau, "num_compute": list(ncl)}
+        if stdict is not None:
+            self.answers[g]["stdict"] = stdict
 
     def drop(self, g: int) -> None:
         self.answers.pop(g, None)
 
     def answer(self, g: int, deployment) -> dict:
-        return self.answers.get(g)
+        """Segment ``g``'s answer; an LTS ``stdict`` read out per window
+        here, after the window has closed."""
+        ans = self.answers.get(g)
+        if ans is not None and "stdict" in ans:
+            ans = dict(ans)
+            stdict = ans.pop("stdict")
+            ans["size"] = stdict.get("size")
+            ans["elements"] = [
+                [_sorted(stdict.get(f"{b + 1:02d}_" + stdict_timestamp_key(ans["t"][b, w])))
+                 for w in range(n)] for b, n in enumerate(ans["num_compute"])]
+        return ans
 
     def present(self, g: int, arrived: set) -> bool:
         """The answer reached the caller: its call returned."""
@@ -88,3 +107,7 @@ class Entry:
         self.free()
         if self.options:
             self.api.set_performance_defaults(**{k: None for k in self.options})
+
+
+def _sorted(elements):
+    return None if elements is None else sorted(int(e) for e in elements)

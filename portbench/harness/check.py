@@ -12,7 +12,14 @@ held against `reference.batched.solve_segment` on the same samples:
 - ``window_share``: the share of windows whose solve is off the
   reference's beyond ``window_tolerance`` (relative trace velocity,
   back-azimuth in degrees, relative sigma_tau): what a lag moved by the
-  arithmetic does to a window.
+  arithmetic does to a window.  Where the reference solved by least
+  trimmed squares (a configuration with ``ALPHA < 1``; its bands carry
+  ``flags``), a window whose answer flags other elements is off too: the
+  answer's ``stdict`` entry for the window (the 1-based elements of each
+  dropped pair, reference ``plotting.py:136-137, 923-941``) has to hold
+  the same multiset as the reference's dropped pairs give.  A window with
+  no entry is off; an answer with no ``stdict``, or with another
+  ``size`` than the array's elements, is missing.
 
 The limits are the configuration's ``guarantee``.
 """
@@ -46,8 +53,20 @@ class Tally:
             self.notes.append(f"{name}: windows per band {list(ans['num_compute'])}, "
                               f"reference {want}")
             return
+        lts = [r for r in ref if "flags" in r]
+        if lts:
+            nchans = int(lts[0]["pairs"].max()) + 1
+            if ans.get("elements") is None:
+                self.missing += 1
+                self.notes.append(f"{name}: no stdict (the reference's solve is LTS)")
+                return
+            if ans.get("size") != nchans:
+                self.missing += 1
+                self.notes.append(f"{name}: stdict size {ans.get('size')!r}, "
+                                  f"the array {nchans} elements")
+                return
         tol = self.g["window_tolerance"]
-        bad_t = mism = 0
+        bad_t = mism = flag_off = 0
         md = 0.0
         for b, r in enumerate(ref):
             n = want[b]
@@ -60,11 +79,18 @@ class Tally:
             off |= _off(ans["sig_tau"][b, :n], r["sig_tau"], tol["sig_tau_rel"])
             dbaz = np.abs((ans["baz"][b, :n] - r["baz"] + 180.0) % 360.0 - 180.0)
             off |= ~(dbaz <= tol["baz_deg"]) & ~(np.isnan(ans["baz"][b, :n]) & np.isnan(r["baz"]))
+            if "flags" in r:
+                flags_off = _flags_off(ans["elements"][b], r["flags"], r["pairs"], nchans)
+                flag_off += int(np.sum(flags_off))
+                off |= flags_off
             mism += int(np.sum(off))
         if bad_t:
             self.missing += 1
             self.notes.append(f"{name}: {bad_t} window times off the reference's")
             return
+        if flag_off:
+            self.notes.append(f"{name}: {flag_off} of {sum(want)} windows flag other "
+                              f"elements than the reference")
         self.windows += sum(want)
         self.mismatched += mism
         self.mdccm_err = max(self.mdccm_err, md)
@@ -88,3 +114,22 @@ def _off(got: np.ndarray, ref: np.ndarray, rel: float) -> np.ndarray:
     """Off by more than ``rel`` of the reference (NaN against NaN agrees)."""
     both_nan = np.isnan(got) & np.isnan(ref)
     return ~(np.abs(got - ref) <= rel * np.abs(ref)) & ~both_nan
+
+
+def _flags_off(got: list, flags: np.ndarray, pairs: np.ndarray, nchans: int) -> np.ndarray:
+    """Per window, whether the answer's flagged elements (a list of 1-based
+    element numbers, or None: no entry) differ as a multiset from those of
+    the reference's dropped pairs ``flags`` (W, P)."""
+    incidence = np.zeros((len(pairs), nchans + 1), dtype=np.int64)
+    np.add.at(incidence, (np.arange(len(pairs)), pairs[:, 0] + 1), 1)
+    np.add.at(incidence, (np.arange(len(pairs)), pairs[:, 1] + 1), 1)
+    want = flags.astype(np.int64) @ incidence                    # (W, nchans + 1)
+    off = np.ones(len(flags), dtype=bool)
+    for w, elements in enumerate(got):
+        if elements is None:
+            continue
+        e = np.asarray(elements, dtype=np.int64)
+        if e.size and (e.min() < 1 or e.max() > nchans):
+            continue
+        off[w] = not np.array_equal(np.bincount(e, minlength=nchans + 1), want[w])
+    return off

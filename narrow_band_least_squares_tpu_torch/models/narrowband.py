@@ -9,7 +9,9 @@ grid:
       vel/baz/sigma_tau (B, W)
 
 The solve is OLS (``alpha = 1``) or exact-enumeration LTS (``alpha < 1``,
-`ops.lts.lts_solve`), which also flags the dropped pairs (B, W, P).
+`ops.lts.lts_solve`), which also flags the dropped pairs (B, W, P); the
+API turns the flags into the reference's ``stdict`` on the host
+(`flags_to_stdict`, span ``nbls.stdict``).
 
 With ``xcorr_method='fused'`` the middle arrow is one ``fused_xcorr_bucket``
 launch per bucket, from the band rows straight to (rho, lag index).
@@ -131,21 +133,24 @@ def flags_to_stdict(
     Keys are 7-decimal stringified window datenums, values 1-based element
     numbers (one entry per flagged pair touching the element), one 'size'
     key, and, when band_prefix, keys prefixed "NN_" by 1-based band number.
+    Built on the host, after the results' copies, inside one ``nbls.stdict``
+    span a call (the API's LTS calls; never inside a step).
     """
     out: Dict[str, object] = {}
     B = flags.shape[0]
-    for b in range(B):
-        for w in range(int(num_compute_list[b])):
-            flagged = np.where(flags[b, w])[0]
-            elements: List[int] = []
-            for p in flagged:
-                i, j = pairs[p]
-                elements.extend([int(i) + 1, int(j) + 1])
-            key = stdict_timestamp_key(t_array[b, w])
-            if band_prefix:
-                key = str(b + 1).zfill(2) + "_" + key
-            out[key] = np.asarray(elements, dtype=np.int64)
-    out["size"] = int(nchans)
+    with span("nbls.stdict"):
+        for b in range(B):
+            for w in range(int(num_compute_list[b])):
+                flagged = np.where(flags[b, w])[0]
+                elements: List[int] = []
+                for p in flagged:
+                    i, j = pairs[p]
+                    elements.extend([int(i) + 1, int(j) + 1])
+                key = stdict_timestamp_key(t_array[b, w])
+                if band_prefix:
+                    key = str(b + 1).zfill(2) + "_" + key
+                out[key] = np.asarray(elements, dtype=np.int64)
+        out["size"] = int(nchans)
     return out
 
 

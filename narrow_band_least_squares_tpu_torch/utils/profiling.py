@@ -125,7 +125,13 @@ def span(name: str):
     of the profiler's state (``record_function`` itself costs microseconds
     with no profiler running).  The program's spans are named ``nbls.*``,
     one per layer boundary of a call; none is put inside a loop finer than
-    the window-length buckets.
+    the window-length buckets: ``nbls.api`` a call, around ``nbls.api.plan``
+    (``nbls.pipeline.build`` on a cache miss), ``nbls.step`` (``nbls.h2d``,
+    ``nbls.filter``, per bucket ``nbls.windows``, ``nbls.spectra`` and
+    ``nbls.lag_search``, ``nbls.solve``; ``nbls.graph.capture`` /
+    ``nbls.graph.replay``), ``nbls.package`` (``nbls.freqz``, ``nbls.d2h``)
+    and, with LTS, ``nbls.stdict`` (the host's flag dictionary, after the
+    package).
 
     While a step is captured into CUDA graphs (`capturing`), the
     recorder's span comes first: entering and leaving it also ends one

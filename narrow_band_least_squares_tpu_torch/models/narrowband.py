@@ -135,21 +135,24 @@ def flags_to_stdict(
     key, and, when band_prefix, keys prefixed "NN_" by 1-based band number.
     Built on the host, after the results' copies, inside one ``nbls.stdict``
     span a call (the API's LTS calls; never inside a step).
+
+    One pass of whole-array operations a band: a window's value is its
+    slice of the band's flagged pairs' elements, in ascending pair order.
+    Keys go in band by band, window by window, so with ``band_prefix=False``
+    a repeated key keeps its first place and takes the last band's value.
     """
     out: Dict[str, object] = {}
-    B = flags.shape[0]
     with span("nbls.stdict"):
-        for b in range(B):
-            for w in range(int(num_compute_list[b])):
-                flagged = np.where(flags[b, w])[0]
-                elements: List[int] = []
-                for p in flagged:
-                    i, j = pairs[p]
-                    elements.extend([int(i) + 1, int(j) + 1])
-                key = stdict_timestamp_key(t_array[b, w])
-                if band_prefix:
-                    key = str(b + 1).zfill(2) + "_" + key
-                out[key] = np.asarray(elements, dtype=np.int64)
+        elements_of_pair = np.asarray(pairs, dtype=np.int64) + 1   # (P, 2)
+        for b in range(flags.shape[0]):
+            n = int(num_compute_list[b])
+            band = flags[b, :n]
+            elements = elements_of_pair[np.nonzero(band)[1]].ravel()
+            bounds = [0] + np.cumsum(2 * np.count_nonzero(band, axis=-1)).tolist()
+            prefix = str(b + 1).zfill(2) + "_" if band_prefix else ""
+            keys = [prefix + stdict_timestamp_key(t) for t in t_array[b, :n].tolist()]
+            out.update(zip(keys, [elements[s:e] for s, e in zip(bounds, bounds[1:])],
+                           strict=True))
         out["size"] = int(nchans)
     return out
 

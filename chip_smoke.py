@@ -4887,13 +4887,30 @@ def graph_against_eager(name, pipe, streams):
     return bad
 
 
-def check_graph_counts(name, pipe, want_replays):
+def check_graph_counts(name, pipe, want_replays, want_graphs=None):
+    """The step counts, and the capture's graphs a step: ``want_graphs``
+    where given, and never one between a bucket's ``nbls.windows`` and its
+    ``nbls.spectra`` (the lag bounds are built at `load_state`, so nothing
+    runs there).  Returns (graphs, spans) a step."""
     counts = graph_counts()
     want = {"eager_steps": 1, "graph_captures": 1, "graph_replays": want_replays,
             "graph_fallbacks": 0}
     if counts != want:
         fail(f"graph {name}: step counts {counts}, not {want}")
     g = pipe._graphs
+    if want_graphs is not None and g.graphs != want_graphs:
+        fail(f"graph {name}: {g.graphs} graphs a step, not {want_graphs}")
+    stack, last = [], None
+    for op, arg in g.program:
+        if op == "enter":
+            if arg == "nbls.spectra" and last == "graph after nbls.windows":
+                fail(f"graph {name}: a graph between nbls.windows and nbls.spectra")
+            stack.append(arg)
+            last = None
+        elif op == "exit":
+            last = stack.pop()
+        elif last == "nbls.windows":
+            last = "graph after nbls.windows"
     return g.graphs, sum(op != "graph" for op, _ in g.program) // 2
 
 
@@ -4965,7 +4982,14 @@ def phase_graph(label):
         t0 = time.perf_counter()
         bad = graph_against_eager(name, pipe, data)
         secs = time.perf_counter() - t0
-        graphs, spans = check_graph_counts(name, pipe, GRAPH_SEGMENTS)
+        # 'mxu': the step cuts 6 graphs a bucket (before and inside each of
+        # its three spans) and 5 more (before and inside the filter and the
+        # solve, after the solve); empty are the ones before the filter,
+        # before the first bucket's windows and after the solve, and each
+        # bucket's between its windows and its spectra
+        fused = kw.get("xcorr_method") == "fused"
+        graphs, spans = check_graph_counts(
+            name, pipe, GRAPH_SEGMENTS, None if fused else 5 * len(pipe._buckets) + 2)
         if bad:
             fail(f"graph {name}: {bad} elements of graphed run differ from eager run_raw")
         log(f"[{label}] graph {name}: {GRAPH_SEGMENTS} graphed calls bit for bit eager "

@@ -27,7 +27,6 @@ are the pipeline's state (`state_dict` / `load_state`).
 from __future__ import annotations
 
 import logging
-import math
 import threading
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence
@@ -51,6 +50,7 @@ from narrow_band_least_squares_tpu_torch.ops.windows import (
     extract_windows_patches,
     extract_windows_strided,
     extract_windows_strided_rows,
+    split_windows,
 )
 from narrow_band_least_squares_tpu_torch.state import state_from_numpy
 from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
@@ -105,19 +105,6 @@ class NarrowBandResult:
             self.flags, self.t_array, self.num_compute_list, self.pairs,
             self.nchans, band_prefix=band_prefix,
         )
-
-
-def band_limit_auto_db(bt_min: float) -> float:
-    """BT-aware band-limit threshold (band_limit_db='auto').
-
-    Neighbouring correlation lobes differ by ~1/(2BT), so the tolerable cc
-    error, and with it the bin-truncation level, scales with the band's
-    time-bandwidth product: ``db = 40 + 95*log10(4.6/BT)``, clipped to
-    [40, 90] (the JAX package's calibration, kept so both give one result).
-    """
-    if bt_min >= 4.6:
-        return 40.0
-    return float(min(90.0, 40.0 + 95.0 * math.log10(4.6 / max(bt_min, 0.05))))
 
 
 def flags_to_stdict(
@@ -382,26 +369,15 @@ class NarrowBandPipeline:
         def tables(Lmax, lengths, band_idx):
             bml = min(max_lag, Lmax - 1) if max_lag is not None else None
             if xcorr_method == "fft":
-                return {}, -(Lmax - 1)
+                return {}
             if xcorr_method == "pallas":
                 tab = XC.precompute_pallas_tables(
                     Lmax, lengths, dtype=np.float32, max_lag=bml,
                 )
-                return {k: tab[k] for k in ("Cf", "Sf", "e2", "lo", "hi")}, \
-                    tab["lag_min"]
-            tab = XC.precompute_dft_tables(Lmax, dtype=np.float32, max_lag=bml)
-            if self.band_limit_db:
-                if self.band_limit_db == "auto":
-                    bts = plan.bt_products()
-                    db = band_limit_auto_db(min(bts[int(b)] for b in band_idx))
-                else:
-                    db = float(self.band_limit_db)
-                kmin, kmax = XC.band_limit_bins(
-                    self.sos_list, band_idx, tab["nfft"], plan.fs, db,
-                    zerophase=self.zerophase,
-                )
-                tab = XC.slice_tables_bins(tab, kmin, kmax)
-            return {k: tab[k] for k in ("Cf", "Sf", "Ec", "Es")}, tab["lag_min"]
+                return {k: tab[k] for k in ("Cf", "Sf", "e2", "lo", "hi")}
+            tab = XC.band_tables(Lmax, bml, band_idx, plan, self.sos_list,
+                                 self.band_limit_db, self.zerophase)
+            return {k: tab[k] for k in ("Cf", "Sf", "Ec", "Es")}
 
         def fused_tables(g):
             # the JAX package's _fused_buckets: each band's windows start at
@@ -430,10 +406,11 @@ class NarrowBandPipeline:
             bgrids = build_bucket_grids(plan, max_lag=max_lag, slack=bucket_slack)
             for i, g in enumerate(bgrids):
                 pre = f"bucket{i}."
+                bk = {"grid": g, "prefix": pre}
                 if xcorr_method == "fused":
-                    tab, lag_min = fused_tables(g)
+                    tab, bk["lag_min"] = fused_tables(g)
                 else:
-                    tab, lag_min = tables(g.Lmax, g.lengths, g.band_idx)
+                    tab = tables(g.Lmax, g.lengths, g.band_idx)
                     tab["len_mask"] = g.len_mask
                     tab["lengths"] = g.lengths.astype(np.float64)
                     if xcorr_method == "mxu":
@@ -442,13 +419,11 @@ class NarrowBandPipeline:
                         tab["idx"] = g.idx
                 for k, v in tab.items():
                     st[pre + k] = v
-                self._buckets.append({"grid": g, "prefix": pre,
-                                      "lag_min": lag_min})
+                self._buckets.append(bk)
             order = np.concatenate([g.band_idx for g in bgrids])
             st["bucket_inv_perm"] = np.argsort(order).astype(np.int32)
         else:
-            tab, self._lag_min = tables(grid.Lmax, grid.lengths,
-                                        range(plan.nbands))
+            tab = tables(grid.Lmax, grid.lengths, range(plan.nbands))
             for k, v in tab.items():
                 st["tables." + k] = v
             st["tables.len_mask"] = grid.len_mask
@@ -522,50 +497,34 @@ class NarrowBandPipeline:
                 bk["prefix"]: torch.as_tensor(bk["grid"].band_idx, dtype=torch.int64,
                                               device=self.device)
                 for bk in self._buckets}
-        # per table prefix, the lag search's tables: Cf/Sf and the
-        # inverse-DFT operand e2 of icorr_peak (derived from Ec/Es with
-        # 'mxu'), rounded to a narrow dtype's values where the JAX step
-        # holds them in it; on the card only, what the kernel of the
-        # precision's route reads (its module's `prepare`)
-        self._xtab, self._prepared = {}, {}
-        card = self.device.type == "cuda"
+        # per table prefix, the lag search's device form
+        # (`ops.xcorr.lag_tables`: the tables, each band's [lo, hi] from its
+        # lag mask or the state's bounds, on the card the operand of the
+        # precision's route); with 'fused', the kernel's operand alone
+        self._xtab = {}
         prec = self.matmul_precision
         if self.xcorr_method == "fused":
-            for pre in ([b["prefix"] for b in self._buckets] if card else []):
-                self._prepared[pre] = FX.prepare(
+            card = self.device.type == "cuda"
+            for bk in self._buckets:
+                pre = bk["prefix"]
+                self._xtab[pre] = {"prepared": FX.prepare(
                     *(self._state[pre + k] for k in ("Cf", "Sf", "Ec", "Es")), prec)
-            return
-        if self.xcorr_method == "fft":
-            return
-        narrow = self.dtype in LOW_DTYPES
-        rnd = (lambda t: t.to(self.dtype).to(t.dtype)) if narrow else (lambda t: t)
-        for pre in ([b["prefix"] for b in self._buckets]
-                    if self.bucket_bands else ["tables."]):
-            s = self._state
-            e2 = (s[pre + "e2"] if self.xcorr_method == "pallas" else
-                  XC.stack_inverse_table(s[pre + "Ec"], s[pre + "Es"]))
-            tab = {"Cf": rnd(s[pre + "Cf"]), "Sf": rnd(s[pre + "Sf"]), "e2": rnd(e2)}
-            if self.xcorr_method == "pallas":
-                tab.update(lo=s[pre + "lo"], hi=s[pre + "hi"])
-            self._xtab[pre] = tab
-            if card:
-                self._prepared[pre] = XP.prepare(tab["e2"], prec)
+                    if card else None}
+        elif self.xcorr_method != "fft":
+            for pre in ([b["prefix"] for b in self._buckets]
+                        if self.bucket_bands else ["tables."]):
+                tab = {k[len(pre):]: v for k, v in self._state.items() if k.startswith(pre)}
+                self._xtab[pre] = XC.lag_tables(tab, self.device, prec, self.dtype)
 
     # ------------------------------------------------------------------
-    def _xcorr(self, win: torch.Tensor, pre: str, lag_min: int):
-        s = self._state
-        prec = self.matmul_precision
+    def _xcorr(self, win: torch.Tensor, pre: str):
         if self.xcorr_method == "fft":
-            return XC.cross_correlate(win, self._pairs, s[pre + "lag_mask"],
+            return XC.cross_correlate(win, self._pairs, self._state[pre + "lag_mask"],
                                       self.nfft_corr, self.plan.fs)
-        tab = dict(self._xtab[pre], lag_min=lag_min,
-                   prepared=self._prepared.get(pre))
-        if self.xcorr_method == "pallas":
-            return XC.cross_correlate_pallas(win, self._pairs, tab, self.plan.fs,
-                                             precision=prec)
-        return XC.cross_correlate_mxu(win, self._pairs, s[pre + "lag_mask"],
-                                      tab, self.plan.fs, precision=prec,
-                                      subsample=self.subsample_delays)
+        tab = self._xtab[pre]
+        return XC.cross_correlate_bounds(win, self._pairs, tab["lo"], tab["hi"], tab,
+                                         self.plan.fs, self.matmul_precision,
+                                         self.subsample_delays)
 
     def _extract(self, y: torch.Tensor, bk: Optional[dict] = None):
         """Windows of one array's filtered bank (B, C, T): over the global
@@ -613,27 +572,17 @@ class NarrowBandPipeline:
         A = y.shape[0]
         if self.xcorr_method == "fused":
             return self._xcorr_fused(y.reshape((-1,) + tuple(y.shape[2:])), arrays=A)
-        Wmax = self.plan.max_windows
 
-        def merged(bk):
+        def delays(bk):
             # A x (Bg, Wg, C, Lg) -> (Bg, A*Wg, C, Lg): window a*Wg + w
             wins = [self._extract(y[a], bk) for a in range(A)]
-            return wins[0] if A == 1 else torch.cat(wins, dim=1)
-
-        def split(t):
-            # (Bg, A*Wg, ...) -> (A, Bg, Wmax, ...), zero-padded windows
-            Bg, Wg = t.shape[0], t.shape[1] // A
-            t = t.reshape((Bg, A, Wg) + tuple(t.shape[2:])).transpose(0, 1)
-            pad = Wmax - Wg
-            return Fnn.pad(t, (0, 0) * (t.dim() - 3) + (0, pad)) if pad else t
+            win = wins[0] if A == 1 else torch.cat(wins, dim=1)
+            out = self._xcorr(win, "tables." if bk is None else bk["prefix"])
+            return [split_windows(v, A, self.plan.max_windows) for v in out]
 
         if not self.bucket_bands:
-            return tuple(split(v) for v in self._xcorr(merged(None), "tables.",
-                                                       self._lag_min))
-        outs = [[split(v) for v in self._xcorr(merged(bk), bk["prefix"],
-                                               bk["lag_min"])]
-                for bk in self._buckets]
-        return self._bucket_order(outs)
+            return tuple(delays(None))
+        return self._bucket_order([delays(bk) for bk in self._buckets])
 
     def _bucket_order(self, outs):
         """Per-bucket (tau, rho, mdccm), each (A, Bg, Wmax, ...), -> the full
@@ -674,7 +623,7 @@ class NarrowBandPipeline:
                     yb, hop, maxstart, lo, hi, len_mask,
                     s[pre + "Cf"], s[pre + "Sf"], s[pre + "Ec"], s[pre + "Es"],
                     self._pairs32, g.Wmax, precision=self.matmul_precision,
-                    prepared=self._prepared.get(pre),
+                    prepared=self._xtab[pre]["prepared"],
                 )
             tau = XC.lag_seconds(idx.to(y.dtype) + bk["lag_min"], plan.fs)
             md = XC.median_last(rho)
@@ -827,8 +776,9 @@ class NarrowBandPipeline:
             return self._package(dev, st.start_epoch, freq_resp_list)
 
     def run_raw(self, data: np.ndarray) -> Dict[str, torch.Tensor]:
-        """Raw device outputs for one (C, T) array (benchmark path), from an
-        eager step: the tensors are the caller's to keep."""
+        """Raw device outputs for one (C, T) array from an eager step, the
+        tensors the caller's to keep: the oracle that graphed `run` is held
+        to bit for bit."""
         with span("nbls.step"):
             return self._step(self._to_device(data))
 

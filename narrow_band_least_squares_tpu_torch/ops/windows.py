@@ -278,3 +278,14 @@ def extract_windows(
         idx.long()[:, None, :, :].expand(B, C, W, L),
     )                                                  # (B, C, W, L)
     return mask_demean(win.transpose(1, 2), len_mask, lengths)
+
+
+def split_windows(t: torch.Tensor, n: int, Wmax: int) -> torch.Tensor:
+    """``(R, n*W, ...) -> (n, R, Wmax, ...)``: the window axis of ``n``
+    batches merged into one lag search (window ``i*W + w`` of row r is
+    batch i's window w: arrays, or a rank's segments) split out in front,
+    zero-padded to ``Wmax`` windows."""
+    R, W = t.shape[0], t.shape[1] // n
+    t = t.reshape((R, n, W) + tuple(t.shape[2:])).transpose(0, 1)
+    pad = Wmax - W
+    return Fnn.pad(t, (0, 0) * (t.dim() - 3) + (0, pad)) if pad else t

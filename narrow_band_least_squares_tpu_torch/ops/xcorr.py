@@ -18,6 +18,13 @@ stay IEEE fp32 (cuBLAS) at every precision.  Conventions are those of the
 reference: ``cc_p(l) = sum_t x_j(t + l) x_i(t)``, lags ascending, the first
 maximum wins.  Tables are built in float64 on the host and cast to float32.
 
+A table set (a window-length bucket's, or the unbucketed grid's) is built
+once: on the host by `band_tables` (or `precompute_pallas_tables`), with the
+band limit applied there, and on the device by `lag_tables`, which also
+turns each band's lag mask into its lag columns ``[lo, hi]``.  Every lag
+search of the 'mxu' and 'pallas' routes, band-sharded or not, is then one
+`cross_correlate_bounds` call on that form.
+
 `cross_correlate` is the FFT form (``xcorr_method='fft'``): ``torch.fft``
 at ``nfft``, the circular lags reordered into linear ones, the masked
 first maximum over every lag; the JAX package computes it outside any
@@ -26,13 +33,14 @@ Pallas kernel too.
 
 from __future__ import annotations
 
-from typing import Dict, Tuple
+import math
+from typing import Dict, Mapping, Sequence, Tuple
 
 import numpy as np
 import torch
 import torch.nn.functional as Fnn
 
-from narrow_band_least_squares_tpu_torch.ops.kernels.xcorr_peak import icorr_peak
+from narrow_band_least_squares_tpu_torch.ops.kernels.xcorr_peak import icorr_peak, prepare
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
 from narrow_band_least_squares_tpu_torch.utils.profiling import span
 
@@ -64,6 +72,19 @@ def cross_correlate(
     denom = torch.sqrt(Ei * Ej)
     rho = torch.where(denom > 0, peak / denom, torch.zeros_like(peak))
     return tau, rho, median_last(rho)
+
+
+def band_limit_auto_db(bt_min: float) -> float:
+    """BT-aware band-limit threshold (band_limit_db='auto').
+
+    Neighbouring correlation lobes differ by ~1/(2BT), so the tolerable cc
+    error, and with it the bin-truncation level, scales with the band's
+    time-bandwidth product: ``db = 40 + 95*log10(4.6/BT)``, clipped to
+    [40, 90] (the JAX package's calibration, kept so both give one result).
+    """
+    if bt_min >= 4.6:
+        return 40.0
+    return float(min(90.0, 40.0 + 95.0 * math.log10(4.6 / max(bt_min, 0.05))))
 
 
 def band_limit_bins(
@@ -138,6 +159,26 @@ def precompute_dft_tables(Lmax: int, dtype=np.float32,
     }
 
 
+def band_tables(Lg: int, max_lag: int | None, band_idx: Sequence[int], plan,
+                sos_list, band_limit_db, zerophase: bool) -> Dict[str, np.ndarray]:
+    """The host DFT tables of one table set: `precompute_dft_tables` at
+    ``(Lg, max_lag)`` for the bands ``band_idx`` of ``plan``.  With
+    ``band_limit_db`` (dB, or ``'auto'``: `band_limit_auto_db` of the
+    bands' lowest BT) they keep only the bins of `band_limit_bins` over
+    the bands' filters ``sos_list``."""
+    tab = precompute_dft_tables(Lg, np.float32, max_lag=max_lag)
+    if not band_limit_db:
+        return tab
+    if band_limit_db == "auto":
+        bts = plan.bt_products()
+        db = band_limit_auto_db(min(bts[int(b)] for b in band_idx))
+    else:
+        db = float(band_limit_db)
+    kmin, kmax = band_limit_bins(sos_list, band_idx, tab["nfft"], plan.fs, db,
+                                 zerophase=zerophase)
+    return slice_tables_bins(tab, kmin, kmax)
+
+
 def _round_up_128(x: int) -> int:
     return ((x + 127) // 128) * 128
 
@@ -177,6 +218,42 @@ def precompute_pallas_tables(
         "K": K, "K2p": e2.shape[0], "nlag": 2 * half + 1, "lag_min": -half,
         "lo": lo, "hi": hi,
     }
+
+
+def lag_bounds(lag_mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Each band's first and last True lag column, int32: a band's
+    ``lag_mask`` row is the one contiguous run ``[half - bh, half + bh]``."""
+    nlag = lag_mask.shape[-1]
+    m = lag_mask.to(torch.int32)
+    lo = m.argmax(dim=-1).to(torch.int32)
+    hi = (nlag - 1 - m.flip(-1).argmax(dim=-1)).to(torch.int32)
+    return lo, hi
+
+
+def lag_tables(s: Mapping, device, precision: str = "highest",
+               dtype=torch.float32) -> Dict:
+    """The device form of one table set, built once, which
+    `cross_correlate_bounds` reads: ``Cf``, ``Sf``, the inverse operand
+    ``e2``, each band's lag columns ``lo``/``hi`` (int32), ``lag_min`` and
+    ``prepared``, ``e2``'s operand for the card route of ``precision``
+    (`xcorr_peak.prepare`; None off the card).
+
+    ``s`` holds state-named tensors or arrays: ``Cf`` and ``Sf``; ``e2``,
+    or ``Ec`` and ``Es`` (stacked here); ``lo`` and ``hi``, or ``lag_mask``
+    (`lag_bounds`, here).  The lags are ``[-half, half]``, so ``lag_min``
+    is ``-half``.  A narrow ``dtype`` rounds the tables to its values, where
+    the JAX step holds them in it; they stay float32."""
+    dev = torch.device(device)
+    get = lambda k: torch.as_tensor(s[k]).to(dev)
+    e2 = get("e2") if "e2" in s else stack_inverse_table(get("Ec"), get("Es"))
+    lo, hi = (get("lo"), get("hi")) if "lo" in s else lag_bounds(get("lag_mask"))
+    rnd = lambda t: t.to(dtype).to(t.dtype)
+    out = {"Cf": rnd(get("Cf")), "Sf": rnd(get("Sf")), "e2": rnd(e2),
+           "lo": lo.to(torch.int32), "hi": hi.to(torch.int32),
+           "lag_min": -(e2.shape[1] // 2), "prepared": None}
+    if dev.type == "cuda":
+        out["prepared"] = prepare(out["e2"], precision)
+    return out
 
 
 def median_last(x: torch.Tensor) -> torch.Tensor:
@@ -280,25 +357,14 @@ def cross_correlate_mxu(
     lag_tile: int = 512,
     precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """DFT-as-matmul cross-correlation.  Returns (tau, rho, mdccm).
-
-    The integer-lag search is ``icorr_peak`` at ``precision``: each band's
-    ``lag_mask`` is the contiguous range ``[half - bh, half + bh]``, which
-    becomes the kernel's ``[lo, hi]``.  ``tables["e2"]``
-    (`stack_inverse_table`) is used when present and built from Ec/Es
-    otherwise; ``tables["prepared"]``, its operand for the card
-    (`xcorr_peak.prepare` at ``precision``), is needed on the card.
-    ``subsample=True`` refines each integer-lag peak with the parabola
-    through it and its two neighbouring correlations (`subsample_frac`),
-    which the kernel returns beside the peak.  ``lag_tile`` is accepted for
-    signature parity and changes nothing: the kernel never forms the
-    (rows, lags) correlation that the JAX path tiles.
-    """
+    """DFT-as-matmul cross-correlation on each band's ``lag_mask``, the
+    JAX package's operation: `cross_correlate_bounds` on the mask's
+    `lag_bounds`.  ``lag_tile`` is accepted for signature parity and
+    changes nothing: the kernel never forms the (rows, lags) correlation
+    that the JAX path tiles.  A pipeline turns its masks into bounds once
+    (`lag_tables`), not on each call."""
     del lag_tile
-    nlag = lag_mask.shape[-1]
-    m = lag_mask.to(torch.int32)
-    lo = m.argmax(dim=-1).to(torch.int32)
-    hi = (nlag - 1 - m.flip(-1).argmax(dim=-1)).to(torch.int32)
+    lo, hi = lag_bounds(lag_mask)
     return cross_correlate_bounds(win, pairs, lo, hi, tables, fs, precision,
                                   subsample)
 
@@ -308,14 +374,21 @@ def cross_correlate_bounds(
     pairs: torch.Tensor,     # (P, 2) int64
     lo: torch.Tensor,        # (B,) int32: first lag column of each band
     hi: torch.Tensor,        # (B,) int32: last lag column of each band
-    tables: Dict,
+    tables: Dict,            # lag_tables, or precompute_dft_tables (tensors)
     fs: float,
     precision: str = "highest",
     subsample: bool = False,
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """`cross_correlate_mxu` with each band's lag columns ``[lo, hi]``
-    given instead of read from a mask (the sharded pipeline's per-row
-    ``lag_half``)."""
+    """DFT-as-matmul cross-correlation over each band's lag columns
+    ``[lo, hi]``.  Returns (tau, rho, mdccm).
+
+    The integer-lag search is ``icorr_peak`` at ``precision`` on
+    ``tables["e2"]`` (`stack_inverse_table`), built from Ec/Es when absent;
+    ``tables["prepared"]``, its operand for the card (`xcorr_peak.prepare`
+    at ``precision``), is needed on the card.  ``subsample=True`` refines
+    each integer-lag peak with the parabola through it and its two
+    neighbouring correlations (`subsample_frac`), which the kernel returns
+    beside the peak."""
     e2 = tables.get("e2")
     if e2 is None:
         e2 = stack_inverse_table(tables["Ec"], tables["Es"])
@@ -332,10 +405,8 @@ def cross_correlate_pallas(
     fs: float,
     precision: str = "highest",
 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """Cross-correlation on the stacked tables of `precompute_pallas_tables`;
-    same contract as `cross_correlate_mxu`."""
-    energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
-    lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
-    return _peak_search(win, pairs, energy, cs2, tables["e2"],
-                        tables["lo"], tables["hi"], lag_min, fs,
-                        precision, tables.get("prepared"))
+    """Cross-correlation on the stacked tables of `precompute_pallas_tables`
+    and their bounds ``lo``/``hi``, the JAX package's operation:
+    `cross_correlate_bounds`."""
+    return cross_correlate_bounds(win, pairs, tables["lo"], tables["hi"], tables, fs,
+                                  precision)

@@ -46,19 +46,15 @@ from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as Fnn
 
-from narrow_band_least_squares_tpu_torch.models.narrowband import (
-    NarrowBandPipeline,
-    band_limit_auto_db,
-)
+from narrow_band_least_squares_tpu_torch.models.narrowband import NarrowBandPipeline
 from narrow_band_least_squares_tpu_torch.ops import filters as F
 from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
-from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
 from narrow_band_least_squares_tpu_torch.ops.windows import (
     bucket_by_cost,
     extract_windows,
     extract_windows_strided_rows,
+    split_windows,
 )
 from narrow_band_least_squares_tpu_torch.parallel.mesh import Mesh
 from narrow_band_least_squares_tpu_torch.utils.device import resolve_device
@@ -233,27 +229,16 @@ class ShardedNarrowBandPipeline:
             self._build_global_tables()
 
     # ------------------------------------------------------------------
-    def _device_tables(self, tab: Dict) -> Dict:
-        """One table set on the device: Cf, Sf, the inverse operand e2 and,
-        on the card, its prepared form for the precision's route."""
-        dev = self.device
-        out = {"Cf": torch.as_tensor(tab["Cf"]).to(dev),
-               "Sf": torch.as_tensor(tab["Sf"]).to(dev),
-               "e2": torch.as_tensor(XC.stack_inverse_table(
-                   np.asarray(tab["Ec"]), np.asarray(tab["Es"]))).to(dev),
-               "lag_min": int(tab["lag_min"])}
-        if dev.type == "cuda":
-            out["prepared"] = XP.prepare(out["e2"], self.base.matmul_precision)
-        return out
-
     def _build_slot_buckets(self, max_lag: Optional[int], slack: float):
         """Bucket the band *slots* by window length (the JAX package's
         `_build_slot_buckets`).  Slot s's template length and window count
         are the largest over the shards at that slot; each row ``k*Bg + i``
         (shard k, the bucket's i-th slot) keeps its band's own length mask,
-        length, lag half-width and hop.  The DFT tables are built at the
-        template length with ``max_lag``, and with ``band_limit_db`` sliced
-        to the bins of every band at the bucket's slots."""
+        length, lag half-width and hop.  The bucket's table set
+        (`ops.xcorr.band_tables` at the template length with ``max_lag``,
+        band-limited over every band at its slots; on the device
+        `ops.xcorr.lag_tables`, with every row's lag columns) is shared by
+        the views."""
         plan, nb, deal = self.plan, self.nb, self._deal
         lens = np.array([wp.winlensamp for wp in plan.windows])
         nwin = np.array([wp.n_windows for wp in plan.windows])
@@ -286,45 +271,28 @@ class ShardedNarrowBandPipeline:
                         for w, s0 in enumerate(wp.starts):
                             idx[r, w, :Lb] = s0 + np.arange(Lb)
                             idx[r, w, Lb:] = s0
-            tab = XC.precompute_dft_tables(Lg, np.float32, max_lag=half)
-            if base.band_limit_db:
-                bands = sorted(int(deal[k, s]) for k in range(nb) for s in slots)
-                if base.band_limit_db == "auto":
-                    bts = plan.bt_products()
-                    db = band_limit_auto_db(min(bts[b] for b in bands))
-                else:
-                    db = float(base.band_limit_db)
-                kmin, kmax = XC.band_limit_bins(base.sos_list, bands, tab["nfft"],
-                                                plan.fs, db, zerophase=base.zerophase)
-                tab = XC.slice_tables_bins(tab, kmin, kmax)
-            self._bucket_tables.append(self._device_tables(tab))
+            bands = sorted(int(deal[k, s]) for k in range(nb) for s in slots)
+            tab = XC.band_tables(Lg, half, bands, plan, base.sos_list, base.band_limit_db,
+                                 base.zerophase)
+            self._bucket_tables.append(XC.lag_tables(
+                dict(tab, lo=half - lag_half, hi=half + lag_half), self.device,
+                base.matmul_precision))
             self._slot_buckets.append({
-                "slots": slots, "Wg": Wg, "Lg": Lg, "half": half,
+                "slots": slots, "Wg": Wg, "Lg": Lg,
                 "len_mask": len_mask.reshape(nb * Bg, 1, 1, Lg),
                 "lengths": lengths, "lag_half": lag_half, "hops": hops, "idx": idx,
             })
 
     def _build_global_tables(self):
         """The global grid's rows (band-sharded contiguously) and, with
-        'mxu', the base's global DFT tables on the device."""
+        'mxu', the base's unbucketed table set on the device."""
         base, grid = self.base, self.base.grid
-        half = grid.Lmax - 1
-        lag_half = grid.lengths.astype(np.int64) - 1
         if base.xcorr_method == "mxu":
-            half = -base._lag_min                 # max_lag_s caps it
-            lag_half = np.minimum(lag_half, half)
-            st = base.state_dict()
-            self._global_tables = self._device_tables(
-                {"Cf": st["tables.Cf"], "Sf": st["tables.Sf"],
-                 "Ec": st["tables.Ec"].numpy(), "Es": st["tables.Es"].numpy(),
-                 "lag_min": base._lag_min})
-            lag_mask = st["tables.lag_mask"].numpy()
-        else:
-            lag_mask = grid.lag_mask
+            self._global_tables = XC.lag_tables(base._xtab["tables."], self.device,
+                                                base.matmul_precision)
         self._global_rows = {
             "idx": grid.idx, "len_mask": grid.len_mask,
-            "lengths": grid.lengths.astype(np.float64), "lag_mask": lag_mask,
-            "lag_half": lag_half, "half": half,
+            "lengths": grid.lengths.astype(np.float64), "lag_mask": grid.lag_mask,
         }
 
     def _bucket_gathers(self, shards: Sequence[int]) -> np.ndarray:
@@ -352,27 +320,28 @@ class ShardedNarrowBandPipeline:
         i32 = lambda a: torch.as_tensor(np.asarray(a), dtype=torch.int32).to(dev)
         if self._mode == "bucket":
             v["buckets"] = []
-            for bk in self._slot_buckets:
+            for bk, tab in zip(self._slot_buckets, self._bucket_tables):
                 Bg = len(bk["slots"])
                 r = np.concatenate([k * Bg + np.arange(Bg) for k in key])
-                lh = bk["lag_half"][r]
+                rt = torch.as_tensor(r, device=dev)
                 slot_rows = np.concatenate([j * B_loc + bk["slots"] for j in range(len(key))])
                 v["buckets"].append({
                     "rows": torch.as_tensor(slot_rows, dtype=torch.int64, device=dev),
                     "row_list": slot_rows.tolist(), "hops": bk["hops"][r],
                     "len_mask": f32(bk["len_mask"][r]), "lengths": f32(bk["lengths"][r]),
-                    "lo": i32(bk["half"] - lh), "hi": i32(bk["half"] + lh),
+                    "lo": tab["lo"][rt], "hi": tab["hi"][rt],
                     **({"idx": i32(bk["idx"][r])} if bk["idx"] is not None else {}),
                 })
             v["inv"] = torch.as_tensor(self._bucket_gathers(key), dtype=torch.int64,
                                        device=dev)
         else:
             g = self._global_rows
-            lh = g["lag_half"][bands]
             v.update(idx=i32(g["idx"][bands]), len_mask=f32(g["len_mask"][bands]),
                      lengths=f32(g["lengths"][bands]),
-                     lag_mask=torch.as_tensor(g["lag_mask"][bands]).to(dev),
-                     lo=i32(g["half"] - lh), hi=i32(g["half"] + lh))
+                     lag_mask=torch.as_tensor(g["lag_mask"][bands]).to(dev))
+            if self.base.xcorr_method == "mxu":
+                bt = torch.as_tensor(bands, device=dev)
+                v.update(lo=self._global_tables["lo"][bt], hi=self._global_tables["hi"][bt])
         self._views[key] = v
         return v
 
@@ -400,14 +369,6 @@ class ShardedNarrowBandPipeline:
         ys = [F.filter_bank_fft(seg.to(base.dtype), v["h_bank"], None, self.nfft_ext,
                                 base.zerophase)[..., self.halo:] * self._taper
               for seg in x]                                # S x (B_view, C, Tseg)
-
-        def split(t, W):
-            # (R, S*W, ...) -> (S, R, Wmax, ...), zero-padded windows
-            R = t.shape[0]
-            t = t.reshape((R, S, W) + tuple(t.shape[2:])).transpose(0, 1)
-            pad = Wmax - W
-            return Fnn.pad(t, (0, 0) * (t.dim() - 3) + (0, pad)) if pad else t
-
         prec, sub = base.matmul_precision, base.subsample_delays
         if self._mode == "bucket":
             taus, mds = [], []
@@ -423,8 +384,8 @@ class ShardedNarrowBandPipeline:
                 win = wins[0] if S == 1 else torch.cat(wins, dim=1)
                 tau, _, md = XC.cross_correlate_bounds(win, self._pairs, bc["lo"], bc["hi"],
                                                        tab, plan.fs, prec, sub)
-                taus.append(split(tau, Wg))
-                mds.append(split(md, Wg))
+                taus.append(split_windows(tau, S, Wmax))
+                mds.append(split_windows(md, S, Wmax))
             tau = torch.cat(taus, dim=1)[:, v["inv"]]
             mdccm = torch.cat(mds, dim=1)[:, v["inv"]]
         else:
@@ -437,7 +398,7 @@ class ShardedNarrowBandPipeline:
             else:
                 tau, _, md = XC.cross_correlate(win, self._pairs, v["lag_mask"],
                                                 base.nfft_corr, plan.fs)
-            tau, mdccm = split(tau, Wmax), split(md, Wmax)
+            tau, mdccm = split_windows(tau, S, Wmax), split_windows(md, S, Wmax)
         outs = [base._solve_masked(t, m, self._geometry, v["win_mask"])
                 for t, m in zip(tau, mdccm)]
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}

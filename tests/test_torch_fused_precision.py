@@ -243,7 +243,7 @@ def test_pipeline_cpu_equals_jax_fused_highest(small_stream, jax_fused_highest, 
     _, tp = _plans(st, 4, "adaptive")
     rij = get_rij(st.latitudes, st.longitudes, st.nchans)
     pipe = TPipe(tp, rij, xcorr_method="fused", matmul_precision=precision, device="cpu")
-    assert pipe._prepared == {}
+    assert pipe._xtab and all(t["prepared"] is None for t in pipe._xtab.values())
     _close(pipe.run_raw(st.data), jax_fused_highest, OUTS)
 
 

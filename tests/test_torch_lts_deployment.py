@@ -12,7 +12,7 @@ from the reference's dropped pairs.  At ALPHA 1 the same holds OLS.  Under
 a CPU ``torch.profiler`` an LTS call records one ``nbls.stdict`` span (the
 host's flag dictionary), inside ``nbls.api`` and outside the step and the
 package, an OLS call none, and the dictionary is the same with the
-profiler as without.
+profiler as without (on 2 bands of 120 s segments).
 """
 
 import collections
@@ -37,6 +37,8 @@ TRAFFIC = json.loads((ROOT / "portbench/traffic/archive_outlier.json").read_text
 # the cell cut to 3 bands of 300 s segments; one segment a seed
 SMALL = dict(CFG, NBANDS=3, SEGMENT_S=300.0)
 SEEDS = [2 ** 31 + 101, 2 ** 31 + 102, 2 ** 31 + 103]
+# the span tests only count spans: 2 bands of 120 s segments
+TINY = dict(CFG, NBANDS=2, SEGMENT_S=120.0)
 
 
 def segment(seed, cfg=SMALL):
@@ -126,7 +128,7 @@ def _enclosing(e):
 
 @pytest.fixture(scope="module")
 def lts_segment():
-    return segment(SEEDS[0])[1]
+    return segment(SEEDS[0], TINY)[1]
 
 
 @pytest.mark.parametrize("entry", ["api", "ltsva"])
@@ -135,13 +137,13 @@ def test_an_lts_call_records_one_stdict_span(lts_segment, entry):
 
     def lts():
         if entry == "api":
-            return call(st, 0.75)[4]
+            return call(st, 0.75, TINY)[4]
         return api.ltsva(st, st.latitudes, st.longitudes, 60.0, 0.5, 0.75, device="cpu")[4]
 
     lts()                                            # builds the pipeline outside
     with profile(activities=[ProfilerActivity.CPU]) as prof:
         first, second = lts(), lts()
-        ols = call(st, 1.0)
+        ols = call(st, 1.0, TINY)
     assert first is not None and second is not None and ols[4] is None
     spans = _spans(prof)
     calls = [e for e in spans if e.name == "nbls.api"]
@@ -160,9 +162,9 @@ def test_an_lts_call_records_one_stdict_span(lts_segment, entry):
 
 
 def test_the_stdict_is_the_same_under_the_profiler(lts_segment):
-    plain = call(lts_segment, 0.75)[4]
+    plain = call(lts_segment, 0.75, TINY)[4]
     with profile(activities=[ProfilerActivity.CPU]):
-        traced = call(lts_segment, 0.75)[4]
+        traced = call(lts_segment, 0.75, TINY)[4]
     assert list(plain) == list(traced)
     assert plain["size"] == traced["size"] == 8
     for key in plain:

@@ -446,7 +446,8 @@ def test_state_round_trip_with_jax_constants(outlier_stream):
 
 
 # --------------------------------------------------------------------------
-# large arrays (tests/test_large_array.py)
+# large arrays (tests/test_large_array.py; the JAX-parity runs are in
+# tests/test_torch_lts_large.py)
 # --------------------------------------------------------------------------
 
 BAZ, VEL = 285.0, 0.33
@@ -460,38 +461,6 @@ def _large(nchans, outliers, duration_s=160.0):
     )
     jp, tp = _plans(st)
     return st, jp, tp, get_rij(st.latitudes, st.longitudes, st.nchans)
-
-
-def _element_counts(flags, pairs, nchans):
-    counts = np.zeros(nchans)
-    for p, (i, j) in enumerate(pairs):
-        counts[i] += flags[..., p].sum()
-        counts[j] += flags[..., p].sum()
-    return counts
-
-
-@pytest.mark.parametrize("nchans,outliers,kw", [
-    (12, (3, 9), dict(alpha=0.7)),
-    (16, (11,), dict(alpha=0.75, max_lts_candidates=2048, lts_candidate_chunk=512,
-                     lts_funnel_k=64)),
-], ids=["P66", "P120-subsampled-chunk-funnel"])
-def test_large_array_matches_jax(delays, nchans, outliers, kw):
-    """Mirror of ``test_large_array.py:53`` (P = 66, exhaustive) and
-    ``:129`` (P = 120, subsampled, chunked, funnel): flags equal JAX's, the
-    event is recovered and the outliers are the most flagged elements."""
-    st, jp, tp, rij = _large(nchans, outliers, 120.0)
-    want = JPipe(jp, rij, **kw).run_raw(st.data)
-    pipe = NarrowBandPipeline(tp, rij, device="cpu", **kw)
-    got = pipe.run_raw(st.data)
-    _check(pipe, got, want, delays)
-    out = {k: v.numpy() for k, v in got.items()}
-    good = out["mdccm"] > 0.4
-    assert good.sum() > 3
-    d = np.abs((out["baz"][good] - BAZ + 180.0) % 360.0 - 180.0)
-    assert np.median(d) < 4.0
-    assert abs(np.median(out["vel"][good]) - VEL) < 0.03
-    counts = _element_counts(out["flags"][good], pipe.pairs_np, nchans)
-    assert set(np.argsort(counts)[-len(outliers):]) == set(outliers)
 
 
 def test_large_array_candidate_policy():

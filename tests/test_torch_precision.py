@@ -236,7 +236,7 @@ def test_pipeline_cpu_same_at_every_precision_and_equals_jax(small_stream, metho
     runs = {}
     for prec in ("high", "highest"):
         pipe = TPipe(tp, rij, xcorr_method=method, matmul_precision=prec, device="cpu")
-        assert pipe._prepared == {}
+        assert pipe._xtab and all(t["prepared"] is None for t in pipe._xtab.values())
         runs[prec] = pipe.run_raw(st.data)
     for k in OUTS:
         a, b = runs["high"][k], runs["highest"][k]

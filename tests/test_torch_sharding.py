@@ -81,6 +81,8 @@ CASES = {
     "max-lag": ((2, 4), {"max_lag_s": 8.0}),
     "funnel": ((2, 4), {"alpha": 0.75, "lts_funnel_k": 8}),
     "global-mxu": ((2, 4), {"bucket_bands": False}),
+    "global-band-limit-40db": ((2, 4), {"bucket_bands": False, "band_limit_db": 40.0}),
+    "global-band-limit-auto": ((2, 4), {"bucket_bands": False, "band_limit_db": "auto"}),
     "gather": ((2, 2), {"window_method": "gather"}),
     "patches-2x1": ((2, 1), {"window_method": "patches"}),
     "patches-2x2": ((2, 2), {"window_method": "patches"}),

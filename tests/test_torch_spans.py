@@ -18,6 +18,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from narrow_band_least_squares_tpu_torch import api
 from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
+from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
 from narrow_band_least_squares_tpu_torch.utils import profiling as P
 
 # each span's enclosing span; the spans that come once a bucket
@@ -144,6 +145,34 @@ def test_ltsva_and_run_raw_name_their_layers(small):
     names = collections.Counter(e.name for e in _spans(prof))
     assert names["nbls.step"] == names["nbls.h2d"] == names["nbls.filter"] == 1
     assert names["nbls.api"] == names["nbls.package"] == 0
+
+
+@pytest.mark.parametrize("kw", [{}, {"xcorr_method": "pallas"}, {"bucket_bands": False},
+                                {"subsample_delays": True}],
+                         ids=["mxu", "pallas", "unbucketed", "subsample"])
+def test_nothing_runs_between_a_buckets_windows_and_its_spectra(small, kw):
+    """Each band's lag bounds are built once, at `load_state`
+    (`ops.xcorr.lag_tables`): a step runs no operation between a bucket's
+    ``nbls.windows`` and its ``nbls.spectra``, where the capture on the card
+    would cut an empty graph."""
+    st, freqlist, nbands, winlens = small
+    plan = api.make_plan(freqlist, "log", winlens, 0.5, st.npts, st.fs)
+    rij = api.get_rij(list(st.latitudes), list(st.longitudes), st.nchans)
+    pipe = NarrowBandPipeline(plan, rij, device="cpu", **kw)
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        pipe.run_raw(st.data)
+    events = prof.profiler.function_events
+    windows, spectra = ([e for e in events if e.name == name]
+                        for name in ("nbls.windows", "nbls.spectra"))
+    assert len(windows) == len(spectra) == (len(pipe._buckets) or 1)
+    ops = [e for e in events if e.name.startswith("aten::")]
+    assert ops
+    for w, s in zip(*(sorted(v, key=lambda e: e.time_range.start)
+                      for v in (windows, spectra))):
+        assert w.time_range.end <= s.time_range.start
+        between = [e.name for e in ops if w.time_range.end <= e.time_range.start
+                   and e.time_range.end <= s.time_range.start]
+        assert between == []
 
 
 def test_span_is_a_shared_no_op_without_a_profiler(small):

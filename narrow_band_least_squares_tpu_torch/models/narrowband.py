@@ -76,6 +76,13 @@ graph_captures = 0
 graph_replays = 0
 eager_steps = 0
 graph_fallbacks = 0
+# `run`'s frequency responses since the counts were last set to 0: taken
+# from the pipeline's cache (`NarrowBandPipeline._freq_response`), or
+# computed by SciPy
+freqz_hits = 0
+freqz_misses = 0
+# the distinct frequency lists whose responses a pipeline keeps
+_FREQZ_KEEP = 4
 
 
 @dataclass
@@ -447,6 +454,8 @@ class NarrowBandPipeline:
         # `run`'s CUDA graphs (`_run_step`): on the card only
         self._graph_backend = CudaGraphs(self.device) if self.device.type == "cuda" else None
         self._runs, self._x_static, self._graphs_failed = 0, None, False
+        # `_freq_response`'s results by frequency list, oldest first
+        self._freqz: Dict[tuple, tuple] = {}
         # one `run` at a time: a replay's outputs are the graphs' own tensors
         self._run_lock = threading.Lock()
         self.load_state(state_from_numpy(st))
@@ -765,7 +774,8 @@ class NarrowBandPipeline:
             ) -> NarrowBandResult:
         """Execute on one ArrayStream (shape-checked against the plan).  On
         the card the step is replayed from CUDA graphs from the second call
-        on (`_run_step`)."""
+        on (`_run_step`); a repeated ``freq_resp_list`` takes its responses
+        from the pipeline's cache (`_freq_response`)."""
         if st.npts != self.plan.npts:
             raise ValueError(
                 f"stream has {st.npts} samples but plan was built for {self.plan.npts}"
@@ -790,6 +800,28 @@ class NarrowBandPipeline:
         return {k: torch.stack([o[k] for o in outs]) for k in outs[0]}
 
     # ------------------------------------------------------------------
+    def _freq_response(self, freq_resp_list) -> tuple:
+        """``(w_array, h_array)`` of `F.sosfreqz_bank` for the pipeline's
+        filters at ``freq_resp_list``, kept for the last `_FREQZ_KEEP`
+        distinct lists by their exact bytes, dtype and shape: a list equal
+        in value but of another dtype, or one changed in place since, is
+        computed anew.  The caller gets fresh copies, hit or miss.  The
+        filters and ``fs`` are fixed for the pipeline's life."""
+        global freqz_hits, freqz_misses
+        arr = np.asarray(freq_resp_list)
+        key = None if arr.dtype.hasobject else (arr.dtype.str, arr.shape, arr.tobytes())
+        got = self._freqz.get(key)
+        if got is None:
+            freqz_misses += 1
+            got = F.sosfreqz_bank(self.sos_list, arr, self.plan.fs)
+            if key is not None:
+                if len(self._freqz) >= _FREQZ_KEEP:
+                    del self._freqz[next(iter(self._freqz))]
+                self._freqz[key] = got
+        else:
+            freqz_hits += 1
+        return got[0].copy(), got[1].copy()
+
     def _package(
         self, dev: Dict[str, torch.Tensor], start_epoch: float,
         freq_resp_list: Optional[np.ndarray],
@@ -803,11 +835,9 @@ class NarrowBandPipeline:
             w_array = h_array = None
             if self.sos_list is not None and freq_resp_list is not None:
                 with span("nbls.freqz"):
-                    w_array, h_array = F.sosfreqz_bank(
-                        self.sos_list, np.asarray(freq_resp_list), plan.fs
-                    )
-            # the host work above overlaps the step's tail on the device;
-            # the copies wait for it
+                    w_array, h_array = self._freq_response(freq_resp_list)
+            # the host work above overlaps the step's tail on the device,
+            # SciPy's on a miss of the cache; the copies wait for the tail
             dense = {}
             with span("nbls.d2h"):
                 for name in _OUTPUTS + ("mdccm",):

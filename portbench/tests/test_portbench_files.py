@@ -25,6 +25,32 @@ def test_top_level_keys_and_command():
     assert 1 <= BENCH["run_seconds"] <= 51
 
 
+def option_faults(d: dict, why: str) -> list:
+    """What is wrong with configuration ``d``'s ``options`` (its entry's
+    ``why`` beside it): each key has to be a keyword parameter of the
+    port's ``NarrowBandPipeline`` (the harness hands them to it), and each
+    option has to be named, by key or by value, in the file's
+    ``deployment`` and in the entry's ``why``, since a configuration off
+    the port's defaults is another deployment.  Empty: the port's
+    defaults, what users get."""
+    import inspect
+
+    from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
+
+    params = inspect.signature(NarrowBandPipeline).parameters
+    keywords = {n for n, p in params.items()
+                if p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+                and p.default is not p.empty}
+    faults = []
+    for key, value in d["options"].items():
+        if key not in keywords:
+            faults.append(f"{key!r} is not a keyword of NarrowBandPipeline")
+        for where, text in (("deployment", d["deployment"]), ("why", why)):
+            if key not in text and str(value) not in text:
+                faults.append(f"{key!r} is not named in the {where}")
+    return faults
+
+
 @pytest.mark.parametrize("cfg", BENCH["configs"], ids=lambda c: c["name"])
 def test_config_file_found_and_parses(cfg):
     spec = Spec()
@@ -33,9 +59,36 @@ def test_config_file_found_and_parses(cfg):
     assert cfg["file"].startswith("portbench/configs/") and NAME.match(cfg["name"])
     assert set(cfg) == {"name", "source", "file", "reduced", "why"}
     assert d["dtype"] == "float32" and d["reduced"] == cfg["reduced"] == []
-    assert d["options"] == {}       # the port's defaults: what users get
+    assert option_faults(d, cfg["why"]) == []
     g = d["guarantee"]
     assert g["mdccm_abs"] > 0 and 0 < g["window_share"] < 1
+
+
+def test_a_configuration_with_an_option_the_port_lacks_is_refused(tmp_path):
+    """A configuration whose ``options`` names a key ``NarrowBandPipeline``
+    does not take, in a temporary checkout, fails the check above; the
+    same configuration with the port's keywords passes it."""
+    shutil.copytree(ROOT / "portbench/configs", tmp_path / "portbench/configs")
+    bench = json.loads((ROOT / "BENCHMARK.json").read_text())
+    entry = {"name": "odd_route", "source": BENCH["configs"][0]["source"],
+             "file": "portbench/configs/odd_route.json", "reduced": [],
+             "why": "a test: xcorr_method fused"}
+    bench["configs"].append(entry)
+    (tmp_path / "BENCHMARK.json").write_text(json.dumps(bench))
+    cfg = json.loads((ROOT / "portbench/configs/i53_example.json").read_text())
+    cfg.update(name="odd_route", deployment="a test on the fused route",
+               options={"xcorr_method": "fused", "xcorr_algorithm": "fused"})
+    (tmp_path / entry["file"]).write_text(json.dumps(cfg))
+    d = Spec(tmp_path).config("odd_route")
+    assert option_faults(d, entry["why"]) == [
+        "'xcorr_algorithm' is not a keyword of NarrowBandPipeline"]
+    del d["options"]["xcorr_algorithm"]
+    assert option_faults(d, entry["why"]) == []
+    # an option the deployment and the why leave unsaid is refused too
+    d["options"]["matmul_precision"] = "default"
+    assert option_faults(d, entry["why"]) == [
+        "'matmul_precision' is not named in the deployment",
+        "'matmul_precision' is not named in the why"]
 
 
 @pytest.mark.parametrize("cell", BENCH["workloads"], ids=lambda w: w["name"])

@@ -120,11 +120,16 @@ def test_the_roofline_reads_nothing_for_ols_or_no_segment():
 
 
 def test_the_benchmark_keeps_its_entries():
-    """Only names appended to existing entries; the new ones at the end."""
+    """Only names appended to existing entries: the LTS cell's entries come
+    after the entries that were there before them, and whatever was added
+    later comes after them."""
     bench = json.loads((ROOT / "BENCHMARK.json").read_text())
-    assert [w["name"] for w in bench["workloads"]][-1] == CELL
-    assert [c["name"] for c in bench["configs"]][-1] == CONFIG
-    assert [m["name"] for m in bench["per_layer"]][-2:] == list(NEW)
+    earlier = ["i53.archive", "onethird.archive"]
+    assert [w["name"] for w in bench["workloads"]][:3] == earlier + [CELL]
+    assert [c["name"] for c in bench["configs"]][:3] == ["i53_example", "i53_onethird", CONFIG]
+    layer = [m["name"] for m in bench["per_layer"]]
+    assert layer[12:14] == list(NEW) and not set(layer[:12]) & set(NEW)
     for m in bench["end_to_end"] + bench["per_layer"]:
         if CELL in m.get("workloads", []):
-            assert m["workloads"][-1] == CELL
+            ws = m["workloads"]
+            assert set(ws[:ws.index(CELL)]) <= set(earlier)

@@ -12,6 +12,16 @@ With ``ALPHA < 1`` the call's ``stdict`` is kept too, and the answer holds
 for each band and valid window the sorted 1-based elements under the key
 of the answer's own window time (None where the key is absent), and the
 ``stdict``'s ``size``.
+
+The entry contract (`harness.spec`): ``stream(call)`` makes the call's
+input from ``call.data``, ``(C, span)`` for one array and ``(A, C, span)``
+for a network of A arrays (a configuration's ``arrays``, in its order);
+``answer(g, deployment)`` gives a segment's answer, for a network a list of
+A answers in the configuration's order, each a dict as here (None, or a
+list of another length, counts every array's answer missing);
+``present(g, arrived)`` is the same for one array and a network: whether
+the segment's answer reached the caller.  This entry runs one array
+(``traffic.lats``/``lons``).
 """
 
 from __future__ import annotations

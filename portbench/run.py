@@ -12,7 +12,9 @@ metrics (``portbench/metrics/``) read from a ``torch.profiler`` trace of
 the window (its first `TRACE_SECONDS` at most), and a breakdown.  Either way the answers due in the window are
 then checked against the plain float64 reference (``portbench/reference/``)
 and the numbers compared are printed beside their limits, as the last
-lines of standard error and under ``checks`` in the result.
+lines of standard error and under ``checks`` in the result.  A network's
+segment (a configuration's ``arrays``) is one due answer an array, each
+held against the reference on that array's own data and geometry.
 
 Exits 2 without a result where CUDA is absent or has fewer cards than the
 cell asks for, and 3 where the window's process holds JAX or the JAX
@@ -137,7 +139,8 @@ def main(argv=None, device=None, options=None) -> int:
     phases = [("imports and context", time.perf_counter())]
     traffic = Traffic(cfg, params, args.seed)
     dep = Deployment(cfg, traffic.npts)
-    per_segment = sum(dep.num_compute_list)
+    # a network's segment carries every array's windows
+    per_segment = sum(dep.num_compute_list) * len(traffic.arrays)
     phases.append(("input pool", time.perf_counter()))
     options = {**cfg.get("options", {}), **params.get("options", {}), **(options or {})}
     entry = spec.module("entries", params["entry"]).Entry(cfg, params, traffic, device, options)
@@ -204,19 +207,26 @@ def main(argv=None, device=None, options=None) -> int:
         if on_card:
             torch.cuda.empty_cache()
 
-        # the check, once the window has closed and the program's state is freed
-        rij = get_rij(traffic.lats, traffic.lons, len(traffic.lats))
+        # the check, once the window has closed and the program's state is
+        # freed: a due answer a segment and array, on the array's own geometry
+        rijs = [get_rij(lats, lons, len(lats)) for _, lats, lons in traffic.arrays]
         tally = Tally(cfg["guarantee"], traffic.fs)
         chosen = set(sample.items)
         for g in due:
-            name = f"segment {g} at {traffic.segment_epoch(g):.0f}"
+            epoch = traffic.segment_epoch(g)
+            names = ([f"segment {g} array {name}" for name, _, _ in traffic.arrays]
+                     if traffic.network else [f"segment {g} at {epoch:.0f}"])
             if g not in chosen:
                 if not entry.present(g, arrived):
-                    tally.add(name, None, [])
+                    for name in names:
+                        tally.add(name, None, [])
                 continue
-            ref = solve_segment(dep, rij, traffic.segment(g), traffic.segment_epoch(g),
-                                context=traffic.context_of(g), device=device)
-            tally.add(name, entry.answer(g, dep), ref)
+            answers = by_array(entry.answer(g, dep), len(names), traffic.network)
+            for name, rij, ans, data, context in zip(
+                    names, rijs, answers, traffic.per_array(traffic.segment(g)),
+                    traffic.per_array(traffic.context_of(g))):
+                ref = solve_segment(dep, rij, data, epoch, context=context, device=device)
+                tally.add(name, ans, ref)
     finally:
         entry.close()
 
@@ -236,7 +246,7 @@ def main(argv=None, device=None, options=None) -> int:
         tr = prof.trace
         ctx_ns = SimpleNamespace(trace=tr, segments=done_segments, calls=attempted,
                                  window_s=window_s, route=route, cfg=cfg, params=params,
-                                 spec=spec, deployment=dep)
+                                 spec=spec, deployment=dep, arrays=len(traffic.arrays))
         for m in spec.per_layer(args.workload):
             value = spec.module("metrics", m["name"]).read(ctx_ns)
             if value is not None:
@@ -275,6 +285,17 @@ def main(argv=None, device=None, options=None) -> int:
         print(f"check {name}: {v['value']!r} limit {v['limit']!r}", file=sys.stderr, flush=True)
     print(json.dumps(result), flush=True)
     return 0
+
+
+def by_array(answer, n: int, network: bool) -> list:
+    """An entry's answer for a segment as one answer an array: a network's
+    is a list of ``n`` in the configuration's order, and None or a list of
+    another length counts every array's answer missing."""
+    if not network:
+        return [answer]
+    if isinstance(answer, list) and len(answer) == n:
+        return answer
+    return [None] * n
 
 
 def percentile(values, q: float) -> float:

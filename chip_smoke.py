@@ -26,6 +26,12 @@ Phases, in order (``--phases`` picks a subset for a quick check):
 - ``kernel``: ``icorr_peak`` against its plain version at each
   ``matmul_precision``: 'highest' (fp32 CUDA cores), 'high' (3xTF32) and
   'default' (1xTF32) on the tensor cores;
+- ``spectra``: ``pair_spectra``'s ``cs2`` (``csrc/pair_spectra.cu``) bit
+  for bit the eager gathers, products, ``cat`` and pad on every bucket of
+  the canonical and one-third-octave plans ('mxu' at 'high'; canonical
+  also at 'highest' and with ``subsample_delays``) and of a
+  ``MultiArrayPipeline`` step, one launch a bucket; the kernel's device ms
+  a step against the byte bound and the plain chain's;
 - ``main``: the canonical run with the default ``xcorr_method='mxu'`` at
   the default 'high' (tensor-core route), then at 'highest' (fp32 route)
   and 'default';
@@ -189,7 +195,7 @@ FUSED_DEFAULT_ATOL = 1.2e-4
 PRECISIONS = ("highest", "high", "default")
 MULTI_TOL = 1e-5      # 'mxu' multi-array against single-array runs
 MULTI_BAZ = (200.0, 210.0, 220.0, 230.0)   # benchmarks/scaling.py arrays
-PHASES = ("build", "kernel", "main", "fused-kernel", "fused-main",
+PHASES = ("build", "kernel", "spectra", "main", "fused-kernel", "fused-main",
           "multiarray", "sharded", "lts", "monitor", "ingest", "golden", "cli",
           "options", "timing", "graph")
 LTS_ALPHA = 0.75
@@ -440,16 +446,186 @@ def phase_kernel():
 
 
 # --------------------------------------------------------------------------
+# pair_spectra against the eager chain
+# --------------------------------------------------------------------------
+
+def capture_pair_spectra(run):
+    """Run ``run()`` with a recorder around the xcorr module's pair_spectra
+    that holds each launch's ``cs2`` bit for bit against the plain version
+    on the same card tensors (the eager gathers, products, cat and pad).
+    Returns (the inputs of every call, kernel launches counted)."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
+    from narrow_band_least_squares_tpu_torch.ops.kernels import pair_spectra as PS
+
+    real, seen = XC.pair_spectra, []
+
+    def rec(re, s, pairs, width):
+        out = real(re, s, pairs, width)
+        want = PS.pair_spectra_reference(re, s, pairs, width)
+        if not torch.equal(out.view(torch.int32), want.view(torch.int32)):
+            bad = int((out.view(torch.int32) != want.view(torch.int32)).sum())
+            fail(f"pair_spectra: {bad} of {out.numel()} elements of cs2 "
+                 f"{tuple(out.shape)} differ from the eager chain's bits")
+        seen.append((re.clone(), s.clone(), pairs, width))
+        return out
+
+    before = PS.launches
+    XC.pair_spectra = rec
+    try:
+        run()
+        torch.cuda.synchronize()
+    finally:
+        XC.pair_spectra = real
+    return seen, PS.launches - before
+
+
+# One launch with pair indices outside [-3, 3) in a process of its own: the
+# kernel traps, and a trap leaves that process's CUDA context unusable.
+TRAP_CHECK = r"""
+import os, sys, torch
+from narrow_band_least_squares_tpu_torch.ops.kernels import pair_spectra as PS
+re = torch.ones((4, 3, 16), device="cuda")
+pairs = torch.tensor([[0, 1], [int(sys.argv[1]), 2]], device="cuda")
+try:
+    out = PS.pair_spectra(re, re.clone(), pairs, 32)
+    torch.cuda.synchronize()
+except Exception as e:
+    print(f"refused: {type(e).__name__}: {str(e).splitlines()[0]}", flush=True)
+    os._exit(0)   # no teardown in a failed context
+print("returned", float(out.abs().sum()), flush=True)
+os._exit(1)
+"""
+
+
+def check_pair_spectra_traps():
+    """A pair index of C or of -C - 1 must fail the launch, not read the
+    staging of another element or outside it."""
+    procs = {i: subprocess.Popen([sys.executable, "-c", TRAP_CHECK, str(i)],
+                                 cwd=os.path.dirname(os.path.abspath(__file__)),
+                                 stdout=subprocess.PIPE,
+                                 stderr=subprocess.PIPE, text=True)
+             for i in (3, -4, 1000)}
+    for i, p in procs.items():
+        out, err = p.communicate(timeout=300)
+        if p.returncode != 0:
+            fail(f"pair_spectra with pair index {i} of 3 elements ran to its end "
+                 f"(rc {p.returncode}): {out.strip()} {err.strip()[-2000:]}")
+        log(f"pair_spectra with pair index {i} of 3 elements: {out.strip()}")
+
+
+def pair_spectra_bytes(re, s, pairs, width):
+    """re and s read once, cs2 written once."""
+    N, C, K = re.shape
+    return 4 * (2 * N * C * K + N * pairs.shape[0] * width) + 8 * pairs.numel()
+
+
+def phase_spectra(label):
+    """pair_spectra's cs2 bit for bit the eager chain's on every bucket of
+    the benchmark's two plans ('mxu' at 'high', also 'highest' and
+    subsample_delays on the canonical plan) and of a MultiArrayPipeline
+    step, one launch a bucket of an eager step; then the kernel's and the
+    plain chain's device ms a step beside the byte bound."""
+    import torch
+    from narrow_band_least_squares_tpu_torch.models import (
+        MultiArrayPipeline, NarrowBandPipeline,
+    )
+    from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
+    from narrow_band_least_squares_tpu_torch.ops.kernels import pair_spectra as PS
+    from narrow_band_least_squares_tpu_torch.utils import (
+        get_freqlist, get_rij, get_winlenlist, make_plan,
+    )
+    from narrow_band_least_squares_tpu_torch.utils.geometry import pair_indices
+
+    st, _, _ = canonical_inputs()
+    rij = get_rij(st.latitudes, st.longitudes, st.nchans)
+    plans = {}
+    for name, kind in (("i53_example", "log"), ("i53_onethird", "onethird_octave")):
+        fl, nb, _ = get_freqlist(FMIN, FMAX, kind, NBANDS)
+        wl = get_winlenlist("adaptive", nb, WINLEN, WINLEN_1, WINLEN_X)
+        plans[name] = make_plan(fl, kind, wl, WINOVER, st.npts, FS)
+    steps = {}
+    for name, plan, kw in (
+            ("i53_example", plans["i53_example"], {}),
+            ("i53_onethird", plans["i53_onethird"], {}),
+            ("i53_example highest", plans["i53_example"], {"matmul_precision": "highest"}),
+            ("i53_example subsample", plans["i53_example"], {"subsample_delays": True})):
+        pipe = NarrowBandPipeline(plan, rij, device="cuda", **kw)
+        seen, n = capture_pair_spectra(lambda: pipe.run_raw(st.data))
+        if n != len(pipe._buckets) or len(seen) != n:
+            fail(f"pair_spectra {name}: {n} launches and {len(seen)} calls in an eager "
+                 f"step of {len(pipe._buckets)} buckets")
+        steps[name] = seen
+        log(f"pair_spectra {name}: cs2 of all {n} buckets bit for bit the eager chain "
+            f"(shapes {[(a[0].shape[0] * a[2].shape[0], a[3]) for a in seen]}), "
+            f"one launch a bucket")
+    # shapes no pipeline gives: odd widths (one column a thread), more
+    # elements than a block stages at 64 columns, a single pair, odd K
+    for C, P, K, width, seed in ((3, 3, 37, 77, 1), (5, 10, 64, 128, 2),
+                                 (100, 4950, 45, 96, 3), (2, 1, 1, 5, 4)):
+        g = torch.Generator(device="cuda").manual_seed(seed)
+        re, s = (torch.randn((7, C, K), generator=g, device="cuda") for _ in range(2))
+        pairs = torch.from_numpy(pair_indices(C)[:P]).long().cuda()
+        _, n = capture_pair_spectra(lambda: XC.pair_spectra(re, s, pairs, width))
+        if n != 1:
+            fail(f"pair_spectra C={C} P={P} K={K} width={width}: {n} launches")
+    log("pair_spectra bit for bit the eager chain at C=3/5/100/2, K=37/64/45/1, "
+        "widths 77/128/96/5")
+    re, s = (torch.randn((7, 6, 40), device="cuda") for _ in range(2))
+    pairs = torch.from_numpy(pair_indices(6)).long()
+    pairs[::2, 0] -= 6
+    pairs[1::3, 1] -= 6
+    capture_pair_spectra(lambda: XC.pair_spectra(re, s, pairs.cuda(), 128))
+    log(f"pair_spectra: indices in [-6, 0) count from the end as in the eager chain "
+        f"({int((pairs < 0).sum())} of {pairs.numel()})")
+    check_pair_spectra_traps()
+    plan, rijs, data = multiarray_inputs()
+    multi = MultiArrayPipeline(plan, rijs, xcorr_method="mxu", device="cuda")
+    seen, n = capture_pair_spectra(lambda: multi.run_raw(data))
+    if n == 0 or len(seen) != n:
+        fail(f"pair_spectra multiarray: {n} launches for {len(seen)} calls")
+    log(f"pair_spectra MultiArrayPipeline (A={len(rijs)}): cs2 of all {n} calls bit for "
+        f"bit the eager chain")
+
+    recs = []
+    for name in ("i53_example", "i53_onethird"):
+        args = steps[name]
+        kernel = lambda: [PS.pair_spectra(*a) for a in args]
+        plain = lambda: [PS.pair_spectra_reference(*a) for a in args]
+        t = {"kernel": [], "plain": []}
+        for _ in range(3):   # in turns
+            t["kernel"].append(device_ms(kernel, reps=20))
+            t["plain"].append(device_ms(plain, reps=20))
+        ms, plain_ms = float(np.median(t["kernel"])), float(np.median(t["plain"]))
+        nbytes = sum(pair_spectra_bytes(*a) for a in args)
+        bound_ms = nbytes / PEAK_HBM_BYTES * 1e3
+        log(f"[{label}] pair_spectra {name} step ({len(args)} launches): {ms:.4f} ms "
+            f"(turns {[round(v, 4) for v in t['kernel']]}), bound {bound_ms:.4f} ms "
+            f"({nbytes / 1e6:.2f} MB at 3.35 TB/s; {100 * bound_ms / ms:.1f}% of it), "
+            f"plain chain {plain_ms:.4f} ms (turns {[round(v, 4) for v in t['plain']]})")
+        recs.append({
+            "name": f"pair_spectra@{name}", "route": "cuda",
+            "source": "narrow_band_least_squares_tpu_torch/csrc/pair_spectra.cu",
+            "replaces": "narrow_band_least_squares_tpu/ops/xcorr.py cross-spectra "
+                        "(XLA gathers and products)",
+            "launches": 0, "launches_run_raw": len(args),   # launches: main()
+            "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": "bytes", "library_ms": None,
+        })
+    return recs
+
+
+# --------------------------------------------------------------------------
 # the main path
 # --------------------------------------------------------------------------
 
-def run_api(st, freqlist, winlens, device, alpha=1.0):
+def run_api(st, freqlist, winlens, device, alpha=1.0, kind="log", nbands=NBANDS):
     from narrow_band_least_squares_tpu_torch import api
 
     fr = np.logspace(-2, np.log10(FS / 2), 100)
     return api.narrow_band_least_squares(
-        winlens, WINOVER, alpha, st, st.latitudes, st.longitudes, NBANDS,
-        None, None, freqlist, "log", fr, "cheby1", 2, 0.01, device=device,
+        winlens, WINOVER, alpha, st, st.latitudes, st.longitudes, nbands,
+        None, None, freqlist, kind, fr, "cheby1", 2, 0.01, device=device,
     )
 
 
@@ -517,48 +693,67 @@ def ground_truth(out, ncl, baz_true=BAZ_TRUE, vel_true=VEL_TRUE, label=""):
         fail(f"{label}no band has confident windows")
 
 
-def run_api_at(st, freqlist, winlens, precision):
-    """The canonical API run on the card at ``matmul_precision``; returns
-    (outputs, launches of the fp32 route, launches of the tensor-core
-    route)."""
+def run_api_at(st, freqlist, winlens, precision, kind="log", nbands=NBANDS):
+    """The API run on the card at ``matmul_precision`` (the canonical plan,
+    or ``kind``'s); its step is eager, so ``pair_spectra`` must launch once
+    a bucket of the pipeline the call built.  Returns (outputs, launches of
+    the fp32 route, launches of the tensor-core route, pair_spectra
+    launches)."""
     import torch
     from narrow_band_least_squares_tpu_torch import api
+    from narrow_band_least_squares_tpu_torch.ops.kernels import pair_spectra as PS
     from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+    from narrow_band_least_squares_tpu_torch.utils import get_rij, make_plan
 
     prev = api.set_performance_defaults(
         matmul_precision=None if precision == "high" else precision)
     try:
-        XP.launches = XP.launches_tc = 0
+        XP.launches = XP.launches_tc = PS.launches = 0
         t0 = time.perf_counter()
-        out = run_api(st, freqlist, winlens, "cuda")
+        out = run_api(st, freqlist, winlens, "cuda", kind=kind, nbands=nbands)
         torch.cuda.synchronize()
         t_first = time.perf_counter() - t0
-        f32, tc = XP.launches, XP.launches_tc
+        f32, tc, ps = XP.launches, XP.launches_tc, PS.launches
+        # the pipeline the call built, from the API's cache
+        plan = make_plan(freqlist, kind, winlens, WINOVER, st.npts, st.fs)
+        pipe = api._get_pipeline(plan, get_rij(st.latitudes, st.longitudes, st.nchans),
+                                 alpha=1.0, device="cuda")
+        buckets = len(pipe._buckets)
     finally:
         api.set_performance_defaults(matmul_precision=None)
         api.set_performance_defaults(**prev)
-    log(f"main path at {precision} (cuda, first call incl. host set-up): "
+    log(f"main path {kind} at {precision} (cuda, first call incl. host set-up): "
         f"{t_first:.3f} s, icorr_peak launches: fp32 route {f32}, "
-        f"tensor-core route {tc}")
-    return out, f32, tc
+        f"tensor-core route {tc}; pair_spectra launches {ps} for {buckets} buckets")
+    if ps != buckets:
+        fail(f"the main path {kind} at {precision} launched pair_spectra {ps} times "
+             f"in an eager step of {buckets} buckets")
+    return out, f32, tc, ps
 
 
 def phase_main():
     """The canonical run at the default 'high' must take the tensor-core
     route only, 'highest' the fp32 route only; both match the CPU run and
     the truth.  'default' (1xTF32 may move near-tied lags) takes the
-    tensor-core route and must hit the truth.  Returns the main-path
-    launches per precision."""
+    tensor-core route and must hit the truth.  Then the one-third-octave
+    plan's API run at 'high'.  Every run launches pair_spectra once a
+    bucket (`run_api_at`).  Returns the main-path icorr_peak launches per
+    precision, and pair_spectra's at 'high' under its kernel records'
+    names."""
+    from narrow_band_least_squares_tpu_torch.utils import get_freqlist, get_winlenlist
+
     st, freqlist, winlens = canonical_inputs()
     cpu = None
     launches = {}
     for prec in ("high", "highest", "default"):
-        gpu, f32, tc = run_api_at(st, freqlist, winlens, prec)
+        gpu, f32, tc, ps = run_api_at(st, freqlist, winlens, prec)
         own, other = (f32, tc) if prec == "highest" else (tc, f32)
         if own == 0 or other != 0:
             fail(f"the main path at {prec} must launch only the "
                  f"{'fp32' if prec == 'highest' else 'tensor-core'} route")
         launches[prec] = own
+        if prec == "high":
+            launches["pair_spectra@i53_example"] = ps
         ncl = gpu[6]
         check_shapes(gpu, ncl, NBANDS)
         if prec != "default":
@@ -566,6 +761,13 @@ def phase_main():
                 cpu = run_api(st, freqlist, winlens, "cpu")
             compare_outputs(gpu, cpu, ncl)
         ground_truth(gpu, ncl, label=f"{prec} ")
+    fl, nb, _ = get_freqlist(FMIN, FMAX, "onethird_octave", NBANDS)
+    wl = get_winlenlist("adaptive", nb, WINLEN, WINLEN_1, WINLEN_X)
+    gpu, f32, tc, ps = run_api_at(st, fl, wl, "high", kind="onethird_octave", nbands=nb)
+    if tc == 0 or f32 != 0:
+        fail("the one-third-octave main path at high must launch only the tensor-core route")
+    check_shapes(gpu, gpu[6], nb)
+    launches["pair_spectra@i53_onethird"] = ps
     return launches
 
 
@@ -4943,7 +5145,7 @@ def phase_graph(label):
     from narrow_band_least_squares_tpu_torch.io import synthetic_plane_wave
     from narrow_band_least_squares_tpu_torch.models import NarrowBandPipeline
     from narrow_band_least_squares_tpu_torch.models import narrowband as NB
-    from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+    from narrow_band_least_squares_tpu_torch.ops.kernels import pair_spectra as PS
     from narrow_band_least_squares_tpu_torch.utils import (
         get_freqlist, get_rij, get_winlenlist, make_plan,
     )
@@ -4997,14 +5199,16 @@ def phase_graph(label):
             f"1 capture, 0 fallbacks ({secs:.2f} s with the checks)")
         if name == "i53_example mxu high":
             zero_launches()
+            PS.launches = 0
             pipe.run(data[1])
-            replayed = lag_search_launches()
+            replayed = lag_search_launches() + (PS.launches,)
             pipe.run_raw(data[1].data)
-            eager = lag_search_launches()
+            eager = lag_search_launches() + (PS.launches,)
             torch.cuda.synchronize()
-            if replayed != (0, 0, 0, 0) or eager[1] != len(pipe._buckets):
+            nb = len(pipe._buckets)
+            if replayed != (0, 0, 0, 0, 0) or (eager[1], eager[4]) != (nb, nb):
                 fail(f"graph: a replay must advance no launch counter ({replayed}) and an "
-                     f"eager step one a bucket ({eager})")
+                     f"eager step one a bucket ({eager}: icorr_peak, pair_spectra)")
         if name.startswith("i53_"):
             twin = NarrowBandPipeline(plans[kind], rij, device="cuda", **kw)
             twin._graph_backend = None
@@ -5149,6 +5353,10 @@ def main() -> int:
     if "kernel" in phases:
         phase_kernel()
         phase_done("kernel")
+    srecs = []
+    if "spectra" in phases:
+        srecs = phase_spectra(label)
+        phase_done("spectra")
     launches = {}
     if "main" in phases:
         launches = phase_main()
@@ -5196,7 +5404,9 @@ def main() -> int:
         phase_done("graph")
     if "options" in phases:
         recs += orecs
-    recs += lrecs
+    for r in srecs:   # the main path's own API runs (phase_main)
+        r["launches"] = launches.get(r["name"], 0)
+    recs += lrecs + srecs
     if recs:
         log(f"[{label}]")
         log(json.dumps({"kernels": recs}))

@@ -43,6 +43,7 @@ from narrow_band_least_squares_tpu_torch.ops import solve as SOLVE
 from narrow_band_least_squares_tpu_torch.ops import xcorr as XC
 from narrow_band_least_squares_tpu_torch.ops.kernels import fused_xcorr as FX
 from narrow_band_least_squares_tpu_torch.ops.kernels import xcorr_peak as XP
+from narrow_band_least_squares_tpu_torch.ops.kernels.pair_spectra import check_pairs
 from narrow_band_least_squares_tpu_torch.ops.windows import (
     build_bucket_grids,
     build_window_grid,
@@ -449,6 +450,7 @@ class NarrowBandPipeline:
         for b, wp in enumerate(plan.windows):
             self._t_epoch_rel[b, : wp.n_windows] = wp.end_times_epoch(0.0, plan.fs)
 
+        check_pairs(pairs, self.nchans)   # once, on the host: a bad index traps the card
         self._pairs = torch.as_tensor(pairs, dtype=torch.int64, device=self.device)
         self._pairs32 = self._pairs.to(torch.int32)
         # `run`'s CUDA graphs (`_run_step`): on the card only

@@ -14,9 +14,11 @@ The last two lines of the chain run in the ``icorr_peak`` kernel, which
 never writes the (rows, lags) correlation out, at the pipeline's
 ``matmul_precision`` (fp32, 3xTF32 or 1xTF32 on the card; see
 `ops.kernels.xcorr_peak`).  The forward-DFT products of ``_cross_spectra``
-stay IEEE fp32 (cuBLAS) at every precision.  Conventions are those of the
-reference: ``cc_p(l) = sum_t x_j(t + l) x_i(t)``, lags ascending, the first
-maximum wins.  Tables are built in float64 on the host and cast to float32.
+stay IEEE fp32 (cuBLAS) at every precision; `ops.kernels.pair_spectra`
+forms the cross-spectra from them at ``e2``'s padded width.  Conventions
+are those of the reference: ``cc_p(l) = sum_t x_j(t + l) x_i(t)``, lags
+ascending, the first maximum wins.  Tables are built in float64 on the
+host and cast to float32.
 
 A table set (a window-length bucket's, or the unbucketed grid's) is built
 once: on the host by `band_tables` (or `precompute_pallas_tables`), with the
@@ -40,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as Fnn
 
+from narrow_band_least_squares_tpu_torch.ops.kernels.pair_spectra import pair_spectra
 from narrow_band_least_squares_tpu_torch.ops.kernels.xcorr_peak import icorr_peak, prepare
 from narrow_band_least_squares_tpu_torch.utils.device import fp32_matmul
 from narrow_band_least_squares_tpu_torch.utils.profiling import span
@@ -264,25 +267,19 @@ def median_last(x: torch.Tensor) -> torch.Tensor:
     return (s[..., (n - 1) // 2] + s[..., n // 2]) * 0.5
 
 
-def _cross_spectra(win, pairs, Cf, Sf):
+def _cross_spectra(win, pairs, Cf, Sf, width):
     """Energies (B, W, C) in the windows' dtype and stacked cross-spectra
-    (B*W*P, 2K); the spectra matmuls are IEEE fp32 (on narrower windows,
-    their exact float32 values) whatever ``matmul_precision`` says."""
+    (B*W*P, ``width``), `pair_spectra`'s ``cs2``; the spectra matmuls are
+    IEEE fp32 (on narrower windows, their exact float32 values) whatever
+    ``matmul_precision`` says."""
     with span("nbls.spectra"):
         B, W, C, Lmax = win.shape
         energy = torch.sum(win * win, dim=-1)
         flat = win.reshape(B * W * C, Lmax).to(Cf.dtype)
         with fp32_matmul():
-            ReF = torch.matmul(flat, Cf).reshape(B, W, C, -1)
-            ImF = (-torch.matmul(flat, Sf)).reshape(B, W, C, -1)
-        i, j = pairs[:, 0], pairs[:, 1]
-        ReI, ImI = ReF[:, :, i, :], ImF[:, :, i, :]
-        ReJ, ImJ = ReF[:, :, j, :], ImF[:, :, j, :]
-        ReCS = ReJ * ReI + ImJ * ImI                     # F_j * conj(F_i)
-        ImCS = ImJ * ReI - ReJ * ImI
-        K = ReCS.shape[-1]
-        cs2 = torch.cat([ReCS, ImCS], dim=-1).reshape(-1, 2 * K)
-        return energy, cs2
+            ReF = torch.matmul(flat, Cf).reshape(B * W, C, -1)
+            S = torch.matmul(flat, Sf).reshape(B * W, C, -1)   # ImF = -S
+        return energy, pair_spectra(ReF, S, pairs, width)
 
 
 def lag_seconds(lag: torch.Tensor, fs: float) -> torch.Tensor:
@@ -328,7 +325,6 @@ def _peak_search(win, pairs, energy, cs2, e2, lo_b, hi_b, lag_min, fs,
     kernel and refines each delay by `subsample_frac`."""
     B, W = win.shape[:2]
     P = pairs.shape[0]
-    cs2 = Fnn.pad(cs2, (0, e2.shape[0] - cs2.shape[1])).contiguous()
     lo = lo_b[:, None].expand(B, W * P).reshape(-1).contiguous()
     hi = hi_b[:, None].expand(B, W * P).reshape(-1).contiguous()
     with span("nbls.lag_search"):
@@ -392,7 +388,7 @@ def cross_correlate_bounds(
     e2 = tables.get("e2")
     if e2 is None:
         e2 = stack_inverse_table(tables["Ec"], tables["Es"])
-    energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"])
+    energy, cs2 = _cross_spectra(win, pairs, tables["Cf"], tables["Sf"], e2.shape[0])
     lag_min = tables.get("lag_min", -(win.shape[-1] - 1))
     return _peak_search(win, pairs, energy, cs2, e2, lo, hi, lag_min, fs,
                         precision, tables.get("prepared"), subsample)
